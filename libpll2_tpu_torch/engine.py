@@ -1,0 +1,373 @@
+"""Forward likelihood engine: a topology compiled once on the host, then
+P-matrices + CLV sweep + log-likelihood on tensors.
+
+Counterpart of the forward half of libpll2_tpu/engine.py
+(`compile_tree`, `Model`, `make_model`, `_sweep`, `loglikelihood`).  The
+CLV sweep runs in the hand-written CUDA tree-sweep kernel on CUDA tensors
+(ops/partials_tree.py) and in the dense level-batched path
+(ops/partials.py) on CPU tensors or when `cfg.use_kernel` is False.
+PyTorch runs eagerly, so there is no jit and no static-argument hashing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import PartitionConfig
+from .ops import likelihood as likelihood_ops
+from .ops import partials as partials_ops
+from .ops import partials_tree
+from .ops import pmatrix as pmatrix_ops
+from .partition import levelize_operations
+from .tree import create_operations, traverse
+from .tree.utree import UTree
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TreeProgram:
+    """Host-compiled static form of one topology."""
+    level_ops: np.ndarray          # [L, W, 8] int32 (dense path)
+    vmem_prog: Optional[partials_tree.TreeVmemProgram]  # tree-sweep schedule
+    pmatrix_indices: np.ndarray    # [E] int32: branch i -> pmatrix slot
+    default_branch_lengths: np.ndarray  # [E] f64 (from the newick)
+    root_clv: int
+    root_scaler: int
+    root_back_clv: int
+    root_back_scaler: int
+    root_pmatrix: int
+    tip_count: int
+    inner_count: int
+    _device: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def num_branches(self) -> int:
+        return len(self.pmatrix_indices)
+
+    def pmatrix_index_tensor(self, device: torch.device) -> torch.Tensor:
+        """pmatrix_indices as an int64 tensor on `device` (cached)."""
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = torch.as_tensor(
+                self.pmatrix_indices, dtype=torch.int64, device=device)
+        return self._device[key]
+
+
+def compile_tree(tree: UTree, cfg: PartitionConfig) -> TreeProgram:
+    """Traverse + compile + levelize + schedule one topology."""
+    trav = traverse(tree.vroot)
+    ops, branches, pmat_idx = create_operations(trav)
+    level_ops = levelize_operations(ops, cfg)
+    root = tree.vroot
+    # rows the logL reduction consumes; tips are re-expanded from tipchars
+    # instead of exported
+    exports = [i for i in (root.clv_index, root.back.clv_index)
+               if i >= cfg.tips]
+    vmem_prog = partials_tree.schedule(ops, cfg.tips, exports)
+    return TreeProgram(
+        level_ops=level_ops,
+        vmem_prog=vmem_prog,
+        pmatrix_indices=np.asarray(pmat_idx, dtype=np.int32),
+        default_branch_lengths=np.asarray(branches, dtype=np.float64),
+        root_clv=root.clv_index,
+        root_scaler=root.scaler_index,
+        root_back_clv=root.back.clv_index,
+        root_back_scaler=root.back.scaler_index,
+        root_pmatrix=root.pmatrix_index,
+        tip_count=tree.tip_count,
+        inner_count=tree.inner_count,
+    )
+
+
+class Model(nn.Module):
+    """Model parameters (eigen factors precomputed on the host), held as
+    buffers so that `.to(device)` moves them together."""
+
+    FIELDS = ("eigenvals", "eigenvecs", "inv_eigenvecs", "frequencies",
+              "rates", "rate_weights", "prop_invar", "params_indices")
+
+    def __init__(self, eigenvals, eigenvecs, inv_eigenvecs, frequencies,
+                 rates, rate_weights, prop_invar, params_indices):
+        super().__init__()
+        self.register_buffer("eigenvals", eigenvals)            # [M, S]
+        self.register_buffer("eigenvecs", eigenvecs)            # [M, S, S]
+        self.register_buffer("inv_eigenvecs", inv_eigenvecs)    # [M, S, S]
+        self.register_buffer("frequencies", frequencies)        # [M, S]
+        self.register_buffer("rates", rates)                    # [R]
+        self.register_buffer("rate_weights", rate_weights)      # [R]
+        self.register_buffer("prop_invar", prop_invar)          # [M]
+        self.register_buffer("params_indices", params_indices)  # [R] int32
+
+    @property
+    def cat_freqs(self):
+        return self.frequencies[self.params_indices.long()]
+
+    @property
+    def cat_pinv(self):
+        return self.prop_invar[self.params_indices.long()]
+
+
+def make_model(subst_params, frequencies, rates, rate_weights=None,
+               prop_invar=None, params_indices=None, dtype=torch.float64,
+               device="cpu") -> Model:
+    """Build a Model from raw parameters: eigendecompose each rate matrix
+    on the host (models/ratematrix.py) and stack the factors.
+
+    subst_params: [M, S*(S-1)/2]; frequencies: [M, S]; rates: [R].
+    """
+    from .models import ratematrix
+    subst_params = np.atleast_2d(np.asarray(subst_params, dtype=np.float64))
+    frequencies = np.atleast_2d(np.asarray(frequencies, dtype=np.float64))
+    M, S = frequencies.shape
+    R = len(rates)
+    evals = np.zeros((M, S))
+    evecs = np.zeros((M, S, S))
+    inv_evecs = np.zeros((M, S, S))
+    for m in range(M):
+        freqs = ratematrix.normalize_frequencies(frequencies[m])
+        frequencies[m] = freqs
+        evals[m], evecs[m], inv_evecs[m] = ratematrix.update_eigen(
+            subst_params[m], freqs)
+    if rate_weights is None:
+        rate_weights = np.full(R, 1.0 / R)
+    if prop_invar is None:
+        prop_invar = np.zeros(M)
+    if params_indices is None:
+        params_indices = np.zeros(R, dtype=np.int32)
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    return Model(t(evals), t(evecs), t(inv_evecs), t(frequencies), t(rates),
+                 t(rate_weights), t(prop_invar),
+                 t(params_indices, torch.int32))
+
+
+def expand_tipchars(tipchars, states: int, dtype):
+    """Bit-decode packed tip state masks [tips, T] int32 into 0/1 tip CLVs
+    [tips, S, T]."""
+    shifts = torch.arange(states, dtype=tipchars.dtype,
+                          device=tipchars.device)[None, :, None]
+    return ((tipchars[:, None, :] >> shifts) & 1).to(dtype)
+
+
+def pad_tipchars(tipchars: np.ndarray, cfg: PartitionConfig) -> np.ndarray:
+    """Pad encoded tip characters [tips, sites or sites_alloc] (bitmask) to
+    the engine's [tips, T] int32 input (padding columns = gap state, so
+    padded CLV entries are 1.0 and inert under scaling checks).
+
+    Under ascertainment bias the phantom per-state columns are stamped with
+    pure states (phantom site j observes state j at every tip,
+    pll.c:1006-1018) whether or not the input carries them."""
+    from .constants import AB_NONE, gap_state
+    out = np.full((cfg.tips, cfg.sites_padded), gap_state(cfg.states),
+                  dtype=np.int32)
+    out[:, :tipchars.shape[1]] = tipchars.astype(np.int32)
+    if cfg.asc_bias != AB_NONE:
+        out[:, cfg.sites:cfg.sites + cfg.states] = \
+            1 << np.arange(cfg.states, dtype=np.int32)
+    return out
+
+
+def kernel_site_block(program: TreeProgram, cfg: PartitionConfig,
+                      device: torch.device) -> int:
+    """Site block of the tree-sweep kernel for this call, or 0 for the
+    dense path.  See PartitionConfig.use_kernel; a case the kernel cannot
+    take raises with the reason unless the dense path was asked for."""
+    if cfg.use_kernel is False:
+        return 0
+    if cfg.use_kernel is None and device.type == "cpu":
+        return 0
+    limit = partials_tree.SMEM_LIMIT
+    if device.type == "cuda":
+        from . import _build
+        limit = _build.max_shared_memory(device)
+    reason = partials_tree.unsupported(program.vmem_prog, cfg, limit)
+    if reason is not None:
+        raise ValueError(f"tree-sweep kernel cannot take this case: {reason}"
+                         f" (use_kernel=False selects the dense path)")
+    return partials_tree.pick_site_block(program.vmem_prog, cfg, limit)
+
+
+def pmatrix_buffer(program: TreeProgram, cfg: PartitionConfig, model: Model,
+                   branch_lengths):
+    """P-matrices of every branch, scattered into a [P, R, S, S] buffer
+    with one slot per possible pmatrix index (= clv index space)."""
+    pmats = pmatrix_ops.compute_pmatrices(
+        branch_lengths, model.eigenvals, model.eigenvecs,
+        model.inv_eigenvecs, model.rates, model.prop_invar,
+        model.params_indices, dtype=cfg.dtype)                # [E, R, S, S]
+    device = pmats.device
+    num_slots = int(program.pmatrix_indices.max()) + 1
+    pmatrix = torch.zeros((num_slots,) + pmats.shape[1:], dtype=cfg.dtype,
+                          device=device)
+    pmatrix[program.pmatrix_index_tensor(device)] = pmats
+    return pmatrix
+
+
+def block_tips(tipchars, cfg: PartitionConfig, tb: int):
+    """[tips, T] packed tip states -> block-major [T/tb, tips, tb] int32."""
+    nt = cfg.sites_padded // tb
+    return tipchars.to(torch.int32).reshape(cfg.tips, nt, tb) \
+        .permute(1, 0, 2).contiguous()
+
+
+def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
+           branch_lengths, tipchars, pattern_weights):
+    """P-matrices + full CLV sweep.  Returns (row view, pmatrix).
+
+    tipchars: packed bitmask states [tips, T] int32.
+    """
+    dtype = cfg.dtype
+    R, S, T = cfg.rate_cats, cfg.states, tipchars.shape[-1]
+    device = tipchars.device
+    pmatrix = pmatrix_buffer(program, cfg, model, branch_lengths)
+
+    tb = kernel_site_block(program, cfg, device)
+    if tb:
+        # shared-memory sweep: tips stay packed, only root rows are written
+        clv_rows, scal_rows = partials_tree.sweep(
+            block_tips(tipchars, cfg, tb), pmatrix, program.vmem_prog, cfg,
+            tb)
+        return _TreeView(clv_rows, scal_rows, program.vmem_prog,
+                         tipchars, cfg), pmatrix
+
+    clv = torch.zeros((cfg.num_clvs + 1, R, S, T), dtype=dtype,
+                      device=device)
+    clv[:cfg.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
+    if cfg.per_rate_scalers:
+        scalers = torch.zeros((cfg.scale_buffers + 2, R, T),
+                              dtype=torch.int32, device=device)
+    else:
+        scalers = torch.zeros((cfg.scale_buffers + 2, T), dtype=torch.int32,
+                              device=device)
+    clv, scalers = partials_ops.update_partials(
+        clv, scalers, pmatrix, program.level_ops, cfg)
+    return _StandardView(clv, scalers), pmatrix
+
+
+class _StandardView:
+    """Row accessors over dense sweep results."""
+
+    def __init__(self, clv, scalers):
+        self._clv = clv
+        self._scalers = scalers
+
+    def clv_row(self, index: int):
+        return self._clv[index]                               # [R, S, T]
+
+    def scaler_row(self, index: int):
+        return self._scalers[index]                           # [T] / [R, T]
+
+
+class _TreeView:
+    """Row accessors over tree-sweep results: only exported rows exist;
+    tip rows are re-expanded from the packed bitmasks on demand, and scaler
+    rows that were not exported are zeros."""
+
+    def __init__(self, clv_rows, scal_rows, vmem_prog, tipchars,
+                 cfg: PartitionConfig):
+        self._clv_rows = clv_rows            # [E, NT, R, S, TB]
+        self._scal_rows = scal_rows          # [E, NT, SR, TB]
+        self._prog = vmem_prog
+        self._tipchars = tipchars
+        self._cfg = cfg
+
+    def clv_row(self, index: int):
+        cfg = self._cfg
+        if index < cfg.tips:
+            tip = expand_tipchars(self._tipchars[index:index + 1],
+                                  cfg.states, cfg.dtype)[0]   # [S, T]
+            return tip[None].expand(cfg.rate_cats, cfg.states, tip.shape[-1])
+        row = self._clv_rows[self._prog.export_clv_map[index]]
+        return partials_tree.unblock_clv_row(row)
+
+    def scaler_row(self, index: int):
+        cfg = self._cfg
+        if index in self._prog.export_scaler_map:
+            row = self._scal_rows[self._prog.export_scaler_map[index]]
+            return partials_tree.unblock_scaler_row(row)
+        shape = ((cfg.rate_cats, cfg.sites_padded) if cfg.per_rate_scalers
+                 else (cfg.sites_padded,))
+        return torch.zeros(shape, dtype=torch.int32,
+                           device=self._tipchars.device)
+
+
+def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
+                  branch_lengths, tipchars, pattern_weights, invariant):
+    """Full-tree log-likelihood across the root edge.
+
+    tipchars: [tips, T] int32 packed state bitmasks; pattern_weights: [T];
+    invariant: [T] int32 (-1 = variant).
+    """
+    view, pmatrix = _sweep(program, cfg, model, branch_lengths,
+                           tipchars, pattern_weights)
+    return likelihood_ops.edge_loglikelihood(
+        view.clv_row(program.root_clv),
+        view.scaler_row(program.root_scaler if program.root_scaler >= 0
+                        else cfg.scaler_zero),
+        view.clv_row(program.root_back_clv),
+        view.scaler_row(program.root_back_scaler
+                        if program.root_back_scaler >= 0
+                        else cfg.scaler_zero),
+        pmatrix[program.root_pmatrix],
+        model.cat_freqs, model.rate_weights, model.cat_pinv,
+        invariant, pattern_weights, cfg)
+
+
+def build_case(n_tips: int, sites: int, rate_cats: int = 4,
+               dtype=torch.float32, device="cpu", site_block: int = 128,
+               seed: int = 0, use_kernel: Optional[bool] = None):
+    """The bench's forward case: a balanced n_tips tree, GTR(1,2,1,1,2,1)
+    with equal frequencies, Gamma(alpha=1) rates, one-hot random tips from
+    numpy's generator at `seed` (libpll2_tpu's bench.py and
+    __graft_entry__.py build the same inputs).
+
+    Returns (cfg, program, model, branch_lengths, tipchars,
+    pattern_weights, invariant), tensors on `device`."""
+    from . import tree as T
+    from .models.gamma import compute_gamma_cats
+    from .tree.generate import balanced_newick, random_tipchars
+
+    tree = T.parse_newick_string(balanced_newick(n_tips))
+    cfg = PartitionConfig(
+        tips=n_tips, clv_buffers=tree.inner_count, states=4, sites=sites,
+        rate_matrices=1, prob_matrices=2 * n_tips - 3, rate_cats=rate_cats,
+        scale_buffers=tree.inner_count, dtype=dtype, site_block=site_block,
+        use_kernel=use_kernel)
+    program = compile_tree(tree, cfg)
+    model = make_model(
+        [[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25, 0.25, 0.25, 0.25]],
+        compute_gamma_cats(1.0, rate_cats), dtype=dtype, device=device)
+
+    rng = np.random.default_rng(seed)
+    raw = random_tipchars(n_tips, sites, rng)
+    tipchars = torch.as_tensor(pad_tipchars(raw, cfg), device=device)
+    pattern_weights = np.zeros(cfg.sites_padded)
+    pattern_weights[:sites] = 1.0
+    invariant = np.full(cfg.sites_padded, -1, dtype=np.int32)
+    branch_lengths = torch.as_tensor(program.default_branch_lengths,
+                                     dtype=dtype, device=device)
+    return (cfg, program, model, branch_lengths, tipchars,
+            torch.as_tensor(pattern_weights, dtype=dtype, device=device),
+            torch.as_tensor(invariant, device=device))
+
+
+def entry(device="cuda"):
+    """Single-device forward step (counterpart of __graft_entry__.entry):
+    full-tree log-likelihood of a 64-taxon balanced tree x 4096 sites,
+    GTR+Gamma4, f32.  Returns (forward, example_args)."""
+    (cfg, program, model, branch_lengths, tipchars, pattern_weights,
+     invariant) = build_case(n_tips=64, sites=4096, rate_cats=4,
+                             dtype=torch.float32, device=device,
+                             site_block=128)
+
+    def forward(model, branch_lengths, tipchars, pattern_weights, invariant):
+        return loglikelihood(program, cfg, model, branch_lengths,
+                             tipchars, pattern_weights, invariant)
+
+    return forward, (model, branch_lengths, tipchars, pattern_weights,
+                     invariant)

@@ -1,0 +1,223 @@
+"""Root and edge log-likelihood reductions (plain PyTorch).
+
+Counterpart of libpll2_tpu/ops/likelihood.py.  Reference semantics:
+pll_core_root_loglikelihood and pll_core_edge_loglikelihood_ii (libpll-2
+src/core_likelihood.c:25-209, 1191-1496), including:
+
+  * +I invariant-site mixing:  L_r = (1-p) * L_var,r + p * pi[inv_state]
+    per rate category;
+  * per-site scaler correction:  logL += scaler * log(scale_threshold);
+  * per-rate scalers: per-site common minimum, relative per-rate scalers
+    capped at SCALE_RATE_MAXDIFF and undone multiplicatively
+    (core_likelihood.c:1388-1414);
+  * the invariant term is never scaled — with active scalers the variant
+    part is unscaled (capped) before adding the invariant part
+    (core_likelihood.c:1462-1481).
+
+Shapes are [R = rate cats, S = states, T = padded sites]; reductions over
+sites use pattern weights (zero on padding, so padding is inert).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import PartitionConfig
+from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
+                         SCALE_RATE_MAXDIFF)
+
+
+def _real_site_mask(cfg: PartitionConfig):
+    """Static bool [T]: True on real alignment columns, False on the
+    asc-bias phantom per-state columns and padding (pll.c:525-531)."""
+    return np.arange(cfg.sites_padded) < cfg.sites
+
+
+def _site_mask(cfg: PartitionConfig, device):
+    return torch.as_tensor(_real_site_mask(cfg), device=device)
+
+
+def asc_bias_correction(term, site_scalings, pattern_weights,
+                        cfg: PartitionConfig, dtype):
+    """Ascertainment-bias logL correction from the phantom per-state sites
+    (compute_asc_bias_correction + root_loglikelihood_asc_bias,
+    likelihood.c:24-120).  `term` is the pre-log per-site likelihood,
+    `site_scalings` the per-site scaler counters."""
+    s0, S = cfg.sites, cfg.states
+    log_thresh = cfg.log_scale_threshold
+    t_ph = term[s0:s0 + S]
+    sc_ph = site_scalings[s0:s0 + S].to(dtype)
+    w_ph = pattern_weights[s0:s0 + S].to(dtype)
+    if cfg.asc_bias == AB_STAMATAKIS:
+        # the reference adds the scaler correction unweighted
+        # (likelihood.c:97-101)
+        return torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh)
+    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh))
+    if cfg.asc_bias == AB_LEWIS:
+        real = _site_mask(cfg, pattern_weights.device)
+        sum_w = torch.sum(torch.where(real, pattern_weights,
+                                      0.0).to(dtype))
+        return -(sum_w * torch.log1p(-base))
+    if cfg.asc_bias == AB_FELSENSTEIN:
+        return torch.sum(w_ph) * torch.log(base)
+    raise ValueError(f"illegal asc bias type {cfg.asc_bias}")
+
+
+def _per_rate_undo(scaler_p, scaler_c, cfg: PartitionConfig, dtype):
+    """Combine per-rate scalers of two nodes into (site_min, undo_factor).
+
+    Returns (site_scalings [T] int32, undo [R, T] multiplicative factor).
+    """
+    total = scaler_p + scaler_c                             # [R, T]
+    site_scalings = torch.min(total, dim=0).values          # [T]
+    rel = torch.clamp(total - site_scalings[None, :], max=SCALE_RATE_MAXDIFF)
+    undo = torch.pow(torch.tensor(cfg.scale_threshold, dtype=dtype,
+                                  device=rel.device),
+                     rel.to(dtype))                         # rel=0 -> 1
+    return site_scalings, undo
+
+
+def _invariant_site_lk(freqs, invariant):
+    """pi[inv_state] per (rate, site); 0 where the site is variant.
+
+    freqs: [R, S]; invariant: [T] int (-1 = variant).
+    """
+    idx = torch.clamp(invariant, min=0).long()              # [T]
+    vals = freqs[:, idx]                                    # [R, T]
+    return torch.where(invariant[None, :] >= 0, vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def root_loglikelihood(clv,              # [R, S, T]
+                       scaler,           # [T] int32 or [R, T] (per-rate)
+                       freqs,            # [R, S]
+                       rate_weights,     # [R]
+                       prop_invar,       # [R]
+                       invariant,        # [T] int, -1 = variant
+                       pattern_weights,  # [T] (0 on padding)
+                       cfg: PartitionConfig,
+                       with_persite: bool = False):
+    """Weighted log-likelihood at a (virtual) root CLV
+    (pll_core_root_loglikelihood, core_likelihood.c:25-209).  Per-rate
+    scalers use the edge kernel's min+cap protocol."""
+    dtype = clv.dtype
+    term_r = torch.einsum("rst,rs->rt", clv, freqs.to(dtype))     # [R, T]
+
+    if cfg.per_rate_scalers:
+        site_scalings, undo = _per_rate_undo(
+            scaler, torch.zeros_like(scaler), cfg, dtype)
+        term_r = term_r * undo
+    else:
+        site_scalings = scaler                                    # [T]
+
+    pinv = prop_invar.to(dtype)                                   # [R]
+    inv_lk = _invariant_site_lk(freqs.to(dtype), invariant)       # [R, T]
+    mixed = term_r * (1.0 - pinv)[:, None] + inv_lk * pinv[:, None]
+    term_r = torch.where((pinv > 0)[:, None], mixed, term_r)
+
+    term = torch.einsum("rt,r->t", term_r, rate_weights.to(dtype))  # [T]
+
+    live = pattern_weights > 0
+    if cfg.asc_bias != AB_NONE:
+        # phantom per-state sites feed the correction, not the main sum
+        live = live & _site_mask(cfg, live.device)
+    one = torch.ones((), dtype=dtype, device=term.device)
+    site_lk = torch.log(torch.where(live, term, one))
+    site_lk = site_lk + site_scalings.to(dtype) * cfg.log_scale_threshold
+    site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
+                          torch.zeros_like(site_lk))
+
+    logl = torch.sum(site_lk)
+    if cfg.asc_bias != AB_NONE:
+        logl = logl + asc_bias_correction(term, site_scalings,
+                                          pattern_weights, cfg, dtype)
+    if with_persite:
+        return logl, site_lk
+    return logl
+
+
+def edge_loglikelihood(clvp,             # [R, S, T] parent CLV
+                       scaler_p,         # [T] or [R, T] int32
+                       clvc,             # [R, S, T] child CLV
+                       scaler_c,         # [T] or [R, T] int32
+                       pmat,             # [R, S, S] P-matrix of the edge
+                       freqs,            # [R, S]
+                       rate_weights,     # [R]
+                       prop_invar,       # [R]
+                       invariant,        # [T] int
+                       pattern_weights,  # [T]
+                       cfg: PartitionConfig,
+                       with_persite: bool = False):
+    """Log-likelihood across an edge: parent CLV . P(t) . child CLV
+    (pll_core_edge_loglikelihood_ii, core_likelihood.c:1191-1496)."""
+    dtype = clvp.dtype
+    termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype), clvc)
+    terma_r = torch.einsum("rjt,rj,rjt->rt", clvp, freqs.to(dtype),
+                           termb)                                 # [R, T]
+    return edge_reduce(terma_r, scaler_p, scaler_c, freqs, rate_weights,
+                       prop_invar, invariant, pattern_weights, cfg,
+                       with_persite=with_persite)
+
+
+def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
+                scaler_p,         # [T] or [R, T] int32
+                scaler_c,         # [T] or [R, T] int32
+                freqs,            # [R, S]
+                rate_weights,     # [R]
+                prop_invar,       # [R]
+                invariant,        # [T] int
+                pattern_weights,  # [T]
+                cfg: PartitionConfig,
+                with_persite: bool = False):
+    """Reduction tail of edge_loglikelihood from the per-(rate, site) edge
+    terms sum_ij pi_i . clvp_i . P_ij . clvc_j (at the CLVs' stored
+    scaling): scaler undo, +I mixing and asc-bias corrections."""
+    dtype = terma_r.dtype
+    if cfg.per_rate_scalers:
+        site_scalings, undo = _per_rate_undo(scaler_p, scaler_c, cfg, dtype)
+        terma_r = terma_r * undo
+    else:
+        site_scalings = scaler_p + scaler_c                       # [T]
+
+    pinv = prop_invar.to(dtype)
+    rw = rate_weights.to(dtype)
+    inv_lk = _invariant_site_lk(freqs.to(dtype), invariant)       # [R, T]
+
+    # variant part gets (1-p); invariant part accumulates separately
+    terma = torch.einsum("rt,r->t", terma_r * (1.0 - pinv)[:, None], rw)
+    terminv = torch.einsum("rt,r->t", inv_lk * pinv[:, None], rw)
+
+    # site log-likelihood; three cases (core_likelihood.c:1462-1481)
+    log_thresh = cfg.log_scale_threshold
+    scal = site_scalings.to(dtype)
+    capped = torch.clamp(site_scalings, max=SCALE_RATE_MAXDIFF).to(dtype)
+    cap_factor = torch.exp(capped * log_thresh)     # thresh^capped
+
+    live = pattern_weights > 0
+    if cfg.asc_bias != AB_NONE:
+        live = live & _site_mask(cfg, live.device)
+    has_scal = site_scalings > 0
+    has_inv = terminv > 0.0
+
+    one = torch.ones((), dtype=dtype, device=terma.device)
+    plain = torch.where(live, terma + terminv, one)
+    scaled_inv = torch.where(live, terma * cap_factor + terminv, one)
+    scaled_plain = torch.where(live, terma, one)
+
+    site_lk = torch.where(
+        has_scal,
+        torch.where(has_inv,
+                    torch.log(scaled_inv),
+                    torch.log(scaled_plain) + scal * log_thresh),
+        torch.log(plain))
+
+    site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
+                          torch.zeros_like(site_lk))
+    logl = torch.sum(site_lk)
+    if cfg.asc_bias != AB_NONE:
+        # pinv is disallowed with asc bias, so terma+terminv == raw term
+        logl = logl + asc_bias_correction(terma + terminv, site_scalings,
+                                          pattern_weights, cfg, dtype)
+    if with_persite:
+        return logl, site_lk
+    return logl

@@ -1,0 +1,60 @@
+"""The CUDA tree-sweep kernel against its plain PyTorch version, on the card.
+
+Marked `cuda`: each test skips when torch.cuda.is_available() is False
+(decided inside the fixture, never at import).  On a GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from libpll2_tpu_torch import engine
+from libpll2_tpu_torch.ops import partials_tree
+from libpll2_tpu_torch.tree.generate import random_newick
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("states,per_rate,bl_scale", [
+    (4, False, 1.0), (4, False, 30.0), (4, True, 30.0), (2, False, 1.0),
+    (10, True, 1.0), (16, False, 1.0), (20, False, 1.0)])
+def test_kernel_matches_plain(cuda_device, states, per_rate, bl_scale):
+    """Every state count the kernel is built for.  CLV rows rtol 1e-5
+    (f32 sums in another order), scalers exact."""
+    newick = random_newick(40, np.random.default_rng(states))
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        newick, 2048, states, cuda_device, states=states, per_rate=per_rate,
+        bl_scale=bl_scale, random_model=True)
+    prog = program.vmem_prog
+    before = partials_tree.sweep.launches
+    clv, scal = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+    torch.cuda.synchronize()
+    assert partials_tree.sweep.launches == before + 1
+    want_clv, want_scal = partials_tree.sweep_reference(tip_b, pmatrix, prog,
+                                                        cfg, tb)
+    torch.testing.assert_close(scal, want_scal, rtol=0, atol=0)
+    torch.testing.assert_close(clv, want_clv, rtol=1e-5, atol=0)
+
+
+def test_loglikelihood_kernel_vs_dense_f64(cuda_device):
+    """The bench's budget, 5e-6 relative, at 128 taxa x 8192 sites."""
+    cfg, program, model, *args = engine.build_case(
+        128, 8192, dtype=torch.float32, device=cuda_device)
+    before = partials_tree.sweep.launches
+    got = engine.loglikelihood(program, cfg, model, *args).item()
+    assert partials_tree.sweep.launches == before + 1
+    cfg, program, model, *args = engine.build_case(
+        128, 8192, dtype=torch.float64, device=cuda_device, use_kernel=False)
+    want = engine.loglikelihood(program, cfg, model, *args).item()
+    assert np.isfinite(got)
+    assert abs(got - want) / abs(want) < 5e-6
