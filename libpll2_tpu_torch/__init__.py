@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of libpll2_tpu (the phylogenetic likelihood engine).
 
-The forward likelihood step runs here: tree -> compiled program
-(engine.compile_tree) -> model (engine.make_model) -> full-tree
-log-likelihood (engine.loglikelihood), whose CLV sweep runs in a
-hand-written CUDA kernel (csrc/tree_sweep.cu) on CUDA tensors and in its
-plain PyTorch version on CPU tensors.  Module names follow libpll2_tpu so
-that each function's counterpart is easy to find.  This package imports
+The forward likelihood step (engine.compile_tree -> engine.make_model ->
+engine.loglikelihood), the training step (engine.optimize_root_branch) and
+the SPR tree search (search_fast.hill_climb) run here.  Two hand-written
+CUDA kernels carry their hot paths on CUDA tensors: the CLV tree sweep
+(csrc/tree_sweep.cu) and the SPR edge scorer (csrc/edge_score.cu); on CPU
+tensors their plain PyTorch versions run.  Module names follow libpll2_tpu
+so that each function's counterpart is easy to find.  This package imports
 torch and never jax.
 """
 from .config import PartitionConfig

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of this package.
 
-The kernels live in csrc/*.cu with a plain C interface.  On first use they
-are compiled with nvcc for sm_90a into one shared library under
+The kernels live in csrc/*.cu with a plain C interface.  On first use each
+source is compiled with nvcc for sm_90a (one nvcc per source, all started
+together), the objects are linked into one shared library under
 build/libpll2_tpu_torch/ (beside the package), named by a hash of the
 sources and flags so that an edited source is rebuilt, and loaded with
 ctypes.  Nothing is built at import time: the CPU tests import every module
@@ -22,10 +23,11 @@ from pathlib import Path
 import torch
 
 PACKAGE = Path(__file__).resolve().parent
-SOURCES = (PACKAGE / "csrc" / "tree_sweep.cu",)
+SOURCES = (PACKAGE / "csrc" / "tree_sweep.cu",
+           PACKAGE / "csrc" / "edge_score.cu")
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,16 +58,36 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, log)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text, _ = proc.communicate()
+        logs.append(f"[{src.name}]\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                               + "\n".join(logs))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return BuildInfo(out, time.perf_counter() - t0, "\n".join(logs))
 
 
 @functools.cache
@@ -85,6 +107,18 @@ def library() -> ctypes.CDLL:
         p,             # stream
     ]
     lib.tree_sweep_launch.restype = ctypes.c_int
+    lib.edge_score_launch.argtypes = [
+        p, p,          # away, away_scal
+        p, p,          # base, base_scal
+        p, p, p, p,    # halves, score_ops, sub_rows, t0
+        p, p, p, p,    # lbd, rbd, xw, pw
+        p, p,          # score_out, t3_out
+        i, i, i,       # n_cand, vg, slots
+        i, i, i, i,    # rates, states, sites, newton_iters
+        f,             # log_thresh
+        p,             # stream
+    ]
+    lib.edge_score_launch.restype = ctypes.c_int
     lib.tree_sweep_max_smem.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.tree_sweep_max_smem.restype = ctypes.c_int

@@ -46,11 +46,20 @@ class PartitionConfig:
     asc_bias_flag: bool = False  # apply correction during logL computation
     dtype: torch.dtype = torch.float64
     site_block: int = 128
-    # None: the CUDA tree-sweep kernel for CUDA tensors (f32 only; any case
-    # it cannot take raises), the dense plain path for CPU tensors.
-    # True: the kernel or raise (its plain version on CPU tensors).
-    # False: the dense plain path (ops/partials.py), asked for explicitly.
+    # None: the CUDA kernels for CUDA tensors — the tree sweep (f32 only;
+    # any case it cannot take raises) and the search's edge scorer (where
+    # its contract holds, else the plain scorer) — and the plain paths for
+    # CPU tensors.
+    # True: the kernels or raise (their plain versions on CPU tensors).
+    # False: the plain paths (ops/partials.py, the plain scorer).
     use_kernel: Optional[bool] = None
+
+    def __post_init__(self):
+        # the reference refuses the combination at partition creation; the
+        # JAX engine's _asc_scalers would drop the asc scalers silently
+        if self.per_rate_scalers and self.asc_bias != AB_NONE:
+            raise ValueError("per-rate scalers cannot combine with "
+                             "ascertainment bias correction")
 
     @property
     def num_clvs(self) -> int:

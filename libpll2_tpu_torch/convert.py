@@ -6,12 +6,14 @@ libpll2_tpu.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
-from .engine import Model, TreeProgram
+from .config import PartitionConfig
+from .engine import FullTreeProgram, Model, TreeProgram
 
 
 def model_arrays(model) -> dict[str, np.ndarray]:
@@ -64,4 +66,65 @@ def program_mismatches(port: TreeProgram, ref) -> list[str]:
                      "export_scaler_map"):
             if not _same(getattr(a, name), getattr(b, name)):
                 out.append(f"vmem_prog.{name}")
+    return out
+
+
+def config_mismatches(port: PartitionConfig, ref) -> list[str]:
+    """Fields in which a port PartitionConfig differs from a JAX one.
+    dtypes compare by name; use_kernel has no JAX counterpart."""
+    out = []
+    for f in dataclasses.fields(port):
+        if f.name == "use_kernel":
+            continue
+        a, b = getattr(port, f.name), getattr(ref, f.name)
+        if f.name == "dtype":
+            a, b = str(a).removeprefix("torch."), np.dtype(b).name
+        if a != b:
+            out.append(f.name)
+    return out
+
+
+def full_program_mismatches(port: FullTreeProgram, ref) -> list[str]:
+    """Fields in which a port FullTreeProgram (engine.compile_tree_full)
+    differs from a JAX one; arrays compare byte for byte."""
+    out = [f"cfg_ext.{n}" for n in config_mismatches(port.cfg_ext,
+                                                     ref.cfg_ext)]
+    for f in dataclasses.fields(port):
+        if f.name != "cfg_ext" and not _same(getattr(port, f.name),
+                                             getattr(ref, f.name)):
+            out.append(f.name)
+    return out
+
+
+def spr_program_mismatches(port, ref) -> list[str]:
+    """Fields in which a port search_fast.SprProgram differs from a JAX
+    one, ball groups included (arrays byte for byte, candidate sets by
+    equality, the tree by its full-precision newick)."""
+    from .tree.utree import export_newick
+    out = []
+    for name in ("cfg", "cfg_ext"):
+        out += [f"{name}.{n}" for n in config_mismatches(
+            getattr(port, name), getattr(ref, name))]
+    if export_newick(port.tree.vroot, precision=None) != \
+            export_newick(ref.tree.vroot, precision=None):
+        out.append("tree")
+    for f in dataclasses.fields(port):
+        if f.name in ("tree", "cfg", "cfg_ext", "ball_groups"):
+            continue
+        if not _same(getattr(port, f.name), getattr(ref, f.name)):
+            out.append(f.name)
+    a, b = port.ball_groups, ref.ball_groups
+    if (a is None) != (b is None) or (a is not None and len(a) != len(b)):
+        out.append("ball_groups")
+    elif a is not None:
+        for i, (ga, gb) in enumerate(zip(a, b)):
+            for f in dataclasses.fields(ga):
+                va, vb = getattr(ga, f.name), getattr(gb, f.name)
+                if isinstance(va, tuple):
+                    same = len(va) == len(vb) and all(
+                        _same(x, y) for x, y in zip(va, vb))
+                else:
+                    same = _same(va, vb)
+                if not same:
+                    out.append(f"ball_groups[{i}].{f.name}")
     return out

@@ -1,12 +1,15 @@
-"""Forward likelihood engine: a topology compiled once on the host, then
+"""Likelihood engine: a topology compiled once on the host, then
 P-matrices + CLV sweep + log-likelihood on tensors.
 
-Counterpart of the forward half of libpll2_tpu/engine.py
-(`compile_tree`, `Model`, `make_model`, `_sweep`, `loglikelihood`).  The
-CLV sweep runs in the hand-written CUDA tree-sweep kernel on CUDA tensors
-(ops/partials_tree.py) and in the dense level-batched path
-(ops/partials.py) on CPU tensors or when `cfg.use_kernel` is False.
-PyTorch runs eagerly, so there is no jit and no static-argument hashing.
+Counterpart of libpll2_tpu/engine.py: the forward step (`compile_tree`,
+`Model`, `make_model`, `_sweep`, `loglikelihood`), the training step
+(`optimize_root_branch`) and the all-directions message core
+(`compile_tree_full`, `_sweep_all`, `all_edge_loglikelihoods`).  The
+forward CLV sweep runs in the hand-written CUDA tree-sweep kernel on CUDA
+tensors (ops/partials_tree.py) and in the dense level-batched path
+(ops/partials.py) on CPU tensors or when `cfg.use_kernel` is False; the
+message sweep is the dense path.  PyTorch runs eagerly, so there is no
+jit and no static-argument hashing.
 """
 from __future__ import annotations
 
@@ -18,11 +21,12 @@ import torch
 from torch import nn
 
 from .config import PartitionConfig
+from .ops import derivatives as derivatives_ops
 from .ops import likelihood as likelihood_ops
 from .ops import partials as partials_ops
 from .ops import partials_tree
 from .ops import pmatrix as pmatrix_ops
-from .partition import levelize_operations
+from .partition import Operation, levelize_operations
 from .tree import create_operations, traverse
 from .tree.utree import UTree
 
@@ -316,6 +320,247 @@ def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
         pmatrix[program.root_pmatrix],
         model.cat_freqs, model.rate_weights, model.cat_pinv,
         invariant, pattern_weights, cfg)
+
+
+def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,
+                         model: Model, branch_lengths, tipchars,
+                         pattern_weights, invariant, newton_iters: int = 10):
+    """One 'training step': CLV sweep, then Newton optimization of the
+    root branch length from analytic (d1, d2) (newton.c:31-100).
+
+    The sweep is the same as loglikelihood's (the tree-sweep kernel on
+    CUDA tensors).  Returns (new_branch_lengths, logl_before)."""
+    view, pmatrix = _sweep(program, cfg, model, branch_lengths,
+                           tipchars, pattern_weights)
+    rs = view.scaler_row(program.root_scaler if program.root_scaler >= 0
+                         else cfg.scaler_zero)
+    rbs = view.scaler_row(program.root_back_scaler
+                          if program.root_back_scaler >= 0
+                          else cfg.scaler_zero)
+    root_clv = view.clv_row(program.root_clv)
+    root_back_clv = view.clv_row(program.root_back_clv)
+
+    logl = likelihood_ops.edge_loglikelihood(
+        root_clv, rs, root_back_clv, rbs,
+        pmatrix[program.root_pmatrix], model.cat_freqs, model.rate_weights,
+        model.cat_pinv, invariant, pattern_weights, cfg)
+
+    idx = model.params_indices.long()
+    sumtable = derivatives_ops.update_sumtable(
+        root_clv, root_back_clv, rs, rbs, model.eigenvecs[idx],
+        model.inv_eigenvecs[idx], model.cat_freqs, cfg,
+        asc_scalers=None if cfg.per_rate_scalers else rs + rbs)
+
+    # position of the root branch in the branch_lengths vector
+    root_pos = int(np.nonzero(
+        program.pmatrix_indices == program.root_pmatrix)[0][0])
+    t = branch_lengths[root_pos]
+    for _ in range(newton_iters):
+        d1, d2 = derivatives_ops.likelihood_derivatives(
+            sumtable, t, model.rates, model.eigenvals[idx], model.cat_pinv,
+            model.rate_weights, model.cat_freqs, invariant, pattern_weights,
+            cfg)
+        # the JAX step has no non-finite guard here; keep its semantics
+        t = derivatives_ops.newton_update(t, d1, d2, hold_nonfinite=False)
+    new_bl = branch_lengths.clone()
+    new_bl[root_pos] = t
+    return new_bl, logl
+
+
+# --------------------------------------------------------------------------
+# Bidirectional message passing (all-edge engine)
+# --------------------------------------------------------------------------
+#
+# Every *directed* message msg(u->v) — the CLV of node u in the direction
+# of neighbor v — is the same binary operation as a CLV update, so one
+# level-batched sweep over an extended operation list computes all 2E
+# directional CLVs; every branch then has both facing CLVs at hand.
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FullTreeProgram:
+    """All-directions message program for one topology."""
+    cfg_ext: PartitionConfig        # row space extended to message slots
+    level_ops: np.ndarray           # [L, W, 8] int32
+    pmatrix_indices: np.ndarray     # [E] branch i -> pmatrix slot
+    default_branch_lengths: np.ndarray
+    edge_rows: np.ndarray           # [E, 4] int32: rowA, scalA, rowB, scalB
+    edge_colors: np.ndarray         # [E] int32 proper edge coloring
+    n_colors: int
+    root_edge: int                  # branch position of the vroot edge
+    tip_count: int
+
+
+def compile_tree_full(tree: UTree, cfg: PartitionConfig) -> FullTreeProgram:
+    """Compile msg(u->v) for every half-node g at an inner node u, where
+    msg rows live after the tip rows; tips' messages are their tip CLVs."""
+    inner = [n for n in tree.nodes if n.next is not None]
+    half_nodes = [g for n in inner for g in n.roundabout()]
+    msg_row = {g.node_index: cfg.tips + k
+               for k, g in enumerate(half_nodes)}
+    msg_scaler = {g.node_index: k for k, g in enumerate(half_nodes)}
+    n_msgs = len(half_nodes)
+
+    cfg_ext = dataclasses.replace(cfg, clv_buffers=n_msgs,
+                                  scale_buffers=n_msgs)
+
+    def incoming(s):  # message arriving through half-node s (from s.back)
+        if s.back.next is None:     # tip neighbor
+            return s.back.clv_index, -1
+        return msg_row[s.back.node_index], msg_scaler[s.back.node_index]
+
+    # Kahn ordering: a message is ready once its two feeding messages are
+    ready = {g.node_index: False for g in half_nodes}
+    ops = []
+    emitted = 0
+    while emitted < n_msgs:
+        progress = False
+        for g in half_nodes:
+            if ready[g.node_index]:
+                continue
+            sibs = [s for s in g.roundabout() if s is not g]
+            deps = [s for s in sibs if s.back.next is not None]
+            if any(not ready[s.back.node_index] for s in deps):
+                continue
+            (c1, s1), (c2, s2) = incoming(sibs[0]), incoming(sibs[1])
+            ops.append(Operation(
+                parent_clv_index=msg_row[g.node_index],
+                child1_clv_index=c1, child2_clv_index=c2,
+                child1_matrix_index=sibs[0].back.pmatrix_index,
+                child2_matrix_index=sibs[1].back.pmatrix_index,
+                parent_scaler_index=msg_scaler[g.node_index],
+                child1_scaler_index=s1, child2_scaler_index=s2))
+            ready[g.node_index] = True
+            emitted += 1
+            progress = True
+        if not progress:
+            raise ValueError("cyclic message dependencies (corrupt tree)")
+
+    level_ops = levelize_operations(ops, cfg_ext)
+
+    # branch list in the same order as compile_tree's pmatrix_indices
+    trav = traverse(tree.vroot)
+    _, branches, pmat_idx = create_operations(trav)
+    by_pmatrix = {}
+    seen = set()
+    for n in tree.nodes:
+        for g in ([n] if n.next is None else list(n.roundabout())):
+            key = tuple(sorted((g.node_index, g.back.node_index)))
+            if key in seen:
+                continue
+            seen.add(key)
+            by_pmatrix[g.back.pmatrix_index] = g
+
+    edge_rows = np.zeros((len(pmat_idx), 4), np.int32)
+    for i, p in enumerate(pmat_idx):
+        g = by_pmatrix[p]
+        # canonical orientation: row A = the PARENT side of the edge (the
+        # end whose clv_index differs from the template pmatrix index)
+        if g.clv_index == p:
+            g = g.back
+        a, sa = ((msg_row[g.node_index], msg_scaler[g.node_index])
+                 if g.next is not None else (g.clv_index, -1))
+        h = g.back
+        b, sb = ((msg_row[h.node_index], msg_scaler[h.node_index])
+                 if h.next is not None else (h.clv_index, -1))
+        edge_rows[i] = (a, cfg_ext.scaler_zero if sa < 0 else sa,
+                        b, cfg_ext.scaler_zero if sb < 0 else sb)
+
+    # proper edge coloring (greedy; <= 4 colors on a binary tree): no two
+    # branches of one color share an endpoint, so a simultaneous Newton
+    # step within a class behaves like sequential smoothing
+    colors = np.full(len(pmat_idx), -1, np.int32)
+    used_at: dict[int, set] = {}
+    for i, p in enumerate(pmat_idx):
+        g = by_pmatrix[p]
+        a = min(h.node_index for h in ([g] if g.next is None
+                                       else list(g.roundabout())))
+        b = min(h.node_index for h in ([g.back] if g.back.next is None
+                                       else list(g.back.roundabout())))
+        taken = used_at.get(a, set()) | used_at.get(b, set())
+        c = 0
+        while c in taken:
+            c += 1
+        colors[i] = c
+        used_at.setdefault(a, set()).add(c)
+        used_at.setdefault(b, set()).add(c)
+
+    root_edge = int(np.nonzero(
+        np.asarray(pmat_idx) == tree.vroot.pmatrix_index)[0][0])
+    return FullTreeProgram(
+        cfg_ext=cfg_ext,
+        level_ops=level_ops,
+        pmatrix_indices=np.asarray(pmat_idx, np.int32),
+        default_branch_lengths=np.asarray(branches, np.float64),
+        edge_rows=edge_rows,
+        edge_colors=colors,
+        n_colors=int(colors.max()) + 1,
+        root_edge=root_edge,
+        tip_count=tree.tip_count,
+    )
+
+
+def _asc_scalers(scalers, rows, cfg: PartitionConfig):
+    """Per-site scaler sum of edges for the asc-bias phantom-column fold in
+    update_sumtable (core_derivatives.c:884-892); None when the correction
+    does not need absolute phantom likelihoods.  rows: [..., 4] edge rows.
+    PartitionConfig refuses asc bias with per-rate scalers, so nothing is
+    dropped here."""
+    from .constants import AB_FELSENSTEIN, AB_LEWIS
+    if cfg.asc_bias in (AB_LEWIS, AB_FELSENSTEIN):
+        return scalers[rows[..., 1]] + scalers[rows[..., 3]]
+    return None
+
+
+def message_sweep(cfg_ext: PartitionConfig, model: Model, level_ops,
+                  pmatrix, tipchars):
+    """Dense level-batched sweep of a message program (ops/partials.py):
+    returns (clv [rows, R, S, T], scalers [rows, T] or [rows, R, T])."""
+    dtype = cfg_ext.dtype
+    R, S, T = cfg_ext.rate_cats, cfg_ext.states, tipchars.shape[-1]
+    device = tipchars.device
+    clv = torch.zeros((cfg_ext.num_clvs + 1, R, S, T), dtype=dtype,
+                      device=device)
+    clv[:cfg_ext.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
+    shape = ((cfg_ext.scale_buffers + 2, R, T) if cfg_ext.per_rate_scalers
+             else (cfg_ext.scale_buffers + 2, T))
+    scalers = torch.zeros(shape, dtype=torch.int32, device=device)
+    return partials_ops.update_partials(clv, scalers, pmatrix, level_ops,
+                                        cfg_ext)
+
+
+def _sweep_all(program: FullTreeProgram, cfg: PartitionConfig, model: Model,
+               branch_lengths, tipchars):
+    """Compute all directional messages; returns (clv, scalers, pmatrix)."""
+    pmats = pmatrix_ops.compute_pmatrices(
+        branch_lengths, model.eigenvals, model.eigenvecs,
+        model.inv_eigenvecs, model.rates, model.prop_invar,
+        model.params_indices, dtype=cfg.dtype)
+    num_slots = int(program.pmatrix_indices.max()) + 1
+    pmatrix = torch.zeros((num_slots,) + pmats.shape[1:], dtype=cfg.dtype,
+                          device=pmats.device)
+    pmatrix[torch.as_tensor(program.pmatrix_indices, dtype=torch.int64,
+                            device=pmats.device)] = pmats
+    clv, scalers = message_sweep(program.cfg_ext, model, program.level_ops,
+                                 pmatrix, tipchars)
+    return clv, scalers, pmatrix
+
+
+def all_edge_loglikelihoods(program: FullTreeProgram, cfg: PartitionConfig,
+                            model: Model, branch_lengths, tipchars,
+                            pattern_weights, invariant):
+    """Edge logL evaluated across EVERY branch ([E]).  All entries must be
+    equal (the likelihood is invariant to the evaluation edge) — the
+    strongest whole-sweep self-check the message structure admits."""
+    clv, scalers, pmatrix = _sweep_all(program, cfg, model, branch_lengths,
+                                       tipchars)
+    out = [likelihood_ops.edge_loglikelihood(
+        clv[a], scalers[sa], clv[b], scalers[sb], pmatrix[slot],
+        model.cat_freqs, model.rate_weights, model.cat_pinv, invariant,
+        pattern_weights, cfg)
+        for (a, sa, b, sb), slot in zip(program.edge_rows.tolist(),
+                                        program.pmatrix_indices.tolist())]
+    return torch.stack(out)
 
 
 def build_case(n_tips: int, sites: int, rate_cats: int = 4,

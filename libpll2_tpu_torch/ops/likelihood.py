@@ -42,17 +42,19 @@ def asc_bias_correction(term, site_scalings, pattern_weights,
     """Ascertainment-bias logL correction from the phantom per-state sites
     (compute_asc_bias_correction + root_loglikelihood_asc_bias,
     likelihood.c:24-120).  `term` is the pre-log per-site likelihood,
-    `site_scalings` the per-site scaler counters."""
+    `site_scalings` the per-site scaler counters, both [..., T] (leading
+    axes are batch axes, e.g. the slots of a search round)."""
     s0, S = cfg.sites, cfg.states
     log_thresh = cfg.log_scale_threshold
-    t_ph = term[s0:s0 + S]
-    sc_ph = site_scalings[s0:s0 + S].to(dtype)
+    t_ph = term[..., s0:s0 + S]
+    sc_ph = site_scalings[..., s0:s0 + S].to(dtype)
     w_ph = pattern_weights[s0:s0 + S].to(dtype)
     if cfg.asc_bias == AB_STAMATAKIS:
         # the reference adds the scaler correction unweighted
         # (likelihood.c:97-101)
-        return torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh)
-    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh))
+        return torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh,
+                         dim=-1)
+    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh), dim=-1)
     if cfg.asc_bias == AB_LEWIS:
         real = _site_mask(cfg, pattern_weights.device)
         sum_w = torch.sum(torch.where(real, pattern_weights,

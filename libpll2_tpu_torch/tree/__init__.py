@@ -1,3 +1,4 @@
+from .compare import rf_distance, rf_distance_normalized, splits
 from .newick import (parse_newick, parse_newick_rooted, parse_newick_string,
                      parse_newick_string_rooted, parse_newick_string_unroot,
                      parse_newick_unroot, unroot_inplace)
@@ -12,4 +13,5 @@ __all__ = [
     "parse_newick", "parse_newick_rooted", "parse_newick_unroot",
     "parse_newick_string", "parse_newick_string_rooted",
     "parse_newick_string_unroot", "unroot_inplace",
+    "rf_distance", "rf_distance_normalized", "splits",
 ]

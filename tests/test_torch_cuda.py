@@ -1,4 +1,5 @@
-"""The CUDA tree-sweep kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (tree sweep, edge scorer) against their plain PyTorch
+versions, on the card.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
@@ -10,8 +11,8 @@ import pytest
 import torch
 
 import chip_smoke
-from libpll2_tpu_torch import engine
-from libpll2_tpu_torch.ops import partials_tree
+from libpll2_tpu_torch import engine, search_fast
+from libpll2_tpu_torch.ops import edge_score, partials_tree
 from libpll2_tpu_torch.tree.generate import random_newick
 
 pytestmark = pytest.mark.cuda
@@ -58,3 +59,35 @@ def test_loglikelihood_kernel_vs_dense_f64(cuda_device):
     want = engine.loglikelihood(program, cfg, model, *args).item()
     assert np.isfinite(got)
     assert abs(got - want) / abs(want) < 5e-6
+
+
+@pytest.mark.parametrize("states,tips,sites,radius", [
+    (4, 40, 2048, 4), (20, 20, 512, 3)])
+def test_edge_scorer_matches_plain(cuda_device, states, tips, sites, radius):
+    """Every ball group of one round, DNA and S = 20: -inf patterns equal,
+    scores within 2e-5 on max(1, |s|), t3 within rtol 2e-3 / atol 2e-5
+    (the JAX kernel test's bounds)."""
+    if states == 4:
+        _, start, chars, cfg, model = chip_smoke.search_inputs(
+            cuda_device, tips=tips, sites=sites)
+    else:
+        start, chars, cfg, model = chip_smoke.protein_search_inputs(
+            cuda_device, tips=tips, sites=sites)
+    prog = search_fast.compile_spr(start, cfg, radius=radius)
+    before = edge_score.edge_scores.launches
+    r = chip_smoke.score_round_both(prog, model, chars, timed=False)
+    torch.cuda.synchronize()
+    assert edge_score.edge_scores.launches - before == r["launches"] > 0
+    assert r["same_inf"] and r["finite"] > 100
+    assert r["max_rel_err"] <= 2e-5
+    assert r["t3_excess"] <= 0.0
+
+
+def test_spr_round_launches_edge_scorer(cuda_device):
+    _, start, chars, cfg, model = chip_smoke.search_inputs(
+        cuda_device, tips=32, sites=1024)
+    prog = search_fast.compile_spr(start, cfg, radius=3)
+    tm = {}
+    _, logl, applied = search_fast.spr_round(prog, model, chars, timings=tm)
+    assert tm["scorer"] == "kernel" and tm["edge_score_launches"] > 0
+    assert np.isfinite(logl) and applied > 0

@@ -177,7 +177,8 @@ def test_port_never_imports_jax():
 
 
 def test_port_import_loads_no_jax():
-    code = ("import sys, libpll2_tpu_torch.engine, libpll2_tpu_torch.convert;"
+    code = ("import sys, libpll2_tpu_torch.engine, libpll2_tpu_torch.convert,"
+            " libpll2_tpu_torch.search_fast, libpll2_tpu_torch.tree.moves;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libpll2_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
