@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
   4. the forward path (engine.loglikelihood) at full width: 256 balanced
      taxa x 65,536 sites and 1024 taxa x 16,384 sites, GTR+Gamma4 f32,
      through the tree-sweep kernel, checked against the dense f64 path;
-  5. times of the kernel path and the dense f32 path, CUDA events;
+  5. times of loglikelihood through the kernel and through the dense f32
+     path, CUDA events;
   6. the training step (engine.optimize_root_branch) at 256 x 65,536
      through the tree-sweep kernel, against the dense f64 path;
   7. the edge-scorer kernel against its plain version on every ball group
@@ -20,13 +21,31 @@ Phases (any failure exits non-zero):
   8. the SPR search (search_fast.hill_climb) on the JAX bench's
      search_round inputs through the edge scorer: logL trace, round and
      phase times, RF distance and delta logL against the truth tree, final
-     logL against the dense f64 path.
+     logL against the dense f64 path;
+  9. the tensor-core sweep (mode "mma") against the plain version and
+     against the "fma" kernel on the cases of phase 3 it takes, on an
+     8,192-taxon random tree and on a 4,098-taxon caterpillar with branch
+     lengths x 30;
+ 10. the large-tree path at full width: loglikelihood and
+     optimize_root_branch on a random 8,192-taxon tree x 8,192 sites,
+     through `choose` (which must pick "mma") and with mode "fma", against
+     the dense f64 path (summed over site slices);
+ 11. the protein path at full width: loglikelihood at 128 taxa x 16,384
+     sites, LG + Gamma4, both modes, and LG4X at a smaller width, against
+     the dense f64 path;
+ 12. the all-edge entry points: optimize_branch_lengths on the search
+     inputs, score_placements on a pruned tip, branch_derivatives against
+     central differences;
+ 13. the matrix-unit probe (probes/mma.py) at one site block;
+ 14. times of both sweep forms at four shapes.
 
 Prints a {"kernels": [...]} JSON line, then the result line
 {"ok": true, "device": {...}} last.  Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -44,6 +63,22 @@ T3_RTOL, T3_ATOL = 2e-3, 2e-5   # its refined branch (the JAX test's bounds)
 SEARCH_SEED = 20260820   # bench.py measure_search_round
 SEARCH_TIPS, SEARCH_SITES, SEARCH_RADIUS = 256, 4096, 5
 SEARCH_ROUNDS = 30       # the JAX bench's climb depth
+# "mma" rows against the plain version, relative to each site's largest
+# entry, where the scalers agree: 2e-5 plus 1.5e-7 per op.  A root row
+# carries the summed relative error of every op below it, and the tensor
+# cores round each product toward zero (about half an f32 ulp, 4e-8, per
+# child and op), so the gap grows with the op count.  Relative to the
+# site: TF32 flushes subnormal inputs, so entries 2^-96 below their
+# site's largest differ while carrying no likelihood.
+MMA_RTOL, MMA_RTOL_PER_OP = 2e-5, 1.5e-7
+COMP_RTOL = 2e-3         # scaling-compensated, where a rescue flipped
+LARGE_TIPS, LARGE_SITES = 8192, 8192
+PROTEIN_TIPS, PROTEIN_SITES = 128, 16384
+# published peaks of one H100 SXM (dense): HBM bytes/s, f32 FMA FLOP/s,
+# TF32 and bf16 tensor FLOP/s; shared memory at 128 B/clk/SM x 132 SMs x
+# 1.98 GHz
+HBM_RATE, F32_RATE, TF32_RATE, BF16_RATE = 3.35e12, 67e12, 495e12, 989e12
+SMEM_RATE = 128 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -68,6 +103,28 @@ def cuda_ms(fn, reps: int):
         stop.synchronize()
         out.append(start.elapsed_time(stop))
     return out
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0 (just before a path
+    is driven)."""
+    from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.probes import mma as probe
+    partials_tree.sweep.launches = 0
+    for mode in partials_tree.sweep.launches_by_mode:
+        partials_tree.sweep.launches_by_mode[mode] = 0
+    edge_score.edge_scores.launches = 0
+    probe.chain.launches = 0
+
+
+def read_counts() -> dict:
+    """Launches per kernel since reset_counts (just after a path)."""
+    from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.probes import mma as probe
+    by_mode = partials_tree.sweep.launches_by_mode
+    return {"tree_sweep": by_mode["fma"], "tree_sweep_mma": by_mode["mma"],
+            "edge_score": edge_score.edge_scores.launches,
+            "mma_probe": probe.chain.launches}
 
 
 def phase_device():
@@ -109,7 +166,9 @@ def phase_build():
 
 def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
                  bl_scale=1.0, random_model=False):
-    """(cfg, program, pmatrix, tip_blocked, tb) for one sweep case."""
+    """(cfg, program, pmatrix, tip_blocked, tb) for one sweep case; tb is
+    the site block `choose` gives the "fma" form (the "mma" form's
+    footprint is no larger, so it takes the same block)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -139,7 +198,8 @@ def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
     bl = torch.as_tensor(program.default_branch_lengths * bl_scale,
                          dtype=torch.float32, device=device)
     pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
-    tb = engine.kernel_site_block(program, cfg, tipchars.device)
+    tb, _ = engine.kernel_choice(
+        program, dataclasses.replace(cfg, sweep_mode="fma"), tipchars.device)
     return cfg, program, pmatrix, engine.block_tips(tipchars, cfg, tb), tb
 
 
@@ -165,20 +225,26 @@ def compare_rows(got, want, got_s, want_s):
     return abs_err, mismatches, rel
 
 
-def phase_kernel_vs_plain(device):
-    import torch
+def caterpillar(n):
+    s = "(t0:0.1,t1:0.2)"
+    for i in range(2, n - 2):
+        s = f"({s}:0.05,t{i}:0.1)"
+    return f"({s}:0.05,t{n - 2}:0.1,t{n - 1}:0.1);"
 
-    from libpll2_tpu_torch.ops import partials_tree
+
+@functools.cache
+def large_newick():
+    """The random LARGE_TIPS-taxon tree of the large-tree checks."""
+    from libpll2_tpu_torch.tree.generate import random_newick
+    return random_newick(LARGE_TIPS, np.random.default_rng(8192))
+
+
+def sweep_cases():
+    """(name, newick, sites, sweep_inputs keywords) of the sweep checks."""
     from libpll2_tpu_torch.tree.generate import balanced_newick, random_newick
 
-    def caterpillar(n):
-        s = "(t0:0.1,t1:0.2)"
-        for i in range(2, n - 2):
-            s = f"({s}:0.05,t{i}:0.1)"
-        return f"({s}:0.05,t{n - 2}:0.1,t{n - 1}:0.1);"
-
     rng = np.random.default_rng(2024)
-    cases = [
+    return [
         ("random40", random_newick(40, rng), 4096, {}),
         ("caterpillar64", caterpillar(64), 4096, {}),
         ("scale_heavy48", random_newick(48, rng), 4096, {"bl_scale": 30.0}),
@@ -189,8 +255,65 @@ def phase_kernel_vs_plain(device):
         ("balanced1024_1022ops", balanced_newick(1024), 16384, {}),
         ("balanced256_full", balanced_newick(256), 65536, {}),
     ]
-    full = None
-    for i, (name, newick, sites, kw) in enumerate(cases):
+
+
+def compare_rows_site(got, want, got_s, want_s):
+    """As compare_rows, relative to each site's largest entry: (max err
+    where the scalers agree, scaler mismatches, max err of
+    scaling-compensated values)."""
+    import torch
+    g, w = got.double(), want.double()
+    gs = got_s.double()[:, :, :, None, :]      # [E, NT, 1, 1, TB]
+    ws = want_s.double()[:, :, :, None, :]
+    mag = w.amax(dim=(2, 3), keepdim=True).clamp_min(1e-300)
+    same = (got_s == want_s)[:, :, :, None, :]
+    rel = (((g - w).abs() / mag) * same).max().item()
+    # compensate by the scalers' difference: 2^(-30 k) itself underflows
+    # f64 on a large tree (k in the hundreds)
+    gc = g * torch.exp2(-SCALE_BITS * (gs - ws))
+    comp = ((gc - w).abs() / mag).max().item()
+    abs_err = ((g - w).abs() * same).max().item()
+    return rel, int((got_s != want_s).sum().item()), comp, abs_err
+
+
+def sweep_bound(prog, cfg, mode):
+    """Least time (ms) the card could take for one sweep: the larger of
+    the bytes it must move through device memory (tip masks, op table and
+    P-matrices read once, exported rows written once) over the HBM rate,
+    and its operations over the peak of the unit that does them: f32 FMAs,
+    or for "mma" the TF32 products of the compensated split (three per
+    inner child, two per tip child) plus the f32 elementwise work.  Also
+    the time of its shared-memory traffic (two children read, one parent
+    written per op) at the shared-memory rate.  Returns (bound_ms,
+    bound_by, bytes_ms, ops_ms, smem_ms)."""
+    sites, R, S = cfg.sites_padded, cfg.rate_cats, cfg.states
+    sr = R if (cfg.per_rate_scalers and mode == "fma") else 1
+    slots = int(prog.ops[:, [7, 8]].max()) + 1
+    nbytes = (cfg.tips * sites * 4 + prog.ops.size * 4
+              + slots * R * S * S * 4
+              + len(prog.exports) * sites * (cfg.span + sr) * 4)
+    tip_children = int(prog.ops[:, 3].sum() + prog.ops[:, 6].sum())
+    inner_children = 2 * prog.n_ops - tip_children
+    product = 2 * R * S * S * sites                # FLOPs of one P . child
+    elementwise = 2 * cfg.span * sites * prog.n_ops
+    if mode == "mma":
+        ops_s = ((3 * inner_children + 2 * tip_children) * product
+                 / TF32_RATE + elementwise / F32_RATE)
+    else:
+        ops_s = (2 * prog.n_ops * product + elementwise) / F32_RATE
+    bytes_s = nbytes / HBM_RATE
+    smem_s = prog.n_ops * sites * 3 * (cfg.span + sr) * 4 / SMEM_RATE
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations",
+            bytes_s * 1e3, ops_s * 1e3, smem_s * 1e3)
+
+
+def phase_kernel_vs_plain(device):
+    import torch
+
+    from libpll2_tpu_torch.ops import partials_tree
+
+    for i, (name, newick, sites, kw) in enumerate(sweep_cases()):
         cfg, program, pmatrix, tip_b, tb = sweep_inputs(
             newick, sites, i, device, **kw)
         prog = program.vmem_prog
@@ -208,9 +331,6 @@ def phase_kernel_vs_plain(device):
         check(rel <= CLV_RTOL, f"{name}: CLV rel err {rel} > {CLV_RTOL}")
         if "bl_scale" in kw:
             check(rescues > 0, f"{name}: scale-heavy case did not rescue")
-        if name == "balanced256_full":
-            full = (cfg, program, pmatrix, tip_b, tb, abs_err)
-    return full
 
 
 def phase_main_path(device, card):
@@ -224,7 +344,7 @@ def phase_main_path(device, card):
              for s in shapes}
     torch.cuda.synchronize()
 
-    partials_tree.sweep.launches = 0
+    reset_counts()
     logls = {}
     for s in shapes:
         t0 = time.perf_counter()
@@ -232,7 +352,7 @@ def phase_main_path(device, card):
         logls[s] = engine.loglikelihood(program, cfg, model, *args)
         torch.cuda.synchronize()
         logls[s] = (logls[s].item(), (time.perf_counter() - t0) * 1e3)
-    launches = partials_tree.sweep.launches
+    launches = read_counts()["tree_sweep"]
     log(f"[main] tree_sweep launches during the main path: {launches}")
     check(launches >= len(shapes), "the main path did not launch the kernel")
 
@@ -249,20 +369,18 @@ def phase_main_path(device, card):
             f"{cold_ms:.3f} ms, {card})")
         check(np.isfinite(logl), f"{s}: non-finite logL")
         check(gap < LOGL_RTOL, f"{s}: rel gap {gap} >= {LOGL_RTOL}")
-    return cases[shapes[0]], logls[shapes[0]][1], launches
+    return cases, logls[shapes[0]][1], launches
 
 
-def phase_times(full_case, cold_ms, sweep_full, card):
-    import dataclasses
-
+def phase_times(full_case, cold_ms, card):
+    """loglikelihood through the kernel and through the dense f32 path
+    (the sweep alone is timed in phase_sweep_times)."""
     import torch
 
     from libpll2_tpu_torch import engine
-    from libpll2_tpu_torch.ops import partials_tree
 
     cfg, program, model, *args = full_case
     updates = (cfg.tips - 2) * cfg.sites
-    rows = {}
     for label, c in (("kernel", cfg),
                      ("dense_f32", dataclasses.replace(cfg,
                                                        use_kernel=False))):
@@ -278,23 +396,10 @@ def phase_times(full_case, cold_ms, sweep_full, card):
         for _ in range(3):
             call()
         med = statistics.median(cuda_ms(call, 25))
-        rows[label] = med
         log(f"[time] loglikelihood {label} {cfg.tips}x{cfg.sites}: warm "
             f"median {med:.4f} ms over 25 calls, first call (cold) "
             f"{first:.3f} ms, {updates / (med * 1e-3):.4e} site-updates/s "
             f"({card})")
-
-    scfg, sprog, pmatrix, tip_b, tb, abs_err = sweep_full
-    prog = sprog.vmem_prog
-    k_ms = statistics.median(cuda_ms(
-        lambda: partials_tree.sweep(tip_b, pmatrix, prog, scfg, tb), 25))
-    p_ms = statistics.median(cuda_ms(
-        lambda: partials_tree.sweep_reference(tip_b, pmatrix, prog, scfg,
-                                              tb), 5))
-    log(f"[time] tree sweep alone {scfg.tips}x{scfg.sites} tb={tb}: kernel "
-        f"{k_ms:.4f} ms ({updates / (k_ms * 1e-3):.4e} site-updates/s), "
-        f"plain sweep_reference {p_ms:.4f} ms ({card})")
-    return k_ms, p_ms, abs_err
 
 
 def phase_training(full_case, card):
@@ -307,10 +412,10 @@ def phase_training(full_case, card):
     from libpll2_tpu_torch.ops import partials_tree
 
     cfg, program, model, *args = full_case
-    partials_tree.sweep.launches = 0
+    reset_counts()
     new_bl, logl = engine.optimize_root_branch(program, cfg, model, *args)
     torch.cuda.synchronize()
-    launches = partials_tree.sweep.launches
+    launches = read_counts()["tree_sweep"]
     log(f"[train] tree_sweep launches during optimize_root_branch: "
         f"{launches}")
     check(launches >= 1, "the training step did not launch the kernel")
@@ -425,6 +530,35 @@ def compare_scores(got, want, valid):
             float(excess.max()), float((t_err / np.abs(t_p[fin])).max()))
 
 
+def edge_score_work(score_ops, sub_rows, valid, R, S, T, newton_iters):
+    """(bytes, f32 FLOPs) one edge-scorer launch needs for these slots:
+    every distinct message row and scaler row a valid slot names read
+    once (its away row, its base row, its candidate's subtree row), the
+    half-P matrices of its edges, two f32 results written; per valid slot
+    and site three S x S products per rate and the elementwise products,
+    one more product per candidate for the subtree term, and per Newton
+    pass three sums over span (one in the last pass)."""
+    from libpll2_tpu_torch import search_fast as sf
+    span = R * S
+    cand = np.nonzero(valid.any(axis=1))[0]
+    away = {(c, int(v)) for c in cand
+            for v in score_ops[c, valid[c], sf.BOP_PARENT]}
+    base = set(score_ops[..., sf.BOP_SC_ROW][valid].tolist()) \
+        | set(sub_rows[cand, 0].tolist())
+    scal = set(score_ops[..., sf.BOP_SC_SCAL][valid].tolist()) \
+        | set(sub_rows[cand, 1].tolist())
+    edges = set(score_ops[..., sf.BOP_EDGE][valid].tolist())
+    n = int(valid.sum())
+    nbytes = ((len(away) + len(base)) * span * T * 4
+              + (len(away) + len(scal)) * T * 4
+              + len(edges) * R * S * S * 4 + n * 8)
+    product = 2 * R * S * S * T
+    flops = (n * (3 * product + 2 * span * T)
+             + len(cand) * product
+             + n * (newton_iters * 3 + 1) * 2 * span * T)
+    return nbytes, flops
+
+
 def score_round_both(prog, model, chars, timed: bool):
     """Every ball group of one round through the edge scorer kernel and
     its plain version, chunk by chunk on the same recursion scratch.
@@ -447,7 +581,7 @@ def score_round_both(prog, model, chars, timed: bool):
     R, S, T = cfgx.rate_cats, cfgx.states, tip.shape[-1]
     out = dict(same_inf=True, finite=0, slots=0, max_abs_err=0.0,
                max_rel_err=0.0, t3_excess=-1.0, t3_rel=0.0, kernel_ms=0.0,
-               plain_ms=0.0, launches=0)
+               plain_ms=0.0, launches=0, bytes=0, flops=0)
     kw = dict(newton_iters=3, log_thresh=cfgx.log_scale_threshold)
     for g in prog.ball_groups:
         lvls = tuple(sf._long(a, dev) for a in g.ball_levels)
@@ -484,6 +618,11 @@ def score_round_both(prog, model, chars, timed: bool):
                 out[f"{name}_ms"] += ms
             out["launches"] += 1
             valid = g.score_ops[cs:cs + cb, :, sf.BOP_VALID] == 1
+            nbytes, flops = edge_score_work(
+                g.score_ops[cs:cs + cb], g.sub_rows[cs:cs + cb], valid,
+                R, S, T, kw["newton_iters"])
+            out["bytes"] += nbytes
+            out["flops"] += flops
             same, fin, err, rel, excess, t_rel = compare_scores(
                 runs["kernel"], runs["plain"], valid)
             out["same_inf"] &= same
@@ -524,6 +663,78 @@ def phase_edge_scorer(device, card):
         f"{full['kernel_ms']:.4f} ms, "
         f"plain edge_scores_reference {full['plain_ms']:.4f} ms ({card})")
     return full
+
+
+def placement_inputs(newick, raw, cfg, device):
+    """Inputs of engine.score_placements for pruning the tip with CLV
+    index 0 from `newick` (raw: packed tip states [tips, sites] by CLV
+    index; cfg: the full tree's config).  Returns (full_r, cfg_r,
+    tipchars_r, sub_clv, sub_scaler, sub_len, origin, halved): the
+    remainder tree's message program, config and tips, the pruned tip's
+    CLV directed at the cut with zero scalers, its branch, the position of
+    the remainder edge the tip came from, and the original tree (CLV
+    indices as in `raw`) with that edge's two halves made equal.  SPR
+    semantics split the target edge in half, so score_placements[origin]
+    equals the logL of `halved`."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.tree import moves
+    from libpll2_tpu_torch.tree.utree import traverse_subtree
+
+    tree = T.parse_newick_string(newick)
+    n = tree.tip_count
+    tip0 = next(x for x in tree.nodes[:n] if x.clv_index == 0)
+    p = tip0.back
+    sub_len = float(p.length)
+    merged = float(p.next.length) + float(p.next.next.length)
+    behind_a = frozenset(x.label for x in traverse_subtree(p.next.back)
+                         if x.next is None)
+    row_of = {x.label: x.clv_index for x in tree.nodes[:n]}
+
+    halved = T.parse_newick_string(newick)
+    p2 = next(x for x in halved.nodes[:n] if x.clv_index == 0).back
+    for g in (p2.next, p2.next.next):
+        g.length = g.back.length = merged / 2
+
+    u = moves.prune_subtree(p)
+    root_r = u if u.next is not None else u.back
+    T.reset_template_indices(root_r, n - 1)
+    rtree = T.wrap_tree(root_r)
+    cfg_r = dataclasses.replace(
+        cfg, tips=n - 1, clv_buffers=rtree.inner_count,
+        prob_matrices=2 * (n - 1) - 3, scale_buffers=rtree.inner_count)
+    full_r = engine.compile_tree_full(rtree, cfg_r)
+    raw_r = np.zeros((n - 1, raw.shape[1]), dtype=np.uint64)
+    for x in rtree.nodes[:n - 1]:
+        raw_r[x.clv_index] = raw[row_of[x.label]]
+    tip_r = torch.as_tensor(engine.pad_tipchars(raw_r, cfg_r), device=device)
+    sub_tip = torch.as_tensor(engine.pad_tipchars(
+        raw[:1], dataclasses.replace(cfg, tips=1)), device=device)
+    sub_clv = engine.expand_tipchars(sub_tip, cfg.states, cfg.dtype)[0]
+    sub_clv = sub_clv[None].expand(cfg.rate_cats, -1, -1)
+    shape = ((cfg.rate_cats, cfg.sites_padded) if cfg.per_rate_scalers
+             else (cfg.sites_padded,))
+    sub_scaler = torch.zeros(shape, dtype=torch.int32, device=device)
+
+    # the merged edge of the remainder: splits the tips as p.next did
+    by_pmatrix = {}
+    for x in rtree.nodes:
+        for g in ([x] if x.next is None else list(x.roundabout())):
+            by_pmatrix.setdefault(int(g.back.pmatrix_index), g)
+    rest = frozenset(row_of) - {tip0.label} - behind_a
+    origin = None
+    for i, pm in enumerate(full_r.pmatrix_indices.tolist()):
+        g = by_pmatrix[pm]
+        side = frozenset(x.label for x in traverse_subtree(g)
+                         if x.next is None)
+        if side in (behind_a, rest) and abs(float(g.length) - merged) < 1e-12:
+            origin = i
+            break
+    check(origin is not None, "the merged edge was not found")
+    return (full_r, cfg_r, tip_r, sub_clv, sub_scaler, sub_len, origin,
+            halved)
 
 
 def dense_f64_logl(tree, chars, sites, device):
@@ -569,14 +780,14 @@ def phase_search(device, card):
 
     truth, start, chars, cfg, model = search_inputs(device)
     torch.cuda.synchronize()
-    edge_score.edge_scores.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     final, logl, stats = sf.hill_climb(
         start, cfg, model, chars, max_rounds=SEARCH_ROUNDS,
         radius=SEARCH_RADIUS, smooth_every=2)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = edge_score.edge_scores.launches
+    launches = read_counts()["edge_score"]
     log(f"[search] edge_score launches during hill_climb: {launches}")
     check(launches > 0, "the search did not launch the edge scorer")
 
@@ -617,39 +828,446 @@ def phase_search(device, card):
     return launches
 
 
+def mma_bound(n_ops: int) -> float:
+    return MMA_RTOL + MMA_RTOL_PER_OP * n_ops
+
+
+def phase_mma_vs_plain(device):
+    """sweep(mode="mma") against sweep_reference and against
+    sweep(mode="fma"), on the cases of phase_kernel_vs_plain the form takes
+    and on two large trees.  On the large trees the plain version also
+    runs in f64 arithmetic (same f32 inputs and rescue rule), to hold the
+    "mma" form's distance from the exact rows against the "fma" form's."""
+    import torch
+
+    from libpll2_tpu_torch.ops import partials_tree
+
+    # the newick parser and traversals recurse once per level of the tree
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
+    cases = [c + (False,) for c in sweep_cases()] + [
+        (f"random{LARGE_TIPS}", large_newick(), 512, {}, True),
+        ("caterpillar4098_scaled", caterpillar(4098), 256,
+         {"bl_scale": 30.0}, True)]
+    limit = None
+    for i, (name, newick, sites, kw, large) in enumerate(cases):
+        cfg, program, pmatrix, tip_b, tb = sweep_inputs(
+            newick, sites, i, device, **kw)
+        prog = program.vmem_prog
+        if limit is None:
+            from libpll2_tpu_torch import _build
+            limit = _build.max_shared_memory(device)
+        reason = partials_tree.unsupported(prog, cfg, limit, "mma")
+        if reason is not None:
+            log(f"[mma] {name}: not taken by the form ({reason})")
+            check(cfg.per_rate_scalers, f"{name}: refused: {reason}")
+            continue
+        mma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma")
+        fma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="fma")
+        plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+        torch.cuda.synchronize()
+        # the kernel's P operand: the split-and-layout prologue kernel
+        # against its plain version, bit for bit
+        check(torch.equal(
+            partials_tree.pmatrix_fragments(pmatrix, cfg),
+            partials_tree.pmatrix_fragments_reference(pmatrix, cfg)),
+            f"{name}: P fragments differ from their plain version")
+        rel, mism, comp, abs_err = compare_rows_site(mma[0], plain[0],
+                                                     mma[1], plain[1])
+        rel_f, mism_f, comp_f, _ = compare_rows_site(mma[0], fma[0], mma[1],
+                                                     fma[1])
+        bound = mma_bound(prog.n_ops)
+        line = (f"[mma] {name}: ops={prog.n_ops} pool={prog.pool_size} "
+                f"tb={tb} sites={sites} S={cfg.states} max_scaler="
+                f"{int(plain[1].max().item())}; against plain: site-rel "
+                f"{rel:.3e} (bound {bound:.3e}) abs {abs_err:.3e} scaler "
+                f"mismatches {mism} compensated {comp:.3e}; against fma: "
+                f"site-rel {rel_f:.3e} mismatches {mism_f} compensated "
+                f"{comp_f:.3e}")
+        check(rel <= bound and rel_f <= bound,
+              f"{name}: mma rows off by {rel} / {rel_f} > {bound}")
+        check(comp <= COMP_RTOL and comp_f <= COMP_RTOL,
+              f"{name}: compensated err {comp} / {comp_f} > {COMP_RTOL}")
+        if "bl_scale" in kw:
+            check(int(plain[1].max().item()) > 0, f"{name}: no rescue fired")
+        if large:
+            exact = partials_tree.sweep_reference(tip_b, pmatrix.double(),
+                                                  prog, cfg, tb)
+            e_mma = compare_rows_site(mma[0], exact[0], mma[1], exact[1])[2]
+            e_fma = compare_rows_site(fma[0], exact[0], fma[1], exact[1])[2]
+            line += (f"; against the plain version in f64 arithmetic "
+                     f"(compensated): mma {e_mma:.3e} fma {e_fma:.3e}")
+            check(e_mma <= COMP_RTOL, f"{name}: mma {e_mma} from f64 rows")
+        log(line)
+
+
+def dense_f64_sliced(case32, device, slice_sites=1024):
+    """logL of an f32 case by the dense f64 path, summed over site slices
+    (logL is a sum over sites; the dense CLV buffer of all sites at once
+    would be tens of GB on a large tree)."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+
+    cfg, program, model, bl, tipchars, pw, inv = case32
+    model64 = engine.Model(*(getattr(model, f).double()
+                             if getattr(model, f).is_floating_point()
+                             else getattr(model, f)
+                             for f in engine.Model.FIELDS))
+    total = 0.0
+    for start in range(0, cfg.sites_padded, slice_sites):
+        stop = min(start + slice_sites, cfg.sites_padded)
+        cfg64 = dataclasses.replace(
+            cfg, sites=stop - start, site_block=stop - start,
+            dtype=torch.float64, use_kernel=False, sweep_mode=None)
+        total += engine.loglikelihood(
+            program, cfg64, model64, bl.double(), tipchars[:, start:stop],
+            pw[start:stop].double(), inv[start:stop]).item()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_wide_path(name, case, expect_mode, device, card, train):
+    """loglikelihood (and optimize_root_branch if `train`) of one case
+    through `choose` and with the other mode forced, each against the dense
+    f64 path.  Returns the launches {kernel: n} of the path."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+
+    cfg, program, model, *args = case
+    choice = engine.kernel_choice(program, cfg, device)
+    log(f"[{name}] {cfg.tips} taxa x {cfg.sites} sites S={cfg.states}: "
+        f"ops={program.vmem_prog.n_ops} pool={program.vmem_prog.pool_size}; "
+        f"choose picks site block {choice[0]}, mode {choice[1]!r}")
+    check(choice[1] == expect_mode, f"{name}: choose picked {choice[1]}, "
+          f"expected {expect_mode}")
+    other = "fma" if expect_mode == "mma" else "mma"
+    reset_counts()
+    got, warm = {}, {}
+    configs = ((expect_mode, cfg),
+               (other, dataclasses.replace(cfg, sweep_mode=other)))
+    for mode, c in configs:
+        t0 = time.perf_counter()
+        logl = engine.loglikelihood(program, c, model, *args)
+        torch.cuda.synchronize()
+        got[mode] = (logl.item(), (time.perf_counter() - t0) * 1e3, None)
+        if train:
+            new_bl, before = engine.optimize_root_branch(program, c, model,
+                                                         *args)
+            root = int(np.nonzero(program.pmatrix_indices
+                                  == program.root_pmatrix)[0][0])
+            got[mode] = got[mode][:2] + ((before.item(),
+                                          new_bl[root].item()),)
+    counts = read_counts()
+    log(f"[{name}] launches during the path: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}")
+    per_mode = 2 if train else 1
+    check(counts["tree_sweep"] == counts["tree_sweep_mma"] == per_mode,
+          f"{name}: expected {per_mode} launches of each form")
+    for mode, c in configs:       # timed after the counted path
+        warm[mode] = statistics.median(cuda_ms(
+            lambda: engine.loglikelihood(program, c, model, *args), 10))
+    ref = dense_f64_sliced(case, device)
+    for mode, (logl, first_ms, trained) in got.items():
+        gap = abs(logl - ref) / abs(ref)
+        line = (f"[{name}] mode {mode!r}: logL f32 {logl!r} dense f64 "
+                f"(summed over slices of 1024 sites) {ref!r} rel gap "
+                f"{gap:.3e} (first call, cold: {first_ms:.3f} ms, warm "
+                f"median of 10 calls {warm[mode]:.4f} ms, {card})")
+        check(np.isfinite(logl) and gap < LOGL_RTOL,
+              f"{name} {mode}: rel gap {gap} >= {LOGL_RTOL}")
+        if trained is not None:
+            gap_b = abs(trained[0] - ref) / abs(ref)
+            line += (f"; optimize_root_branch logl_before {trained[0]!r} "
+                     f"(rel gap {gap_b:.3e}), root branch -> {trained[1]!r}")
+            check(gap_b < LOGL_RTOL and np.isfinite(trained[1]),
+                  f"{name} {mode}: training step gap {gap_b}")
+        log(line)
+    if train:
+        t_a, t_b = (got[m][2][1] for m in (expect_mode, other))
+        check(abs(t_a - t_b) <= BL_RTOL * abs(t_b),
+              f"{name}: root branch differs between modes: {t_a} {t_b}")
+    return counts
+
+
+def phase_large_tree(device, card):
+    import torch
+
+    from libpll2_tpu_torch import engine
+
+    case = engine.build_case(LARGE_TIPS, LARGE_SITES, dtype=torch.float32,
+                             device=device, newick=large_newick())
+    torch.cuda.synchronize()
+    counts = phase_wide_path("large", case, "mma", device, card, train=True)
+    return case, counts
+
+
+def phase_protein(device, card):
+    import torch
+
+    from libpll2_tpu_torch import engine
+
+    case = engine.build_case(PROTEIN_TIPS, PROTEIN_SITES, states=20,
+                             dtype=torch.float32, device=device)
+    counts = phase_wide_path("protein", case, "fma", device, card,
+                             train=False)
+    small = engine.build_case(64, 2048, states=20, aa_model_name="lg4x",
+                              dtype=torch.float32, device=device)
+    extra = phase_wide_path("protein_lg4x", small, "fma", device, card,
+                            train=False)
+    return case, {k: counts[k] + extra[k] for k in counts}
+
+
+def phase_all_edge(device, card):
+    """The all-edge entry points (dense message sweep; no kernel of their
+    own) on the search inputs."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import tree as T
+
+    _truth, start, chars, cfg, model = search_inputs(device)
+    n = cfg.tips
+    raw = np.zeros((n, cfg.sites), dtype=np.uint64)
+    for node in start.nodes[:n]:
+        raw[node.clv_index] = chars[node.label][:cfg.sites]
+    tipchars = torch.as_tensor(engine.pad_tipchars(raw, cfg), device=device)
+    pw = torch.zeros(cfg.sites_padded, device=device)
+    pw[:cfg.sites] = 1.0
+    inv = torch.full((cfg.sites_padded,), -1, dtype=torch.int32,
+                     device=device)
+    full = engine.compile_tree_full(start, cfg)
+    bl = torch.as_tensor(full.default_branch_lengths, dtype=cfg.dtype,
+                         device=device)
+    program = engine.compile_tree(start, cfg)
+    before = engine.loglikelihood(program, cfg, model, bl, tipchars, pw,
+                                  inv).item()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_bl, logl = engine.optimize_branch_lengths(
+        full, cfg, model, bl, tipchars, pw, inv, rounds=3)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    again = engine.loglikelihood(program, cfg, model, new_bl, tipchars, pw,
+                                 inv).item()
+    gap = abs(logl.item() - again) / abs(again)
+    log(f"[alledge] optimize_branch_lengths {n} x {cfg.sites}, 3 rounds, "
+        f"{full.n_colors} colour classes: logL {before!r} -> {logl.item()!r}"
+        f"; loglikelihood at the returned lengths {again!r} (rel gap "
+        f"{gap:.3e}); first call {secs:.3f} s ({card})")
+    check(logl.item() >= before, "smoothing lowered the logL")
+    check(gap < LOGL_RTOL, f"smoothed logL gap {gap}")
+
+    # prune on a copy: the tree parsed back from its newick, tips by label
+    newick = T.export_newick(start.vroot, precision=None)
+    raw = np.zeros((n, cfg.sites), dtype=np.uint64)
+    for node in T.parse_newick_string(newick).nodes[:n]:
+        raw[node.clv_index] = chars[node.label][:cfg.sites]
+    tipchars = torch.as_tensor(engine.pad_tipchars(raw, cfg), device=device)
+    (full_r, cfg_r, tip_r, sub_clv, sub_scaler, sub_len, origin,
+     halved) = placement_inputs(newick, raw, cfg, device)
+    bl_r = torch.as_tensor(full_r.default_branch_lengths, dtype=cfg.dtype,
+                           device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = engine.score_placements(full_r, cfg_r, model, bl_r, tip_r, pw,
+                                     inv, sub_clv, sub_scaler, sub_len)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prog2 = engine.compile_tree(halved, cfg)
+    want = engine.loglikelihood(
+        prog2, cfg, model, torch.as_tensor(prog2.default_branch_lengths,
+                                           dtype=cfg.dtype, device=device),
+        tipchars, pw, inv).item()
+    gap = abs(scores[origin].item() - want) / abs(want)
+    log(f"[alledge] score_placements: {len(scores)} edges; at the edge the "
+        f"tip came from {scores[origin].item()!r}, logL of that tree "
+        f"{want!r} (rel gap {gap:.3e}); best edge {int(scores.argmax())}, "
+        f"origin {origin}; first call {secs:.3f} s ({card})")
+    check(bool(torch.isfinite(scores).all()), "non-finite placement score")
+    check(gap < LOGL_RTOL, f"placement at the origin edge off by {gap}")
+
+    # branch_derivatives against central differences, f64, a small case
+    c64 = engine.build_case(48, 2048, dtype=torch.float64, device=device,
+                            use_kernel=False)
+    cfg64, prog64, model64, bl64, *rest = c64
+    from libpll2_tpu_torch.tree.generate import balanced_newick
+    full64 = engine.compile_tree_full(
+        T.parse_newick_string(balanced_newick(48)), cfg64)
+    d1, d2 = engine.branch_derivatives(full64, cfg64, model64, bl64, *rest)
+    worst, h = 0.0, 1e-6
+    for e in range(0, len(bl64), 7):
+        up, down = bl64.clone(), bl64.clone()
+        up[e] += h
+        down[e] -= h
+        fd = (engine.loglikelihood(prog64, cfg64, model64, up, *rest)
+              - engine.loglikelihood(prog64, cfg64, model64, down, *rest)
+              ).item() / (2 * h)
+        worst = max(worst, abs(d1[e].item() + fd) / abs(fd))
+    log(f"[alledge] branch_derivatives 48 x 2048 f64: d1 against central "
+        f"differences of loglikelihood, worst rel gap {worst:.3e} over "
+        f"{len(range(0, len(bl64), 7))} branches; all d2 finite "
+        f"{bool(torch.isfinite(d2).all())}")
+    check(worst < 1e-5, f"d1 off central differences by {worst}")
+
+
+def phase_probe(card):
+    from libpll2_tpu_torch.probes import mma as probe
+
+    reset_counts()
+    rows = probe.run_probe(128, emit=lambda line: log(f"[probe] {line} "
+                                                      f"({card})"))
+    launches = read_counts()["mma_probe"]
+    check(len(rows) > 0 and launches > 0, "the probe launched nothing")
+    rate = {"fma": F32_RATE, "tf32": TF32_RATE, "bf16": BF16_RATE}
+    grid = probe.SITES // 128
+    ops_s = sum(2 * r["M"] * r["K"] * probe.NREP * probe.SITES
+                / rate[r["unit"]] for r in rows)
+    bytes_s = sum((r["M"] * r["K"] + probe.NBUF * r["K"] * 128
+                   + grid * r["M"] * 128) * 4 for r in rows) / HBM_RATE
+    return dict(launches=launches,
+                max_abs_err=max(r["abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="bytes" if bytes_s >= ops_s else "operations")
+
+
+def phase_sweep_times(cases, card):
+    """Both sweep forms alone at the main paths' shapes: first call and
+    warm median of 20, CUDA events; the plain version once.  Returns
+    {(name, mode): (ms, plain_ms, bound tuple, max_abs_err)}."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.ops import partials_tree
+
+    out = {}
+    for name, case in cases.items():
+        cfg, program, model, bl, tipchars, *_ = case
+        prog = program.vmem_prog
+        pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+        tb, _ = engine.kernel_choice(program, cfg, tipchars.device)
+        tip_b = engine.block_tips(tipchars, cfg, tb)
+        plain = {}
+        p_ms = cuda_ms(lambda: plain.setdefault(
+            "v", partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg,
+                                               tb)), 1)[0]
+        updates = (cfg.tips - 2) * cfg.sites
+        for mode in partials_tree.MODES:
+            def call(mode=mode):
+                return partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                           mode=mode)
+            got = {}
+            first = cuda_ms(lambda: got.setdefault("v", call()), 1)[0]
+            rel, mism, comp, abs_err = compare_rows_site(
+                got["v"][0], plain["v"][0], got["v"][1], plain["v"][1])
+            bound_rel = mma_bound(prog.n_ops) if mode == "mma" else CLV_RTOL
+            check(rel <= bound_rel and comp <= COMP_RTOL,
+                  f"{name} {mode}: rows off plain by {rel} (bound "
+                  f"{bound_rel}), compensated {comp}")
+            for _ in range(2):
+                call()
+            med = statistics.median(cuda_ms(call, 20))
+            b = sweep_bound(prog, cfg, mode)
+            log(f"[time] sweep {mode} {name} {cfg.tips}x{cfg.sites} "
+                f"S={cfg.states} ops={prog.n_ops} tb={tb}: warm median "
+                f"{med:.4f} ms over 20 calls, first call (cold for this "
+                f"shape and form) {first:.3f} ms, "
+                f"{updates / (med * 1e-3):.4e} site-updates/s; plain "
+                f"sweep_reference {p_ms:.3f} ms; rows against plain: "
+                f"site-rel {rel:.3e}, {mism} scaler mismatches; bound "
+                f"{b[0]:.4f} ms by {b[1]} (HBM bytes {b[2]:.4f}, operations "
+                f"{b[3]:.4f}; shared-memory traffic {b[4]:.4f}) ({card})")
+            out[(name, mode)] = (med, p_ms, b, abs_err)
+        del plain, pmatrix, tip_b
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     card = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
-    sweep_full = phase_kernel_vs_plain(device)
-    full_case, cold_ms, launches = phase_main_path(device, card)
-    k_ms, p_ms, abs_err = phase_times(full_case, cold_ms, sweep_full, card)
-    launches += phase_training(full_case, card)
-    del full_case, sweep_full
+    phase_kernel_vs_plain(device)
+    cases, cold_ms, n_main = phase_main_path(device, card)
+    full_case = cases[(256, 65536)]
+    launches = {"tree_sweep": n_main, "tree_sweep_mma": 0, "edge_score": 0,
+                "mma_probe": 0}
+    phase_times(full_case, cold_ms, card)
+    launches["tree_sweep"] += phase_training(full_case, card)
+
+    phase_mma_vs_plain(device)
+    large_case, counts = phase_large_tree(device, card)
+    protein_case, counts_p = phase_protein(device, card)
+    for k in ("tree_sweep", "tree_sweep_mma"):
+        launches[k] += counts[k] + counts_p[k]
+    times = phase_sweep_times({
+        "dna_256": full_case, "dna_1024": cases[(1024, 16384)],
+        "large_8192": large_case, "protein_128": protein_case}, card)
+    del cases, full_case, large_case, protein_case
     torch.cuda.empty_cache()
+    phase_all_edge(device, card)
+
     edge = phase_edge_scorer(device, card)
-    search_launches = phase_search(device, card)
-    print(json.dumps({"kernels": [{
-        "name": "tree_sweep",
-        "route": "cuda",
+    launches["edge_score"] = phase_search(device, card)
+    probe = phase_probe(card)
+    launches["mma_probe"] = probe["launches"]
+
+    ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
+    fma_ms, fma_plain, fma_b, fma_err = times[("dna_256", "fma")]
+    mma_ms, mma_plain, mma_b, mma_err = times[("large_8192", "mma")]
+    edge_bytes_s = edge["bytes"] / HBM_RATE
+    edge_ops_s = edge["flops"] / F32_RATE
+    kernels = [{
+        "name": "tree_sweep", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/tree_sweep.cu",
-        "replaces": "libpll2_tpu/ops/partials_pallas_tree.py:808 "
-                    "(_tree_kernel_static); :1136 (_tree_kernel_static_seg)",
-        "launches": launches,
-        "max_abs_err": abs_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "replaces": f"{ppt}:808 (_tree_kernel_static); :1136 "
+                    f"(_tree_kernel_static_seg); :410 (_tree_kernel, vpu)",
+        "launches": launches["tree_sweep"], "max_abs_err": fma_err,
+        "ms": fma_ms, "plain_ms": fma_plain, "bound_ms": fma_b[0],
+        "bound_by": fma_b[1], "smem_ms": fma_b[4], "library_ms": None,
+        "shape": "256 x 65536 DNA",
     }, {
-        "name": "edge_score",
-        "route": "cuda",
+        "name": "tree_sweep_mma", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep_mma.cu",
+        "replaces": f"{ppt}:547 (_tree_kernel_splitk); :410 (_tree_kernel, "
+                    f"mxu)",
+        "launches": launches["tree_sweep_mma"], "max_abs_err": mma_err,
+        "ms": mma_ms, "plain_ms": mma_plain, "bound_ms": mma_b[0],
+        "bound_by": mma_b[1], "smem_ms": mma_b[4], "library_ms": None,
+        "shape": "8192 x 8192 DNA",
+    }, {
+        "name": "edge_score", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/edge_score.cu",
         "replaces": "libpll2_tpu/ops/edge_score_pallas.py:54 (_kernel)",
-        "launches": search_launches,
-        "max_abs_err": edge["max_abs_err"],
-        "ms": edge["kernel_ms"],
+        "launches": launches["edge_score"],
+        "max_abs_err": edge["max_abs_err"], "ms": edge["kernel_ms"],
         "plain_ms": edge["plain_ms"],
-    }]}), flush=True)
+        "bound_ms": max(edge_bytes_s, edge_ops_s) * 1e3,
+        "bound_by": "bytes" if edge_bytes_s >= edge_ops_s else "operations",
+        "library_ms": None,
+        "shape": "one 256 x 4096 round, radius 5",
+    }, {
+        "name": "mma_probe", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/mma_probe.cu",
+        "replaces": "tools/mxu_probe.py:36 (kernel)",
+        "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": None,
+        "shape": "all variants and units at TB 128, summed",
+    }]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its "
+                                 f"main path")
+        log(f"[bound] {k['name']} ({k['shape']}): {k['ms']:.4f} ms against "
+            f"a bound of {k['bound_ms']:.4f} ms by {k['bound_by']}: "
+            f"{k['bound_ms'] / k['ms']:.4f} of the roof; plain "
+            f"{k['plain_ms']:.4f} ms; no single PyTorch call computes it "
+            f"({card})")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,8 +23,8 @@ from pathlib import Path
 import torch
 
 PACKAGE = Path(__file__).resolve().parent
-SOURCES = (PACKAGE / "csrc" / "tree_sweep.cu",
-           PACKAGE / "csrc" / "edge_score.cu")
+SOURCES = tuple(PACKAGE / "csrc" / name for name in (
+    "tree_sweep.cu", "tree_sweep_mma.cu", "edge_score.cu", "mma_probe.cu"))
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +107,31 @@ def library() -> ctypes.CDLL:
         p,             # stream
     ]
     lib.tree_sweep_launch.restype = ctypes.c_int
+    lib.tree_sweep_mma_launch.argtypes = [
+        p, i,          # ops, n_ops
+        p,             # pfrag
+        p, i,          # tip_blocked, tips
+        p, i,          # export_slots, n_exp
+        p, p,          # clv_out, scal_out
+        i, i, i, i,    # nt, tb, rates, states
+        i,             # pool_size
+        f, f,          # thresh, factor
+        p,             # stream
+    ]
+    lib.tree_sweep_mma_launch.restype = ctypes.c_int
+    lib.tree_sweep_mma_fragments.argtypes = [
+        p, p, p,       # pmat, idx, pfrag
+        i, i, i,       # n_slots, n_pairs, pm_words
+        p,             # stream
+    ]
+    lib.tree_sweep_mma_fragments.restype = ctypes.c_int
+    lib.mma_probe_launch.argtypes = [
+        i, i,          # variant, unit
+        p, p, p,       # a, b, out
+        i, i, i,       # grid, tb, nrep
+        p,             # stream
+    ]
+    lib.mma_probe_launch.restype = ctypes.c_int
     lib.edge_score_launch.argtypes = [
         p, p,          # away, away_scal
         p, p,          # base, base_scal

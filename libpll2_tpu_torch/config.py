@@ -53,6 +53,9 @@ class PartitionConfig:
     # True: the kernels or raise (their plain versions on CPU tensors).
     # False: the plain paths (ops/partials.py, the plain scorer).
     use_kernel: Optional[bool] = None
+    # Form of the tree-sweep kernel: None lets ops/partials_tree.choose pick
+    # by op count; "fma" or "mma" forces one (a case it cannot take raises).
+    sweep_mode: Optional[str] = None
 
     def __post_init__(self):
         # the reference refuses the combination at partition creation; the

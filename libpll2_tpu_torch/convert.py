@@ -71,10 +71,11 @@ def program_mismatches(port: TreeProgram, ref) -> list[str]:
 
 def config_mismatches(port: PartitionConfig, ref) -> list[str]:
     """Fields in which a port PartitionConfig differs from a JAX one.
-    dtypes compare by name; use_kernel has no JAX counterpart."""
+    dtypes compare by name; use_kernel and sweep_mode have no JAX
+    counterpart."""
     out = []
     for f in dataclasses.fields(port):
-        if f.name == "use_kernel":
+        if f.name in ("use_kernel", "sweep_mode"):
             continue
         a, b = getattr(port, f.name), getattr(ref, f.name)
         if f.name == "dtype":
@@ -96,10 +97,25 @@ def full_program_mismatches(port: FullTreeProgram, ref) -> list[str]:
     return out
 
 
+def _color_masks_same(port: np.ndarray, ref: np.ndarray) -> bool:
+    """The port keeps one mask per colour class; the JAX package keeps
+    classes 0-3 only and never smooths a branch of a further colour.  The
+    same: classes 0-3 equal, and the port's further classes partition
+    exactly the branches the JAX masks leave out."""
+    n = ref.shape[0]
+    head = np.zeros_like(ref)
+    head[:min(n, port.shape[0])] = port[:n]
+    rest = port[n:]
+    return (port.dtype == ref.dtype and port.shape[1:] == ref.shape[1:]
+            and np.array_equal(head, ref)
+            and np.array_equal(rest.sum(axis=0), ~ref.any(axis=0)))
+
+
 def spr_program_mismatches(port, ref) -> list[str]:
     """Fields in which a port search_fast.SprProgram differs from a JAX
     one, ball groups included (arrays byte for byte, candidate sets by
-    equality, the tree by its full-precision newick)."""
+    equality, the tree by its full-precision newick; colour masks by
+    _color_masks_same)."""
     from .tree.utree import export_newick
     out = []
     for name in ("cfg", "cfg_ext"):
@@ -110,6 +126,10 @@ def spr_program_mismatches(port, ref) -> list[str]:
         out.append("tree")
     for f in dataclasses.fields(port):
         if f.name in ("tree", "cfg", "cfg_ext", "ball_groups"):
+            continue
+        if f.name == "color_masks":
+            if not _color_masks_same(port.color_masks, ref.color_masks):
+                out.append(f.name)
             continue
         if not _same(getattr(port, f.name), getattr(ref, f.name)):
             out.append(f.name)

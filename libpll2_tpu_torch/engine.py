@@ -3,13 +3,15 @@ P-matrices + CLV sweep + log-likelihood on tensors.
 
 Counterpart of libpll2_tpu/engine.py: the forward step (`compile_tree`,
 `Model`, `make_model`, `_sweep`, `loglikelihood`), the training step
-(`optimize_root_branch`) and the all-directions message core
-(`compile_tree_full`, `_sweep_all`, `all_edge_loglikelihoods`).  The
-forward CLV sweep runs in the hand-written CUDA tree-sweep kernel on CUDA
-tensors (ops/partials_tree.py) and in the dense level-batched path
-(ops/partials.py) on CPU tensors or when `cfg.use_kernel` is False; the
-message sweep is the dense path.  PyTorch runs eagerly, so there is no
-jit and no static-argument hashing.
+(`optimize_root_branch`) and the all-edge engine over the all-directions
+message sweep (`compile_tree_full`, `_sweep_all`,
+`all_edge_loglikelihoods`, `optimize_branch_lengths`, `score_placements`,
+`branch_derivatives`).  The forward CLV sweep runs in a hand-written CUDA
+tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
+tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
+level-batched path (ops/partials.py) on CPU tensors or when
+`cfg.use_kernel` is False; the message sweep is the dense path.  PyTorch
+runs eagerly, so there is no jit and no static-argument hashing.
 """
 from __future__ import annotations
 
@@ -176,24 +178,35 @@ def pad_tipchars(tipchars: np.ndarray, cfg: PartitionConfig) -> np.ndarray:
     return out
 
 
-def kernel_site_block(program: TreeProgram, cfg: PartitionConfig,
-                      device: torch.device) -> int:
-    """Site block of the tree-sweep kernel for this call, or 0 for the
-    dense path.  See PartitionConfig.use_kernel; a case the kernel cannot
-    take raises with the reason unless the dense path was asked for."""
+def kernel_choice(program: TreeProgram, cfg: PartitionConfig,
+                  device: torch.device) -> Optional[tuple]:
+    """(site block, mode) of the tree-sweep kernel for this call, or None
+    for the dense path.  See PartitionConfig.use_kernel and .sweep_mode; a
+    case the kernel cannot take raises with the reason unless the dense
+    path was asked for."""
     if cfg.use_kernel is False:
-        return 0
+        return None
     if cfg.use_kernel is None and device.type == "cpu":
-        return 0
+        return None
     limit = partials_tree.SMEM_LIMIT
     if device.type == "cuda":
         from . import _build
         limit = _build.max_shared_memory(device)
-    reason = partials_tree.unsupported(program.vmem_prog, cfg, limit)
-    if reason is not None:
+    prog = program.vmem_prog
+    if cfg.sweep_mode is None:
+        choice = partials_tree.choose(prog, cfg, limit)
+        mode = "fma"      # the form whose refusal is reported
+    else:
+        mode = cfg.sweep_mode
+        choice = None
+        if partials_tree.unsupported(prog, cfg, limit, mode) is None:
+            choice = (partials_tree.pick_site_block(prog, cfg, limit, mode),
+                      mode)
+    if choice is None:
+        reason = partials_tree.unsupported(prog, cfg, limit, mode)
         raise ValueError(f"tree-sweep kernel cannot take this case: {reason}"
                          f" (use_kernel=False selects the dense path)")
-    return partials_tree.pick_site_block(program.vmem_prog, cfg, limit)
+    return choice
 
 
 def pmatrix_buffer(program: TreeProgram, cfg: PartitionConfig, model: Model,
@@ -230,12 +243,13 @@ def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
     device = tipchars.device
     pmatrix = pmatrix_buffer(program, cfg, model, branch_lengths)
 
-    tb = kernel_site_block(program, cfg, device)
-    if tb:
+    choice = kernel_choice(program, cfg, device)
+    if choice is not None:
         # shared-memory sweep: tips stay packed, only root rows are written
+        tb, mode = choice
         clv_rows, scal_rows = partials_tree.sweep(
             block_tips(tipchars, cfg, tb), pmatrix, program.vmem_prog, cfg,
-            tb)
+            tb, mode=mode)
         return _TreeView(clv_rows, scal_rows, program.vmem_prog,
                          tipchars, cfg), pmatrix
 
@@ -563,13 +577,172 @@ def all_edge_loglikelihoods(program: FullTreeProgram, cfg: PartitionConfig,
     return torch.stack(out)
 
 
+# Bytes of per-edge tensors (two gathered CLVs, their product or sumtable
+# and one temporary, each [R, S, T]) that one chunk of edges may hold in
+# the all-edge entry points below.
+EDGE_CHUNK_BYTES = 1 << 30
+
+
+def _edge_chunks(program: FullTreeProgram, cfg: PartitionConfig, edges):
+    """Split a 1-D index tensor of branch positions into chunks whose
+    per-edge tensors fit EDGE_CHUNK_BYTES."""
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    per_edge = 4 * cfg.span * cfg.sites_padded * itemsize
+    return torch.split(edges, max(1, EDGE_CHUNK_BYTES // per_edge))
+
+
+def _edge_sumtables(program: FullTreeProgram, cfg: PartitionConfig,
+                    model: Model, clv, scalers, rows):
+    """Sumtables [n, R, S, T] of the edges with rows [n, 4] (rowA, scalA,
+    rowB, scalB).  Per-site scalers cancel in L'/L; per-rate relative
+    scalers fold into the sumtable (core_derivatives.c:418-460)."""
+    idx = model.params_indices.long()
+    sp, sc = ((scalers[rows[:, 1]], scalers[rows[:, 3]])
+              if cfg.per_rate_scalers else (None, None))
+    return derivatives_ops.update_sumtable(
+        clv[rows[:, 0]], clv[rows[:, 2]], sp, sc, model.eigenvecs[idx],
+        model.inv_eigenvecs[idx], model.cat_freqs, cfg,
+        asc_scalers=_asc_scalers(scalers, rows, cfg))
+
+
+def _edge_rows(program: FullTreeProgram, device) -> torch.Tensor:
+    return torch.as_tensor(program.edge_rows, dtype=torch.int64,
+                           device=device)
+
+
+def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
+                            model: Model, branch_lengths, tipchars,
+                            pattern_weights, invariant, rounds: int = 3,
+                            newton_iters: int = 10, min_branch: float = 1e-8,
+                            max_branch: float = 100.0):
+    """Newton-optimize ALL branch lengths (batched smoothing).
+
+    Per round and per colour class of the proper edge colouring (all
+    program.n_colors of them): one message sweep, then `newton_iters`
+    guarded Newton steps from analytic (d1, d2) on that class's branches
+    (no two share a node, so each sees up-to-date CLVs).  The JAX package
+    computes a proposal for every branch and keeps the class's; this
+    computes only the class's, with the same values.
+
+    Returns (optimized_branch_lengths, logl_after)."""
+    device = tipchars.device
+    edge_rows = _edge_rows(program, device)
+    idx = model.params_indices.long()
+    evals = model.eigenvals[idx]
+    colors = torch.as_tensor(program.edge_colors, device=device)
+    bl = branch_lengths
+    for _ in range(rounds):
+        for c in range(program.n_colors):
+            members = torch.nonzero(colors == c).flatten()
+            clv, scalers, _ = _sweep_all(program, cfg, model, bl, tipchars)
+            bl = bl.clone()
+            for chunk in _edge_chunks(program, cfg, members):
+                st = _edge_sumtables(program, cfg, model, clv, scalers,
+                                     edge_rows[chunk])
+                t = bl[chunk]
+                for _ in range(newton_iters):
+                    d1, d2 = derivatives_ops.likelihood_derivatives(
+                        st, t, model.rates, evals, model.cat_pinv,
+                        model.rate_weights, model.cat_freqs, invariant,
+                        pattern_weights, cfg)
+                    # the JAX step has no non-finite guard; keep its
+                    # semantics
+                    t = derivatives_ops.newton_update(
+                        t, d1, d2, min_branch, max_branch,
+                        hold_nonfinite=False)
+                bl[chunk] = t.to(bl.dtype)
+
+    # final logL across the root edge with the optimized lengths
+    clv, scalers, pmatrix = _sweep_all(program, cfg, model, bl, tipchars)
+    ra, rsa, rb, rsb = program.edge_rows[program.root_edge].tolist()
+    logl = likelihood_ops.edge_loglikelihood(
+        clv[ra], scalers[rsa], clv[rb], scalers[rsb],
+        pmatrix[int(program.pmatrix_indices[program.root_edge])],
+        model.cat_freqs, model.rate_weights, model.cat_pinv, invariant,
+        pattern_weights, cfg)
+    return bl, logl
+
+
+def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
+                     model: Model, branch_lengths, tipchars,
+                     pattern_weights, invariant, sub_clv, sub_scaler,
+                     sub_branch_length):
+    """Log-likelihood of regrafting a pruned subtree onto EVERY edge of
+    the remainder tree ([E]).
+
+    `program` is compile_tree_full of the REMAINDER tree (after
+    moves.prune_subtree); `sub_clv` [R, S, T] / `sub_scaler` ([T], or
+    [R, T] under per_rate_scalers) is the pruned subtree's CLV directed at
+    the cut and `sub_branch_length` its attachment branch.  Placement at
+    edge e follows SPR semantics (utree_moves.c:119-254): the edge splits
+    in half, the subtree keeps its branch, so score_placements[e] equals
+    the full-tree logL after spr(...) onto e.  The batched inner loop of
+    SPR rounds and EPA-style placement."""
+    dtype = cfg.dtype
+    device = tipchars.device
+    clv, scalers, _ = _sweep_all(program, cfg, model, branch_lengths,
+                                 tipchars)
+
+    def pmats(lengths):
+        return pmatrix_ops.compute_pmatrices(
+            lengths, model.eigenvals, model.eigenvecs, model.inv_eigenvecs,
+            model.rates, model.prop_invar, model.params_indices, dtype=dtype)
+
+    halves = pmats(branch_lengths * 0.5)                      # [E, R, S, S]
+    p3 = pmats(torch.as_tensor(sub_branch_length, dtype=dtype,
+                               device=device).reshape(1))[0]
+    sub_term = torch.einsum("rij,rjt->rit", p3, sub_clv.to(dtype))
+    edge_rows = _edge_rows(program, device)
+    out = []
+    for chunk in _edge_chunks(program, cfg,
+                              torch.arange(len(edge_rows), device=device)):
+        rows, ph = edge_rows[chunk], halves[chunk]
+        ta = torch.einsum("erij,erjt->erit", ph, clv[rows[:, 0]])
+        tb = torch.einsum("erij,erjt->erit", ph, clv[rows[:, 2]])
+        scal = scalers[rows[:, 1]] + scalers[rows[:, 3]] + sub_scaler
+        out.append(likelihood_ops.root_loglikelihood(
+            ta * tb * sub_term, scal, model.cat_freqs, model.rate_weights,
+            model.cat_pinv, invariant, pattern_weights, cfg))
+    return torch.cat(out)
+
+
+def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
+                       model: Model, branch_lengths, tipchars,
+                       pattern_weights, invariant):
+    """(d1, d2) of -lnL w.r.t. EVERY branch length from one message sweep
+    ([E], [E]).  The reference computes these one branch at a time
+    (pll_update_sumtable + pll_compute_likelihood_derivatives)."""
+    device = tipchars.device
+    edge_rows = _edge_rows(program, device)
+    idx = model.params_indices.long()
+    clv, scalers, _ = _sweep_all(program, cfg, model, branch_lengths,
+                                 tipchars)
+    d1s, d2s = [], []
+    for chunk in _edge_chunks(program, cfg,
+                              torch.arange(len(edge_rows), device=device)):
+        st = _edge_sumtables(program, cfg, model, clv, scalers,
+                             edge_rows[chunk])
+        d1, d2 = derivatives_ops.likelihood_derivatives(
+            st, branch_lengths[chunk], model.rates, model.eigenvals[idx],
+            model.cat_pinv, model.rate_weights, model.cat_freqs, invariant,
+            pattern_weights, cfg)
+        d1s.append(d1)
+        d2s.append(d2)
+    return torch.cat(d1s), torch.cat(d2s)
+
+
 def build_case(n_tips: int, sites: int, rate_cats: int = 4,
                dtype=torch.float32, device="cpu", site_block: int = 128,
-               seed: int = 0, use_kernel: Optional[bool] = None):
-    """The bench's forward case: a balanced n_tips tree, GTR(1,2,1,1,2,1)
-    with equal frequencies, Gamma(alpha=1) rates, one-hot random tips from
-    numpy's generator at `seed` (libpll2_tpu's bench.py and
-    __graft_entry__.py build the same inputs).
+               seed: int = 0, use_kernel: Optional[bool] = None,
+               states: int = 4, aa_model_name: str = "lg",
+               newick: Optional[str] = None,
+               sweep_mode: Optional[str] = None):
+    """The bench's forward case: a balanced n_tips tree (or `newick`),
+    Gamma(alpha=1) rates, one-hot random tips from numpy's generator at
+    `seed` (libpll2_tpu's bench.py and __graft_entry__.py build the same
+    inputs).  states=4: GTR(1,2,1,1,2,1) with equal frequencies.
+    states=20: the empirical model `aa_model_name` (models/aa.py); a
+    four-matrix mixture (lg4m, lg4x) gets one matrix per rate category.
 
     Returns (cfg, program, model, branch_lengths, tipchars,
     pattern_weights, invariant), tensors on `device`."""
@@ -577,19 +750,34 @@ def build_case(n_tips: int, sites: int, rate_cats: int = 4,
     from .models.gamma import compute_gamma_cats
     from .tree.generate import balanced_newick, random_tipchars
 
-    tree = T.parse_newick_string(balanced_newick(n_tips))
+    tree = T.parse_newick_string(newick or balanced_newick(n_tips))
+    if tree.tip_count != n_tips:
+        raise ValueError(f"newick has {tree.tip_count} tips, not {n_tips}")
+    rates = compute_gamma_cats(1.0, rate_cats)
+    if states == 20:
+        from .models.aa import aa_model
+        subst, freqs = (np.atleast_2d(x) for x in aa_model(aa_model_name))
+    elif states == 4:
+        subst, freqs = [[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25] * 4]
+    else:
+        raise ValueError(f"build_case builds DNA (4) or protein (20) "
+                         f"cases, got states={states}")
+    n_matrices = len(subst)
+    if n_matrices not in (1, rate_cats):
+        raise ValueError(f"{aa_model_name} has {n_matrices} matrices, "
+                         f"needs rate_cats={n_matrices}")
     cfg = PartitionConfig(
-        tips=n_tips, clv_buffers=tree.inner_count, states=4, sites=sites,
-        rate_matrices=1, prob_matrices=2 * n_tips - 3, rate_cats=rate_cats,
-        scale_buffers=tree.inner_count, dtype=dtype, site_block=site_block,
-        use_kernel=use_kernel)
+        tips=n_tips, clv_buffers=tree.inner_count, states=states,
+        sites=sites, rate_matrices=n_matrices, prob_matrices=2 * n_tips - 3,
+        rate_cats=rate_cats, scale_buffers=tree.inner_count, dtype=dtype,
+        site_block=site_block, use_kernel=use_kernel, sweep_mode=sweep_mode)
     program = compile_tree(tree, cfg)
     model = make_model(
-        [[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25, 0.25, 0.25, 0.25]],
-        compute_gamma_cats(1.0, rate_cats), dtype=dtype, device=device)
+        subst, freqs, rates, dtype=dtype, device=device,
+        params_indices=None if n_matrices == 1 else np.arange(rate_cats))
 
     rng = np.random.default_rng(seed)
-    raw = random_tipchars(n_tips, sites, rng)
+    raw = random_tipchars(n_tips, sites, rng, states=states)
     tipchars = torch.as_tensor(pad_tipchars(raw, cfg), device=device)
     pattern_weights = np.zeros(cfg.sites_padded)
     pattern_weights[:sites] = 1.0

@@ -68,11 +68,13 @@ def asc_bias_correction(term, site_scalings, pattern_weights,
 def _per_rate_undo(scaler_p, scaler_c, cfg: PartitionConfig, dtype):
     """Combine per-rate scalers of two nodes into (site_min, undo_factor).
 
-    Returns (site_scalings [T] int32, undo [R, T] multiplicative factor).
+    Returns (site_scalings [..., T] int32, undo [..., R, T] multiplicative
+    factor); leading axes are batch axes.
     """
-    total = scaler_p + scaler_c                             # [R, T]
-    site_scalings = torch.min(total, dim=0).values          # [T]
-    rel = torch.clamp(total - site_scalings[None, :], max=SCALE_RATE_MAXDIFF)
+    total = scaler_p + scaler_c                             # [..., R, T]
+    site_scalings = torch.min(total, dim=-2).values         # [..., T]
+    rel = torch.clamp(total - site_scalings[..., None, :],
+                      max=SCALE_RATE_MAXDIFF)
     undo = torch.pow(torch.tensor(cfg.scale_threshold, dtype=dtype,
                                   device=rel.device),
                      rel.to(dtype))                         # rel=0 -> 1
@@ -90,8 +92,8 @@ def _invariant_site_lk(freqs, invariant):
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
 
 
-def root_loglikelihood(clv,              # [R, S, T]
-                       scaler,           # [T] int32 or [R, T] (per-rate)
+def root_loglikelihood(clv,              # [..., R, S, T]
+                       scaler,           # [..., T] int32 or [..., R, T]
                        freqs,            # [R, S]
                        rate_weights,     # [R]
                        prop_invar,       # [R]
@@ -101,9 +103,10 @@ def root_loglikelihood(clv,              # [R, S, T]
                        with_persite: bool = False):
     """Weighted log-likelihood at a (virtual) root CLV
     (pll_core_root_loglikelihood, core_likelihood.c:25-209).  Per-rate
-    scalers use the edge kernel's min+cap protocol."""
+    scalers use the edge kernel's min+cap protocol.  Leading axes of clv
+    and scaler are batch axes (one logL each), e.g. candidate edges."""
     dtype = clv.dtype
-    term_r = torch.einsum("rst,rs->rt", clv, freqs.to(dtype))     # [R, T]
+    term_r = torch.einsum("...rst,rs->...rt", clv, freqs.to(dtype))
 
     if cfg.per_rate_scalers:
         site_scalings, undo = _per_rate_undo(
@@ -117,7 +120,7 @@ def root_loglikelihood(clv,              # [R, S, T]
     mixed = term_r * (1.0 - pinv)[:, None] + inv_lk * pinv[:, None]
     term_r = torch.where((pinv > 0)[:, None], mixed, term_r)
 
-    term = torch.einsum("rt,r->t", term_r, rate_weights.to(dtype))  # [T]
+    term = torch.einsum("...rt,r->...t", term_r, rate_weights.to(dtype))
 
     live = pattern_weights > 0
     if cfg.asc_bias != AB_NONE:
@@ -129,7 +132,7 @@ def root_loglikelihood(clv,              # [R, S, T]
     site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
                           torch.zeros_like(site_lk))
 
-    logl = torch.sum(site_lk)
+    logl = torch.sum(site_lk, dim=-1)
     if cfg.asc_bias != AB_NONE:
         logl = logl + asc_bias_correction(term, site_scalings,
                                           pattern_weights, cfg, dtype)

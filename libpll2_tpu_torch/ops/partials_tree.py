@@ -10,19 +10,33 @@ list for one site block with the pool in shared memory: tips enter as
 packed state bitmasks and only the exported rows (the root edge's CLVs and
 scalers) reach device memory.
 
-The op table `[OPS, 9] int32` is runtime data for the kernel, so one
-compiled kernel serves every topology and op count.  That replaces both of
-the JAX package's static kernels: the unrolled `_tree_kernel_static`
-(<= 512 ops) and the segmented `_tree_kernel_static_seg` (513-4096 ops),
-whose segments exist only to bound Mosaic's compile time.
+The op table `[OPS, 9] int32` is runtime data for the kernels, so one
+compiled kernel serves every topology and op count.  Two forms of the
+kernel exist, picked by `sweep(..., mode=)`:
 
-`sweep()` is the kernel wrapper; `sweep_reference()` is its plain PyTorch
-version with the same signature and output.
+  * "fma" (csrc/tree_sweep.cu): one thread per site, the propagation as
+    f32 FMAs.  It replaces the JAX package's static kernels (the unrolled
+    `_tree_kernel_static`, <= 512 ops, and the segmented
+    `_tree_kernel_static_seg`, 513-4096 ops, whose segments exist only to
+    bound Mosaic's compile time) and is the counterpart of the runtime-ops
+    kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs);
+  * "mma" (csrc/tree_sweep_mma.cu): the propagation as one product with the
+    rate-block-diagonal P on the tensor cores, TF32 with a compensated
+    split of both operands.  It is the counterpart of the runtime-ops
+    kernels' "mxu" and "splitk" modes (`_tree_kernel`, `_tree_kernel_splitk`).
+
+`choose()` picks (site block, mode) the way the JAX package's `choose`
+does: the "fma" form up to FMA_MAX_OPS operations, the runtime-ops family
+("mma" where that kernel takes the case) above.
+
+`sweep()` is the kernel wrapper; `sweep_reference()` is the plain PyTorch
+version of both forms, with the same signature and output.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,8 +53,17 @@ SITE_BLOCKS = (256, 128, 64, 32)
 # Dynamic shared memory one block may opt in to on an H100 (sm_90):
 # 227 KB = 232,448 bytes.  The wrapper also checks the device's own limit.
 SMEM_LIMIT = 232448
-# State counts the kernel is instantiated for (bin, nt, gt10, gt16, aa).
+# State counts the "fma" form is instantiated for (bin, nt, gt10, gt16, aa),
+# at any number of rate categories, with per-site or per-rate scalers.
 KERNEL_STATES = (2, 4, 10, 16, 20)
+# (states, rate_cats) the "mma" form is instantiated for: its span must fill
+# whole 16-row tensor-core tiles, and it keeps per-site scalers only.
+MMA_CASES = ((4, 4), (20, 4))
+MODES = ("fma", "mma")
+# Up to this many operations `choose` takes the "fma" form, the counterpart
+# of the JAX package's static kernels (its STATIC_SEG_MAX_OPS); above, the
+# runtime-ops family.
+FMA_MAX_OPS = 4096
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -197,41 +220,162 @@ def _scaler_rows(cfg: PartitionConfig) -> int:
     return cfg.rate_cats if cfg.per_rate_scalers else 1
 
 
-def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int) -> int:
+def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
+               mode: str = "fma") -> int:
     """Dynamic shared memory of one CTA at site-block size tb: the CLV
     pool [pool_size, R*S, tb] f32 and the scaler pool [pool_size, SR, tb]
-    int32."""
-    return prog.pool_size * (cfg.span + _scaler_rows(cfg)) * tb * 4
+    int32.  The "mma" form tiles the CLV pool as [tb/8, R*S, 8] without
+    padding and keeps one scaler row, so its footprint is the "fma" form's
+    under per-site scalers."""
+    sr = 1 if mode == "mma" else _scaler_rows(cfg)
+    return prog.pool_size * (cfg.span + sr) * tb * 4
 
 
 def pick_site_block(prog: TreeVmemProgram, cfg: PartitionConfig,
-                    smem_limit: int = SMEM_LIMIT) -> int:
+                    smem_limit: int = SMEM_LIMIT, mode: str = "fma") -> int:
     """Largest site block in SITE_BLOCKS that divides sites_padded and
     whose pools fit `smem_limit` bytes; 0 if none does."""
     for tb in SITE_BLOCKS:
         if (cfg.sites_padded % tb == 0
-                and smem_bytes(prog, cfg, tb) <= smem_limit):
+                and smem_bytes(prog, cfg, tb, mode) <= smem_limit):
             return tb
     return 0
 
 
 def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
-                smem_limit: int = SMEM_LIMIT) -> Optional[str]:
-    """Why the tree sweep cannot take this case, or None if it can."""
+                smem_limit: int = SMEM_LIMIT,
+                mode: str = "fma") -> Optional[str]:
+    """Why the tree sweep's `mode` form cannot take this case, or None if
+    it can."""
+    if mode not in MODES:
+        return f"unknown sweep mode {mode!r}, not one of {MODES}"
     if prog is None or prog.n_ops == 0:
         return "the operation list is not a full forest of new CLVs"
     if cfg.dtype != torch.float32:
-        return f"the tree-sweep kernel is f32 only, got {cfg.dtype}"
-    if cfg.states not in KERNEL_STATES:
-        return (f"the tree-sweep kernel is built for states "
+        return (f"the tree-sweep kernels ({mode!r} included) are f32 only, "
+                f"got {cfg.dtype}")
+    if mode == "fma" and cfg.states not in KERNEL_STATES:
+        return (f"the 'fma' tree-sweep kernel is built for states "
                 f"{KERNEL_STATES}, got {cfg.states}")
-    if pick_site_block(prog, cfg, smem_limit) == 0:
-        return (f"a {SITE_BLOCKS[-1]}-site block needs "
-                f"{smem_bytes(prog, cfg, SITE_BLOCKS[-1])} bytes of shared "
+    if mode == "mma":
+        if (cfg.states, cfg.rate_cats) not in MMA_CASES:
+            return (f"the 'mma' tree-sweep kernel is built for (states, "
+                    f"rate_cats) in {MMA_CASES}, got ({cfg.states}, "
+                    f"{cfg.rate_cats}); the 'fma' form serves other cases")
+        if cfg.per_rate_scalers:
+            return ("the 'mma' tree-sweep kernel keeps per-site scalers "
+                    "only; the 'fma' form serves per-rate scalers")
+    if pick_site_block(prog, cfg, smem_limit, mode) == 0:
+        small = SITE_BLOCKS[-1]
+        return (f"in mode {mode!r} a {small}-site block needs "
+                f"{smem_bytes(prog, cfg, small, mode)} bytes of shared "
                 f"memory for a pool of {prog.pool_size} slots, above the "
                 f"{smem_limit}-byte limit, or no block size in {SITE_BLOCKS} "
                 f"divides {cfg.sites_padded} sites")
     return None
+
+
+def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
+           smem_limit: int = SMEM_LIMIT) -> Optional[tuple]:
+    """Pick (site_block, mode) for the kernel, or None if no form takes the
+    case (`unsupported` gives the reason).
+
+    Mirrors the JAX package's `choose`: None for an empty schedule or a
+    dtype other than f32; up to FMA_MAX_OPS operations the "fma" form (the
+    counterpart of the static kernels); above, the runtime-ops family:
+    "mma" where the tensor-core kernel takes the case, else "fma".  The JAX
+    runtime-ops kernels refuse per-rate scalers; here the "fma" form keeps
+    them at any op count."""
+    if prog is None or prog.n_ops == 0 or cfg.dtype != torch.float32:
+        return None
+    modes = ("fma",) if prog.n_ops <= FMA_MAX_OPS else ("mma", "fma")
+    for mode in modes:
+        if unsupported(prog, cfg, smem_limit, mode) is None:
+            return pick_site_block(prog, cfg, smem_limit, mode), mode
+    return None
+
+
+def split_tf32(x):
+    """Split f32 `x` into (hi, lo), both TF32 values held in f32 (the low
+    13 mantissa bits zero), with hi + lo = x up to 2^-22 |x|.  Rounding is
+    to nearest, ties away from zero, in the integer domain: what the
+    kernel's cvt.rna.tf32.f32 does to the other operand."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@functools.cache
+def mma_fragment_index(states: int, rate_cats: int) -> np.ndarray:
+    """[NP, 32, 4] int64: for every nonzero (m-tile, k-step) pair of the
+    rate-block-diagonal P [span, span], in row-major pair order, the index
+    into P's flattened [R, S, S] (R*S*S = the zero outside the blocks) of
+    the four A-fragment registers of each lane of
+    mma.m16n8k8.row.col.tf32: a0 (row g, col q), a1 (g + 8, q),
+    a2 (g, q + 4), a3 (g + 8, q + 4) with g = lane / 4, q = lane % 4."""
+    S, R = states, rate_cats
+    span = R * S
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    pairs = []
+    for mt in range(span // 16):
+        for ks in range(span // 8):
+            rows = 16 * mt + g[:, None] + np.array([0, 8, 0, 8])   # [32, 4]
+            cols = 8 * ks + q[:, None] + np.array([0, 0, 4, 4])
+            same = rows // S == cols // S
+            if not same.any():
+                continue
+            idx = (rows // S) * S * S + (rows % S) * S + cols % S
+            pairs.append(np.where(same, idx, R * S * S))
+    return np.stack(pairs).astype(np.int64)
+
+
+@functools.cache
+def _fragment_index_tensor(states: int, rate_cats: int, device_key: str,
+                           dtype=torch.int64):
+    return torch.as_tensor(mma_fragment_index(states, rate_cats), dtype=dtype,
+                           device=torch.device(device_key))
+
+
+def pmatrix_fragments_reference(pmatrix, cfg: PartitionConfig):
+    """Plain PyTorch version of pmatrix_fragments (same output): one
+    gather and a few elementwise ops."""
+    P = pmatrix.shape[0]
+    idx = _fragment_index_tensor(cfg.states, cfg.rate_cats,
+                                 str(pmatrix.device))
+    flat = torch.cat([pmatrix.reshape(P, -1),
+                      pmatrix.new_zeros((P, 1))], dim=1)
+    frag = flat[:, idx]                                       # [P, NP, 32, 4]
+    return torch.stack(split_tf32(frag), dim=2).contiguous()
+
+
+def pmatrix_fragments(pmatrix, cfg: PartitionConfig):
+    """[P, R, S, S] f32 -> [P, NP, 2, 32, 4] f32: the block-diagonal P of
+    every slot split into TF32 (hi, lo) and laid out in A-fragment order
+    (mma_fragment_index), the "mma" kernel's P operand.  Once per call,
+    not per op: a small CUDA kernel of csrc/tree_sweep_mma.cu on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if pmatrix.device.type != "cuda":
+        return pmatrix_fragments_reference(pmatrix, cfg)
+    from .. import _build
+    if pmatrix.dtype != torch.float32 or not pmatrix.is_contiguous():
+        raise ValueError("pmatrix must be contiguous f32")
+    idx = _fragment_index_tensor(cfg.states, cfg.rate_cats,
+                                 str(pmatrix.device), torch.int32)
+    P, n_pairs = pmatrix.shape[0], idx.shape[0]
+    out = torch.empty((P, n_pairs, 2, 32, 4), dtype=torch.float32,
+                      device=pmatrix.device)
+    with torch.cuda.device(pmatrix.device):
+        err = _build.library().tree_sweep_mma_fragments(
+            pmatrix.data_ptr(), idx.data_ptr(), out.data_ptr(), P, n_pairs,
+            cfg.rate_cats * cfg.states ** 2,
+            torch.cuda.current_stream(pmatrix.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pmatrix_fragments kernel launch failed: CUDA "
+                           f"error {err} ({_build.error_string(err)})")
+    return out
 
 
 def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb):
@@ -294,15 +438,23 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
 
 
 def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
-          tb: int):
-    """Run the tree sweep: the CUDA kernel on CUDA tensors, the plain
+          tb: int, mode: Optional[str] = None):
+    """Run the tree sweep: a CUDA kernel on CUDA tensors, the plain
     version (sweep_reference) on CPU tensors, an error on anything else.
 
     tip_blocked: [NT, tips, TB] int32 packed state bitmasks (block-major)
     pmatrix:     [P, R, S, S] f32
+    mode:        "fma" (csrc/tree_sweep.cu; the counterpart of the JAX
+                 package's static kernels and of its runtime-ops "vpu"
+                 mode) or "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
+                 counterpart of its "mxu" and "splitk" modes); None is
+                 "fma".  `choose` picks one by op count.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     """
+    mode = "fma" if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")
     if tip_blocked.device.type == "cpu" and pmatrix.device.type == "cpu":
         return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb)
     if tip_blocked.device.type != "cuda" or pmatrix.device != \
@@ -313,15 +465,17 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     from .. import _build
 
     device = tip_blocked.device
-    reason = unsupported(prog, cfg, _build.max_shared_memory(device))
+    limit = _build.max_shared_memory(device)
+    reason = unsupported(prog, cfg, limit, mode)
     if reason is not None:
         raise ValueError(f"tree sweep kernel cannot take this case: {reason}")
     _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
     if tb not in SITE_BLOCKS:
         raise ValueError(f"site block {tb} not in {SITE_BLOCKS}")
-    if smem_bytes(prog, cfg, tb) > _build.max_shared_memory(device):
-        raise ValueError(f"site block {tb} needs {smem_bytes(prog, cfg, tb)}"
-                         f" bytes of shared memory")
+    if smem_bytes(prog, cfg, tb, mode) > limit:
+        raise ValueError(f"site block {tb} needs "
+                         f"{smem_bytes(prog, cfg, tb, mode)} bytes of shared "
+                         f"memory in mode {mode!r}")
     if pmatrix.dtype != torch.float32:
         raise TypeError(f"pmatrix must be f32, got {pmatrix.dtype}")
     if not (tip_blocked.is_contiguous() and pmatrix.is_contiguous()):
@@ -341,21 +495,34 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.tree_sweep_launch(
-            ops_dev.data_ptr(), prog.n_ops, pmatrix.data_ptr(),
-            tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(), n_exp,
-            clv_rows.data_ptr(), scal_rows.data_ptr(),
-            nt, tb, R, S, prog.pool_size, int(cfg.per_rate_scalers),
-            ctypes.c_float(cfg.scale_threshold),
-            ctypes.c_float(cfg.scale_factor), stream)
+        if mode == "mma":
+            pfrag = pmatrix_fragments(pmatrix, cfg)
+            err = lib.tree_sweep_mma_launch(
+                ops_dev.data_ptr(), prog.n_ops, pfrag.data_ptr(),
+                tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
+                n_exp, clv_rows.data_ptr(), scal_rows.data_ptr(),
+                nt, tb, R, S, prog.pool_size,
+                ctypes.c_float(cfg.scale_threshold),
+                ctypes.c_float(cfg.scale_factor), stream)
+        else:
+            err = lib.tree_sweep_launch(
+                ops_dev.data_ptr(), prog.n_ops, pmatrix.data_ptr(),
+                tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
+                n_exp, clv_rows.data_ptr(), scal_rows.data_ptr(),
+                nt, tb, R, S, prog.pool_size, int(cfg.per_rate_scalers),
+                ctypes.c_float(cfg.scale_threshold),
+                ctypes.c_float(cfg.scale_factor), stream)
     if err != 0:
-        raise RuntimeError(f"tree_sweep kernel launch failed: CUDA error "
-                           f"{err} ({_build.error_string(err)})")
+        raise RuntimeError(f"tree_sweep ({mode}) kernel launch failed: CUDA "
+                           f"error {err} ({_build.error_string(err)})")
     sweep.launches += 1
+    sweep.launches_by_mode[mode] += 1
     return clv_rows, scal_rows
 
 
-sweep.launches = 0   # kernel launches by this wrapper (plain runs excluded)
+# kernel launches by this wrapper (plain runs excluded), in all and per mode
+sweep.launches = 0
+sweep.launches_by_mode = {mode: 0 for mode in MODES}
 
 
 def unblock_clv_row(row_blocked):

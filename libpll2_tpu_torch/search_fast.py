@@ -117,7 +117,8 @@ class SprProgram:
     edge_rows: np.ndarray           # [E, 4] int32
     pmatrix_slots: np.ndarray       # [E] int32
     branch_lengths: np.ndarray      # [E] f64
-    color_masks: np.ndarray         # [4, E] bool (proper edge coloring)
+    color_masks: np.ndarray         # [n_colors, E] bool (proper edge
+                                    # coloring, one mask per class)
     root_edge: int
     # candidates (C = 3*tips - 6, fixed per tip count)
     cand_edge: np.ndarray           # [C] int32
@@ -473,7 +474,7 @@ def compile_spr(tree: UTree, cfg: PartitionConfig,
         pmatrix_slots=np.asarray(full.pmatrix_indices, np.int32),
         branch_lengths=np.asarray(full.default_branch_lengths, np.float64),
         color_masks=np.stack([np.asarray(full.edge_colors) == c
-                              for c in range(4)]),
+                              for c in range(full.n_colors)]),
         root_edge=full.root_edge,
         cand_edge=np.array([c[0] for c in cands], np.int32),
         cand_sub_rows=np.stack([c[1] for c in cands]).astype(np.int32),
@@ -780,10 +781,10 @@ def _smooth_rt(cfg: PartitionConfig, model, level_ops, edge_rows,
                newton_iters: int = 8):
     """Batched Newton branch smoothing with runtime topology (extended
     cfg): per round and per color class of the proper edge coloring
-    ([4, E] bool), one message sweep, then Newton on that class's branches
-    from their sumtables (no two share a node).  The JAX package computes
-    a proposal for every branch and keeps the class's; this computes only
-    the class's, with the same values."""
+    ([n_colors, E] bool), one message sweep, then Newton on that class's
+    branches from their sumtables (no two share a node).  The JAX package
+    computes a proposal for every branch and keeps the class's; this
+    computes only the class's, with the same values."""
     evecs, inv_evecs, evals = _model_factors(model)
     bl = branch_lengths
     for _ in range(rounds):
@@ -1181,11 +1182,33 @@ def smooth_branches(prog: SprProgram, model,
         torch.as_tensor(prog.color_masks, device=device), rounds=rounds,
         newton_iters=newton_iters)
     bl = bl.cpu().numpy().astype(np.float64)
-    # write back into the tree so later exports carry the new lengths
+    _write_lengths(prog, bl)
+    return dataclasses.replace(prog, branch_lengths=bl)
+
+
+def _write_lengths(prog: SprProgram, bl: np.ndarray) -> None:
+    """Write branch lengths into the program's tree, so that later exports
+    carry them."""
     pm_to_len = {int(p): float(t) for p, t in zip(prog.pmatrix_slots, bl)}
     for h in _half_nodes(prog.tree):
         h.length = pm_to_len[h.pmatrix_index]
-    return dataclasses.replace(prog, branch_lengths=bl)
+
+
+def _smooth_if_better(prog: SprProgram, model, tipchars_by_label,
+                      **smooth_kw) -> Tuple[SprProgram, bool]:
+    """smooth_branches, kept only if the exact logL did not fall.  A class
+    of branches moves at once (a Jacobi step), which can lower the logL
+    where neighbouring branches interact; the climb's trace is promised
+    monotone, so such a smoothing is dropped.  Returns (program, kept)."""
+    site = _site_arrays(prog, tipchars_by_label, _device_of(model),
+                        smooth_kw.get("pattern_weights"),
+                        smooth_kw.get("invariant"))
+    before = _program_logl(prog, model, *site)
+    out = smooth_branches(prog, model, tipchars_by_label, **smooth_kw)
+    if _program_logl(out, model, *site) >= before:
+        return out, True
+    _write_lengths(prog, prog.branch_lengths)    # the tree is shared
+    return prog, False
 
 
 def evaluate_tree(tree: UTree, cfg: PartitionConfig, model,
@@ -1258,7 +1281,8 @@ def hill_climb(tree: UTree, cfg: PartitionConfig, model,
         # optimize the starting branch lengths first: SPR scores against
         # unsmoothed branches under-rank good moves
         t0 = time.perf_counter()
-        prog = smooth_branches(prog, model, tipchars_by_label, **smooth_kw)
+        prog, _ = _smooth_if_better(prog, model, tipchars_by_label,
+                                    **smooth_kw)
         init_smooth_s = time.perf_counter() - t0
     trace: List[float] = []
     round_secs: List[float] = []
@@ -1300,11 +1324,12 @@ def hill_climb(tree: UTree, cfg: PartitionConfig, model,
             break
         if smooth_every and (r + 1) % smooth_every == 0:
             ts = time.perf_counter()
-            prog = smooth_branches(prog, model, tipchars_by_label,
-                                   **smooth_kw)
+            prog, tm["smooth_kept"] = _smooth_if_better(
+                prog, model, tipchars_by_label, **smooth_kw)
             tm["smooth"] = time.perf_counter() - ts
     if smooth_every:
-        prog = smooth_branches(prog, model, tipchars_by_label, **smooth_kw)
+        prog, _ = _smooth_if_better(prog, model, tipchars_by_label,
+                                    **smooth_kw)
     site = _site_arrays(prog, tipchars_by_label, _device_of(model),
                         pattern_weights, invariant)
     logl = _program_logl(prog, model, *site)

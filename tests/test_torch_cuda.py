@@ -1,5 +1,5 @@
-"""The CUDA kernels (tree sweep, edge scorer) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (both tree-sweep forms, edge scorer, matrix-unit
+probe) against their plain PyTorch versions, on the card.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 from libpll2_tpu_torch import engine, search_fast
 from libpll2_tpu_torch.ops import edge_score, partials_tree
+from libpll2_tpu_torch.probes import mma as mma_probe
 from libpll2_tpu_torch.tree.generate import random_newick
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +92,75 @@ def test_spr_round_launches_edge_scorer(cuda_device):
     _, logl, applied = search_fast.spr_round(prog, model, chars, timings=tm)
     assert tm["scorer"] == "kernel" and tm["edge_score_launches"] > 0
     assert np.isfinite(logl) and applied > 0
+
+
+@pytest.mark.parametrize("states,bl_scale", [(4, 1.0), (4, 30.0), (20, 1.0)])
+def test_mma_kernel_matches_plain(cuda_device, states, bl_scale):
+    """The tensor-core form on the cases it is built for: rows within
+    chip_smoke.mma_bound of each site's largest entry where the scalers
+    agree, scaling-compensated values within 2e-3 where a rescue flipped;
+    and the same against the "fma" kernel."""
+    newick = random_newick(40, np.random.default_rng(states))
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        newick, 2048, states, cuda_device, states=states, bl_scale=bl_scale,
+        random_model=True)
+    prog = program.vmem_prog
+    before = dict(partials_tree.sweep.launches_by_mode)
+    mma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma")
+    fma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="fma")
+    torch.cuda.synchronize()
+    after = partials_tree.sweep.launches_by_mode
+    assert after["mma"] == before["mma"] + 1
+    assert after["fma"] == before["fma"] + 1
+    plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+    for other in (plain, fma):
+        rel, _, comp, _ = chip_smoke.compare_rows_site(mma[0], other[0],
+                                                       mma[1], other[1])
+        assert rel <= chip_smoke.mma_bound(prog.n_ops)
+        assert comp <= chip_smoke.COMP_RTOL
+    if bl_scale > 1:
+        assert int(plain[1].max()) > 0
+
+
+def test_mma_kernel_refuses_per_rate_scalers(cuda_device):
+    newick = random_newick(16, np.random.default_rng(0))
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        newick, 512, 0, cuda_device, per_rate=True)
+    with pytest.raises(ValueError, match="per-site scalers only"):
+        partials_tree.sweep(tip_b, pmatrix, program.vmem_prog, cfg, tb,
+                            mode="mma")
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_loglikelihood_mma_vs_dense_f64(cuda_device, states):
+    """The bench's budget, 5e-6 relative, through the tensor-core form."""
+    cfg, program, model, *args = engine.build_case(
+        64, 4096, dtype=torch.float32, device=cuda_device, states=states,
+        sweep_mode="mma")
+    before = partials_tree.sweep.launches_by_mode["mma"]
+    got = engine.loglikelihood(program, cfg, model, *args).item()
+    assert partials_tree.sweep.launches_by_mode["mma"] == before + 1
+    cfg, program, model, *args = engine.build_case(
+        64, 4096, dtype=torch.float64, device=cuda_device, states=states,
+        use_kernel=False)
+    want = engine.loglikelihood(program, cfg, model, *args).item()
+    assert np.isfinite(got)
+    assert abs(got - want) / abs(want) < 5e-6
+
+
+@pytest.mark.parametrize("unit", mma_probe.UNITS)
+@pytest.mark.parametrize("variant", range(len(mma_probe.VARIANTS)))
+def test_probe_kernel_matches_plain(cuda_device, variant, unit):
+    """Every variant on every unit against the plain chain, within
+    CHAIN_TOL of the largest entry; all CTAs equal."""
+    tb = 64
+    a, b = mma_probe.probe_inputs(variant, tb, seed=variant,
+                                  device=cuda_device)
+    before = mma_probe.chain.launches
+    got = mma_probe.chain(variant, unit, a, b, grid=5, nrep=64)
+    torch.cuda.synchronize()
+    assert mma_probe.chain.launches == before + 1
+    want = mma_probe.chain_reference(a, b, 64, unit)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= mma_probe.CHAIN_TOL
+    assert bool((got == got[0]).all())

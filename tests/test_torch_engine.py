@@ -152,14 +152,16 @@ def test_kernel_choice_follows_use_kernel():
     _, pargs = both(spec.pop("newick")(), 256, 0, "f64")
     prog, cfg = pargs[:2]
     cpu = torch.device("cpu")
-    assert engine.kernel_site_block(prog, cfg, cpu) == 0     # None: dense
+    assert engine.kernel_choice(prog, cfg, cpu) is None     # None: dense
     with pytest.raises(ValueError, match="f32"):
-        engine.kernel_site_block(
+        engine.kernel_choice(
             prog, dataclasses.replace(cfg, use_kernel=True), cpu)
     f32 = dataclasses.replace(cfg, dtype=torch.float32, use_kernel=True)
-    assert engine.kernel_site_block(prog, f32, cpu) == 256
-    assert engine.kernel_site_block(
-        prog, dataclasses.replace(f32, use_kernel=False), cpu) == 0
+    assert engine.kernel_choice(prog, f32, cpu) == (256, "fma")
+    assert engine.kernel_choice(
+        prog, dataclasses.replace(f32, sweep_mode="mma"), cpu) == (256, "mma")
+    assert engine.kernel_choice(
+        prog, dataclasses.replace(f32, use_kernel=False), cpu) is None
 
 
 def test_entry_matches_graft_entry():

@@ -27,7 +27,8 @@ from libpll2_tpu_torch import tree as T
 from libpll2_tpu_torch.config import PartitionConfig
 from libpll2_tpu_torch.ops import edge_score
 from libpll2_tpu_torch.tree.compare import rf_distance
-from libpll2_tpu_torch.tree.generate import random_newick, simulate_alignment
+from libpll2_tpu_torch.tree.generate import (balanced_newick, random_newick,
+                                             simulate_alignment)
 
 SUBST = [1.2, 2.7, 0.8, 1.1, 3.0, 1.0]
 FREQS = [0.28, 0.24, 0.22, 0.26]
@@ -266,7 +267,21 @@ def test_spr_round_f32_kernel_path_matches_plain():
     np.testing.assert_allclose(out[True][1], out[False][1], rtol=1e-5)
 
 
-def test_hill_climb_f64(tmp_path):
+@pytest.fixture
+def four_classes(monkeypatch):
+    """Smooth only colour classes 0-3, as the JAX package does (it builds
+    no mask for a fifth class), so that smoothed lengths and climbs can be
+    compared with it on trees whose colouring needs five."""
+    real = search_fast.compile_spr
+
+    def compile_spr(*args, **kw):
+        prog = real(*args, **kw)
+        return dataclasses.replace(prog, color_masks=prog.color_masks[:4])
+
+    monkeypatch.setattr(search_fast, "compile_spr", compile_spr)
+
+
+def test_hill_climb_f64(tmp_path, four_classes):
     c = make_case(n=14, sites=256)
     kw = dict(max_rounds=4, radius=3, smooth_every=2)
     jtree_, jl, jstats = jsf.hill_climb(c.jtree, c.jcfg, c.jmodel, c.chars,
@@ -292,7 +307,18 @@ def test_hill_climb_f64(tmp_path):
     assert rf_distance(latest, ptree) == 0
 
 
-def test_smooth_and_evaluate_tree_f64():
+def test_hill_climb_all_classes_monotone():
+    """The same climb smoothing every colour class: monotone and finite."""
+    c = make_case(n=14, sites=256)
+    _, pl, pstats = search_fast.hill_climb(
+        c.ptree, c.pcfg, c.pmodel, c.chars, max_rounds=4, radius=3,
+        smooth_every=2)
+    trace = pstats["logl_trace"]
+    assert np.isfinite(pl) and pl == trace[-1]
+    assert all(b >= a for a, b in zip(trace, trace[1:]))
+
+
+def test_smooth_and_evaluate_tree_f64(four_classes):
     c = make_case(n=14)
     jl, jprog = jsf.evaluate_tree(c.jtree, c.jcfg, c.jmodel, c.chars)
     pl, pprog = search_fast.evaluate_tree(c.ptree, c.pcfg, c.pmodel, c.chars)
@@ -302,3 +328,84 @@ def test_smooth_and_evaluate_tree_f64():
     raw, _ = search_fast.evaluate_tree(c.ptree, c.pcfg, c.pmodel, c.chars,
                                        smooth_rounds=0)
     assert pl > raw
+
+
+def balanced24_case():
+    """A balanced 24-taxon tree, whose greedy edge colouring needs five
+    classes, with an alignment simulated down it."""
+    rng = np.random.default_rng(24)
+    newick_text = balanced_newick(24)
+    jt, pt = (jtree.parse_newick_string(newick_text),
+              T.parse_newick_string(newick_text))
+    rates = pll.compute_gamma_cats(0.8, 4)
+    chars = simulate_alignment(pt, 128, rng, SUBST, FREQS, rates)
+    common = dict(tips=24, clv_buffers=pt.inner_count, states=4, sites=128,
+                  rate_matrices=1, prob_matrices=45, rate_cats=4,
+                  scale_buffers=pt.inner_count)
+    jmodel = jengine.make_model([SUBST], [FREQS], rates, dtype=jnp.float64)
+    return Case(jt, pt, chars, JConfig(**common, dtype=jnp.float64),
+                PartitionConfig(**common, dtype=torch.float64), jmodel,
+                convert.model_from_jax(convert.model_arrays(jmodel)))
+
+
+def test_color_masks_cover_every_class():
+    """One mask per colour class: classes 0-3 as the JAX package builds
+    them, the fifth from compile_tree_full's edge_colors (the JAX package
+    leaves it out and never smooths its branches)."""
+    c = balanced24_case()
+    ref = jsf.compile_spr(c.jtree, c.jcfg, radius=2)
+    got = search_fast.compile_spr(c.ptree, c.pcfg, radius=2)
+    colors = jengine.compile_tree_full(c.jtree, c.jcfg).edge_colors
+    assert int(colors.max()) + 1 == 5 and ref.color_masks.shape[0] == 4
+    assert got.color_masks.shape == (5, len(colors))
+    np.testing.assert_array_equal(got.color_masks[:4], ref.color_masks)
+    for k in range(5):
+        np.testing.assert_array_equal(got.color_masks[k], colors == k)
+    assert got.color_masks.sum(axis=0).tolist() == [1] * len(colors)
+    assert not ref.color_masks.any(axis=0).all()    # JAX misses class 4
+    assert convert.spr_program_mismatches(got, ref) == []
+    # a program whose extra mask is wrong is told apart
+    bad = dataclasses.replace(got, color_masks=np.concatenate(
+        [got.color_masks[:4], ~got.color_masks[4:]]))
+    assert "color_masks" in convert.spr_program_mismatches(bad, ref)
+
+
+def test_smooth_branches_moves_every_branch_of_five_colours():
+    c = balanced24_case()
+    prog = search_fast.compile_spr(c.ptree, c.pcfg, radius=2)
+    before = prog.branch_lengths.copy()
+    after = search_fast.smooth_branches(prog, c.pmodel, c.chars, rounds=1)
+    assert (after.branch_lengths != before).all()
+    # the JAX package leaves the fifth class where it was
+    jprog = jsf.compile_spr(c.jtree, c.jcfg, radius=2)
+    jafter = jsf.smooth_branches(jprog, c.jmodel, c.chars, rounds=1)
+    stuck = np.asarray(jafter.branch_lengths) == before
+    np.testing.assert_array_equal(stuck, prog.color_masks[4])
+
+
+def test_smoothing_that_lowers_logl_is_dropped(monkeypatch):
+    """hill_climb promises a monotone trace; a class of branches moves at
+    once, which can lower the logL, so the climb keeps a smoothing only if
+    the exact logL did not fall."""
+    c = make_case(n=12)
+    prog = search_fast.compile_spr(c.ptree, c.pcfg, radius=2)
+    lengths = prog.branch_lengths.copy()
+    newick_before = newick(prog.tree)
+    good, kept = search_fast._smooth_if_better(prog, c.pmodel, c.chars,
+                                               rounds=1)
+    assert kept and (good.branch_lengths != lengths).any()
+    search_fast._write_lengths(prog, lengths)
+    real = search_fast.smooth_branches
+
+    def worse(p, *args, **kw):
+        out = real(p, *args, **kw)
+        bad = np.full_like(out.branch_lengths, 5.0)
+        search_fast._write_lengths(out, bad)
+        return dataclasses.replace(out, branch_lengths=bad)
+
+    monkeypatch.setattr(search_fast, "smooth_branches", worse)
+    same, kept = search_fast._smooth_if_better(prog, c.pmodel, c.chars,
+                                               rounds=1)
+    assert not kept and same is prog
+    np.testing.assert_array_equal(same.branch_lengths, lengths)
+    assert newick(same.tree) == newick_before     # the tree is restored

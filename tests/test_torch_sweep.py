@@ -6,8 +6,12 @@ Tolerances: CLV rows rtol 1e-6 — the Pallas kernels form f32 products
 from six bf16 split terms, the port in plain f32, so the two round
 differently in the last bits (the same budget test_pallas_tree.py gives
 the static kernel against XLA); scaler rows exactly, since both use the
-2^-30 rule at f32.  The kernel itself is compared with this plain version
-on the card (chip_smoke.py phase 3 and test_torch_cuda.py)."""
+2^-30 rule at f32.  The kernels themselves are compared with this plain
+version on the card (chip_smoke.py and test_torch_cuda.py).
+
+`sweep(mode="fma"|"mma")` is held the same way against the runtime-ops
+Pallas kernels ("vpu", "mxu", "splitk"), and `choose` beside the JAX
+package's `choose`."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -28,7 +32,11 @@ from libpll2_tpu_torch.config import PartitionConfig
 from libpll2_tpu_torch.ops import partials_tree
 from libpll2_tpu_torch.tree.generate import balanced_newick, random_newick
 
+from .test_torch_host import caterpillar_newick
+
 TB = 128
+# runtime-ops mode of the JAX package -> the port's counterpart
+MODE_OF = {"vpu": "fma", "mxu": "mma", "splitk": "mma"}
 
 
 def build(newick, sites, seed, per_rate=False, bl_scale=1.0):
@@ -175,3 +183,179 @@ def test_wrapper_rejects_other_devices_and_shapes():
         partials_tree.sweep_reference(torch.as_tensor(tip_b), torch.as_tensor(
             pmats), pprog.vmem_prog, dataclasses.replace(pcfg, sites=1000),
             TB)
+
+
+def run_modes(jcfg, jprog, pcfg, pprog, tip_b, pmats, jmode):
+    """(port sweep in the counterpart mode, JAX runtime-ops sweep in
+    `jmode` run in interpret mode) on the same inputs."""
+    want = ppt.sweep(jnp.asarray(tip_b), jnp.asarray(pmats), jprog.vmem_prog,
+                     jcfg, TB, mode=jmode, interpret=True)
+    before = dict(partials_tree.sweep.launches_by_mode)
+    got = partials_tree.sweep(torch.as_tensor(tip_b), torch.as_tensor(pmats),
+                              pprog.vmem_prog, pcfg, TB, mode=MODE_OF[jmode])
+    assert partials_tree.sweep.launches_by_mode == before  # CPU: plain
+    return got, want
+
+
+@pytest.mark.parametrize("jmode", ["vpu", "mxu"])
+@pytest.mark.parametrize("n_tips,sites,seed", [
+    (8, 256, 0), (24, 384, 1), (40, 512, 2)])
+def test_sweep_mode_matches_runtime_ops(n_tips, sites, seed, jmode):
+    """The shapes of test_pallas_tree.test_vmem_matches_xla: rows rtol
+    1e-6 (f32 sums in another order), scalers equal."""
+    rng = np.random.default_rng(seed)
+    args = build(random_newick(n_tips, rng), sites, seed)
+    got, want = run_modes(*args, jmode)
+    assert_rows_match(got, want)
+
+
+@pytest.mark.parametrize("jmode", ["vpu", "mxu"])
+def test_sweep_mode_scaling_fires(jmode):
+    """test_vmem_scaling_fires' shape: rescues fire, scalers equal."""
+    rng = np.random.default_rng(7)
+    args = build(random_newick(48, rng), 256, 7, bl_scale=30.0)
+    got, want = run_modes(*args, jmode)
+    assert int(got[1].max()) > 0
+    assert_rows_match(got, want)
+
+
+@pytest.mark.parametrize("jmode", ["vpu", "mxu", "splitk"])
+def test_sweep_mode_caterpillar_compensated(jmode):
+    """test_vmem_caterpillar_pool_small's shape: on a depth-62 chain a
+    rescue decision can flip where a CLV sits within an ulp of the
+    threshold; CLV x 2^30k and scaler + k compensate exactly, so compare
+    scaling-compensated values at that test's rtol 2e-3.  Entries stored
+    as f32 subnormals (below 1e-37) are held to 2e-3 of their site's
+    magnitude instead: XLA's CPU flushes them to zero and torch keeps
+    them."""
+    args = build(caterpillar_newick(64), 256, 3)
+    assert args[3].vmem_prog.pool_size <= 4
+    (clv, scal), (jclv, jscal) = run_modes(*args, jmode)
+    stored = np.asarray(jclv, np.float64)
+    got = clv.double().numpy() * 2.0 ** (-30.0 * scal.numpy()[:, :, :, None])
+    want = stored * 2.0 ** (-30.0 * np.asarray(jscal)[:, :, :, None])
+    normal = (stored >= 1e-37) & (clv.numpy() >= 1e-37)
+    assert normal.mean() > 0.8
+    np.testing.assert_allclose(got[normal], want[normal], rtol=2e-3, atol=0)
+    mag = want.max(axis=(2, 3), keepdims=True)
+    assert float(np.max(np.abs(got - want) / mag)) < 2e-3
+
+
+def test_sweep_mode_matches_splitk():
+    """test_splitk_matches_xla's shape at "highest": within 5e-6 of each
+    site's magnitude (tiny components may differ at bf16 granularity in
+    the Pallas kernel), scalers equal."""
+    rng = np.random.default_rng(11)
+    args = build(random_newick(24, rng), 384, 11)
+    (clv, scal), (jclv, jscal) = run_modes(*args, "splitk")
+    want = np.asarray(jclv, np.float64)
+    mag = np.maximum(want.max(axis=(2, 3), keepdims=True), 1e-300)
+    assert float(np.max(np.abs(clv.double().numpy() - want) / mag)) < 5e-6
+    np.testing.assert_array_equal(scal.numpy(), np.asarray(jscal))
+
+
+def test_sweep_rejects_unknown_mode():
+    rng = np.random.default_rng(2)
+    _, _, pcfg, pprog, tip_b, pmats = build(random_newick(10, rng), 256, 2)
+    with pytest.raises(ValueError, match="unknown sweep mode"):
+        partials_tree.sweep(torch.as_tensor(tip_b), torch.as_tensor(pmats),
+                            pprog.vmem_prog, pcfg, TB, mode="mxu")
+
+
+def test_choose_beside_jax_choose():
+    """As test_pallas_tree.test_choose_prefers_static: both packages take
+    the static family (the port's "fma") on a small tree and, with the op
+    limits lowered, move to the runtime-ops family: "splitk" there, "mma"
+    here at S = 4 with per-site scalers.  Under per-rate scalers the JAX
+    runtime-ops kernels refuse; the port's "fma" form keeps them."""
+    jcfg, jprog, pcfg, pprog, _, _ = build(caterpillar_newick(16), 256, 0)
+    slots = int(jprog.pmatrix_indices.max()) + 1
+    assert ppt.choose(jprog.vmem_prog, jcfg, slots)[1] == "static"
+    assert partials_tree.choose(pprog.vmem_prog, pcfg) == (256, "fma")
+    jrate = dataclasses.replace(jcfg, per_rate_scalers=True)
+    prate = dataclasses.replace(pcfg, per_rate_scalers=True)
+    saved = ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS, \
+        partials_tree.FMA_MAX_OPS
+    assert saved[1] == saved[2] == 4096
+    try:
+        ppt.STATIC_MAX_OPS = ppt.STATIC_SEG_MAX_OPS = 0
+        partials_tree.FMA_MAX_OPS = 0
+        assert ppt.choose(jprog.vmem_prog, jcfg, slots)[1] == "splitk"
+        assert partials_tree.choose(pprog.vmem_prog, pcfg) == (256, "mma")
+        assert ppt.choose(jprog.vmem_prog, jrate, slots) is None
+        assert partials_tree.choose(pprog.vmem_prog, prate) == (256, "fma")
+    finally:
+        (ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS,
+         partials_tree.FMA_MAX_OPS) = saved
+    # no schedule, or a dtype other than f32: neither package has a kernel
+    assert ppt.choose(None, jcfg, slots) is None
+    assert partials_tree.choose(None, pcfg) is None
+    assert partials_tree.choose(pprog.vmem_prog, dataclasses.replace(
+        pcfg, dtype=torch.float64)) is None
+    # a pool too large for the shared-memory limit
+    assert partials_tree.choose(pprog.vmem_prog, pcfg, smem_limit=1024) \
+        is None
+
+
+def test_unsupported_names_the_mode():
+    _, _, pcfg, pprog, _, _ = build(caterpillar_newick(16), 256, 0)
+    prog = pprog.vmem_prog
+    assert partials_tree.unsupported(prog, pcfg, mode="mma") is None
+    prate = dataclasses.replace(pcfg, per_rate_scalers=True)
+    assert "'mma'" in partials_tree.unsupported(prog, prate, mode="mma")
+    assert partials_tree.unsupported(prog, prate, mode="fma") is None
+    odd = dataclasses.replace(pcfg, rate_cats=3)
+    assert "rate_cats" in partials_tree.unsupported(prog, odd, mode="mma")
+    assert "mode 'fma'" in partials_tree.unsupported(prog, pcfg, 1024, "fma")
+    assert "unknown" in partials_tree.unsupported(prog, pcfg, mode="vpu")
+    # the "mma" form keeps one scaler row whatever the config says
+    assert partials_tree.smem_bytes(prog, prate, 64, "mma") \
+        == partials_tree.smem_bytes(prog, pcfg, 64, "fma") \
+        < partials_tree.smem_bytes(prog, prate, 64, "fma")
+
+
+def test_split_tf32_is_compensated():
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor((rng.standard_normal(4096)
+                         * np.exp(rng.uniform(-20, 3, 4096))
+                         ).astype(np.float32))
+    hi, lo = partials_tree.split_tf32(x)
+    for part in (hi, lo):       # TF32: the low 13 mantissa bits are zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((hi - x).abs() / x.abs()).max()) <= 2.0 ** -11
+    err = (hi.double() + lo.double() - x.double()).abs() / x.double().abs()
+    assert float(err.max()) <= 2.0 ** -22
+    assert float(lo.abs().max()) > 0
+
+
+@pytest.mark.parametrize("states,rates,pairs", [(4, 4, 2), (20, 4, 22)])
+def test_pmatrix_fragments_rebuild_block_diagonal(states, rates, pairs):
+    """Scattering the fragment table back by the mma A-fragment layout
+    (row lane/4 (+8), column lane%4 (+4) of each 16 x 8 tile) gives the
+    rate-block-diagonal P; all-zero tiles are left out."""
+    rng = np.random.default_rng(states)
+    span = states * rates
+    pm = torch.as_tensor(rng.uniform(0, 1, (3, rates, states, states))
+                         .astype(np.float32))
+    cfg = PartitionConfig(tips=4, clv_buffers=2, states=states, sites=8,
+                          rate_matrices=1, prob_matrices=5, rate_cats=rates,
+                          scale_buffers=2, dtype=torch.float32)
+    frag = partials_tree.pmatrix_fragments(pm, cfg)
+    assert frag.shape == (3, pairs, 2, 32, 4) and frag.is_contiguous()
+    want = torch.zeros((3, span, span), dtype=torch.float64)
+    for r in range(rates):
+        blk = slice(r * states, (r + 1) * states)
+        want[:, blk, blk] = pm[:, r].double()
+    got = torch.zeros_like(want)
+    lane = np.arange(32)
+    p = 0
+    for mt in range(span // 16):
+        for ks in range(span // 8):
+            rows = 16 * mt + (lane // 4)[:, None] + np.array([0, 8, 0, 8])
+            cols = 8 * ks + (lane % 4)[:, None] + np.array([0, 0, 4, 4])
+            if not (want[0][rows, cols] != 0).any():
+                continue
+            got[:, rows, cols] = frag[:, p].double().sum(dim=1)
+            p += 1
+    assert p == pairs
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2.0 ** -22)
