@@ -37,7 +37,23 @@ Phases (any failure exits non-zero):
      inputs, score_placements on a pruned tip, branch_derivatives against
      central differences;
  13. the matrix-unit probe (probes/mma.py) at one site block;
- 14. times of both sweep forms at four shapes.
+ 14. times of both sweep forms at four shapes;
+ 15. linked and scaled multi-partition likelihoods (multipartition.py) at
+     full width: a random 256-taxon tree, three partitions (GTR DNA 16,384
+     sites, another GTR DNA 8,192 sites, LG protein 4,096 sites):
+     loglikelihood against the sum of single-partition calls and the dense
+     f64 path, branch_derivatives against central differences,
+     optimize_branch_lengths;
+ 16. the multi-partition SPR search (search_fast.hill_climb_multi,
+     unlinked lengths) on the search inputs with a second partition
+     simulated down the same truth tree;
+ 17. gradient model fitting (fit.fit_model) at 256 x 65,536 with the CUDA
+     sweep in the forward pass and the analytic reverse pass, its first
+     gradient against autograd of the dense f64 path;
+ 18. the build-cache probe (probes/cache.py): cold build, warm reload in a
+     process with no nvcc, rebuild after an edit, each with a timeout;
+ 19. the construct probe (probes/constructs.py): four variants of the
+     tensor-core sweep's inner loop, each against its plain version.
 
 Prints a {"kernels": [...]} JSON line, then the result line
 {"ok": true, "device": {...}} last.  Needs a CUDA device; imports no JAX.
@@ -63,6 +79,15 @@ T3_RTOL, T3_ATOL = 2e-3, 2e-5   # its refined branch (the JAX test's bounds)
 SEARCH_SEED = 20260820   # bench.py measure_search_round
 SEARCH_TIPS, SEARCH_SITES, SEARCH_RADIUS = 256, 4096, 5
 SEARCH_ROUNDS = 30       # the JAX bench's climb depth
+MULTI_ROUNDS = 12        # depth of the two-partition climb (cut: 30 at most
+#                          in the single-partition climb above)
+MULTI_TIPS = 256         # the linked / scaled three-partition case:
+MULTI_SITES = (16384, 8192, 4096)   # GTR DNA, another GTR DNA, LG protein
+MULTI_SCALERS = (1.0, 0.7, 1.6)
+FIT_STEPS, FIT_LR = 30, 0.02
+GRAD_RTOL = 1e-4         # analytic f32 gradient vs dense f64 autograd, of
+#                          each leaf's largest entry
+D1_RTOL = 2e-3           # f32 branch derivatives vs f64 central differences
 # "mma" rows against the plain version, relative to each site's largest
 # entry, where the scalers agree: 2e-5 plus 1.5e-7 per op.  A root row
 # carries the summed relative error of every op below it, and the tensor
@@ -109,22 +134,28 @@ def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0 (just before a path
     is driven)."""
     from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     partials_tree.sweep.launches = 0
     for mode in partials_tree.sweep.launches_by_mode:
         partials_tree.sweep.launches_by_mode[mode] = 0
     edge_score.edge_scores.launches = 0
     probe.chain.launches = 0
+    cache.scale_shift.launches = 0
+    constructs.constructs.launches = 0
 
 
 def read_counts() -> dict:
     """Launches per kernel since reset_counts (just after a path)."""
     from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     by_mode = partials_tree.sweep.launches_by_mode
     return {"tree_sweep": by_mode["fma"], "tree_sweep_mma": by_mode["mma"],
             "edge_score": edge_score.edge_scores.launches,
-            "mma_probe": probe.chain.launches}
+            "mma_probe": probe.chain.launches,
+            "cache_probe": cache.scale_shift.launches,
+            "construct_probe": constructs.constructs.launches}
 
 
 def phase_device():
@@ -1185,6 +1216,475 @@ def phase_sweep_times(cases, card):
     return out
 
 
+def multi_inputs(device):
+    """The three-partition case of phase_multi_linked: (tree, mp, cases)
+    with cases[k] = (cfg, program, model, bl, tipchars, pw, inv) as
+    engine.build_case returns them; f32, four Gamma categories."""
+    import torch
+
+    from libpll2_tpu_torch import engine, multipartition
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.config import PartitionConfig
+    from libpll2_tpu_torch.models.aa import aa_model
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll2_tpu_torch.tree.generate import (random_newick,
+                                                 random_tipchars)
+
+    rng = np.random.default_rng(4)
+    tree = T.parse_newick_string(random_newick(MULTI_TIPS, rng))
+    lg_rates, lg_freqs = aa_model("lg")
+    specs = [
+        (4, MULTI_SITES[0], [1.2, 2.1, 0.7, 1.3, 2.5, 1.0],
+         [0.3, 0.25, 0.2, 0.25], 0.8),
+        (4, MULTI_SITES[1], [0.8, 1.9, 1.2, 0.9, 2.4, 1.0],
+         [0.21, 0.27, 0.31, 0.21], 1.4),
+        (20, MULTI_SITES[2], lg_rates, lg_freqs, 0.75)]
+    cfgs, parts = [], []
+    for states, sites, subst, freqs, alpha in specs:
+        cfg = PartitionConfig(
+            tips=MULTI_TIPS, clv_buffers=tree.inner_count, states=states,
+            sites=sites, rate_matrices=1, prob_matrices=2 * MULTI_TIPS - 3,
+            rate_cats=4, scale_buffers=tree.inner_count,
+            dtype=torch.float32)
+        model = engine.make_model([subst], [freqs],
+                                  compute_gamma_cats(alpha, 4),
+                                  dtype=torch.float32, device=device)
+        tipchars = torch.as_tensor(engine.pad_tipchars(
+            random_tipchars(MULTI_TIPS, sites, rng, states=states), cfg),
+            device=device)
+        pw = torch.zeros(cfg.sites_padded, device=device)
+        pw[:sites] = 1.0
+        inv = torch.full((cfg.sites_padded,), -1, dtype=torch.int32,
+                         device=device)
+        cfgs.append(cfg)
+        parts.append((model, tipchars, pw, inv))
+    mp = multipartition.compile_multipartition(tree, cfgs)
+    bl = torch.as_tensor(mp.programs[0].default_branch_lengths,
+                         dtype=torch.float32, device=device)
+    cases = [(cfgs[k], mp.programs[k], parts[k][0], bl) + parts[k][1:]
+             for k in range(3)]
+    return tree, mp, cases
+
+
+def phase_multi_linked(device, card):
+    """multipartition.loglikelihood, branch_derivatives and
+    optimize_branch_lengths at full width.  Returns the launches of the
+    path."""
+    import torch
+
+    from libpll2_tpu_torch import engine, multipartition
+
+    _tree, mp, cases = multi_inputs(device)
+    models, tips, pws, invs = ([c[i] for c in cases] for i in (2, 4, 5, 6))
+    bl = cases[0][3]
+    args = (mp, models, bl, tips, pws, invs)
+    torch.cuda.synchronize()
+    for k, (cfg, program, *_rest) in enumerate(cases):
+        tb, mode = engine.kernel_choice(program, cfg, device)
+        log(f"[multi] partition {k}: S={cfg.states} {cfg.tips} taxa x "
+            f"{cfg.sites} sites, ops={program.vmem_prog.n_ops}: choose picks "
+            f"site block {tb}, mode {mode!r}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    total = multipartition.loglikelihood(*args)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    n_sweeps = counts["tree_sweep"] + counts["tree_sweep_mma"]
+    log(f"[multi] launches during loglikelihood: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}")
+    check(n_sweeps == 3, f"expected one sweep per partition, got {n_sweeps}")
+    warm = statistics.median(cuda_ms(
+        lambda: multipartition.loglikelihood(*args), 10))
+    total = total.item()
+    singles = [engine.loglikelihood(c[1], c[0], *c[2:]).item()
+               for c in cases]
+    ref = sum(dense_f64_sliced(c, device) for c in cases)
+    gap_sum = abs(total - sum(singles)) / abs(total)
+    gap = abs(total - ref) / abs(ref)
+    log(f"[multi] linked total {total!r}; sum of three engine.loglikelihood "
+        f"calls {sum(singles)!r} (rel gap {gap_sum:.3e}); dense f64 {ref!r} "
+        f"(rel gap {gap:.3e}); first call (cold) {cold_ms:.3f} ms, warm "
+        f"median of 10 calls {warm:.4f} ms ({card})")
+    check(np.isfinite(total) and gap_sum < 1e-6,
+          f"total differs from the sum of its parts by {gap_sum}")
+    check(gap < LOGL_RTOL, f"linked total gap {gap} >= {LOGL_RTOL}")
+
+    # scaled lengths: summed derivatives against central differences of
+    # the dense f64 total on eight edges
+    scalers = torch.tensor(MULTI_SCALERS, dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    d1, d2 = multipartition.branch_derivatives(*args, scalers)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    def scaled_f64(lengths):
+        return sum(dense_f64_sliced(
+            c[:3] + (lengths * MULTI_SCALERS[k],) + c[4:], device)
+            for k, c in enumerate(cases))
+
+    worst, h = 0.0, 1e-4
+    edges = list(range(3, len(bl), len(bl) // 8))[:8]
+    fds = []
+    for e in edges:
+        up, down = bl.double(), bl.double()
+        up[e] += h
+        down[e] -= h
+        fds.append((scaled_f64(up) - scaled_f64(down)) / (2 * h))
+    scale = max(abs(x) for x in fds)
+    for e, fd in zip(edges, fds):
+        worst = max(worst, abs(d1[e].item() + fd) / scale)
+    log(f"[multi] branch_derivatives, scalers {MULTI_SCALERS}: d1 against "
+        f"central differences of the dense f64 total on edges {edges}: "
+        f"worst gap {worst:.3e} of the largest |d1| {scale:.4e}; all d2 "
+        f"finite {bool(torch.isfinite(d2).all())}; first call {secs:.3f} s "
+        f"({card})")
+    check(worst < D1_RTOL, f"summed d1 off central differences by {worst}")
+    check(bool(torch.isfinite(d1).all() and torch.isfinite(d2).all()),
+          "non-finite summed derivative")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_bl, logl = multipartition.optimize_branch_lengths(*args, rounds=3)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    again = multipartition.loglikelihood(mp, models, new_bl, tips, pws,
+                                         invs).item()
+    gap = abs(logl.item() - again) / abs(again)
+    log(f"[multi] optimize_branch_lengths, 3 rounds, "
+        f"{mp.fulls[0].n_colors} colour classes: total {total!r} -> "
+        f"{logl.item()!r}; loglikelihood at the returned lengths {again!r} "
+        f"(rel gap {gap:.3e}); first call {secs:.3f} s ({card})")
+    check(logl.item() > total, "joint smoothing did not raise the total")
+    check(gap < LOGL_RTOL, f"smoothed total gap {gap}")
+    return counts
+
+
+def phase_multi_search(device, card):
+    """hill_climb_multi (unlinked lengths) on the search inputs with a
+    second partition simulated down the same truth tree.  Returns the
+    launches of the path."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import search_fast as sf
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll2_tpu_torch.tree.compare import rf_distance_normalized
+    from libpll2_tpu_torch.tree.generate import simulate_alignment
+
+    truth, start, chars, cfg, model = search_inputs(device)
+    subst2, freqs2 = [0.8, 1.9, 1.2, 0.9, 2.4, 1.0], [0.21, 0.27, 0.31, 0.21]
+    rates = compute_gamma_cats(0.9, 4)
+    sites2 = cfg.sites // 2
+    chars2 = simulate_alignment(truth, sites2,
+                                np.random.default_rng(SEARCH_SEED + 1),
+                                subst2, freqs2, rates)
+    cfgs = [cfg, dataclasses.replace(cfg, sites=sites2)]
+    models = [model, engine.make_model([subst2], [freqs2], rates,
+                                       dtype=torch.float32, device=device)]
+    chars_list = [chars, chars2]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, logl, stats = sf.hill_climb_multi(
+        start, cfgs, models, chars_list, max_rounds=MULTI_ROUNDS,
+        radius=SEARCH_RADIUS, smooth_every=2)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    per_round = [tm.get("edge_score_launches")
+                 for tm in stats["phase_timings"]]
+    log(f"[msearch] edge_score launches during hill_climb_multi: "
+        f"{counts['edge_score']}; per round and partition {per_round}")
+    check(counts["edge_score"] > 0 and all(
+        n > 0 for row in per_round for n in row),
+        "a partition's score phase did not launch the edge scorer")
+
+    trace, rs = stats["logl_trace"], stats["round_secs"]
+    steady = statistics.median(rs[1:]) if len(rs) > 1 else rs[0]
+    log(f"[msearch] {cfg.tips} taxa, partitions of {cfgs[0].sites} and "
+        f"{cfgs[1].sites} sites, radius {SEARCH_RADIUS}, at most "
+        f"{MULTI_ROUNDS} rounds: rounds={stats['rounds']} "
+        f"moves={stats['moves']} scorers="
+        f"{sorted({s for tm in stats['phase_timings'] for s in tm['scorer']})}")
+    log(f"[msearch] summed logL trace {trace!r}")
+    log(f"[time] multi search first round {rs[0]:.3f} s, steady median "
+        f"{steady:.3f} s over {len(rs) - 1} rounds, whole climb "
+        f"{total_s:.3f} s ({card})")
+    check(all(np.isfinite(trace)), "non-finite total in the trace")
+    check(all(b >= a for a, b in zip(trace, trace[1:])),
+          "the summed logL trace decreased")
+
+    # the total against engine.loglikelihood of each partition's final tree
+    # at its own lengths
+    parts = []
+    for k, prog in enumerate(stats["programs"]):
+        t = T.parse_newick_string(T.export_newick(prog.tree.vroot,
+                                                  precision=None))
+        program = engine.compile_tree(t, cfgs[k])
+        raw = np.zeros((t.tip_count, cfgs[k].sites), dtype=np.uint64)
+        for node in t.nodes[:t.tip_count]:
+            raw[node.clv_index] = chars_list[k][node.label][:cfgs[k].sites]
+        pw = torch.zeros(cfgs[k].sites_padded, device=device)
+        pw[:cfgs[k].sites] = 1.0
+        parts.append(engine.loglikelihood(
+            program, cfgs[k], models[k],
+            torch.as_tensor(program.default_branch_lengths,
+                            dtype=torch.float32, device=device),
+            torch.as_tensor(engine.pad_tipchars(raw, cfgs[k]),
+                            device=device), pw,
+            torch.full((cfgs[k].sites_padded,), -1, dtype=torch.int32,
+                       device=device)).item())
+    gap = abs(logl - sum(parts)) / abs(logl)
+    bl0, bl1 = (p.branch_lengths for p in stats["programs"])
+    differ = float(np.abs(bl0 - bl1).max())
+    logl_true = sum(sf.evaluate_tree(truth, cfgs[k], models[k],
+                                     chars_list[k])[0] for k in range(2))
+    log(f"[msearch] final total {logl!r}; engine.loglikelihood of each "
+        f"partition's final tree at its own lengths {parts!r}, sum "
+        f"{sum(parts)!r} (rel gap {gap:.3e}); the partitions' lengths differ "
+        f"by up to {differ:.4f}")
+    log(f"[msearch] quality: RF {rf_distance_normalized(start, truth):.4f} "
+        f"-> {rf_distance_normalized(final, truth):.4f}; truth tree "
+        f"(smoothed per partition) {logl_true!r}, delta "
+        f"{logl - logl_true!r}")
+    check(gap < LOGL_RTOL, f"final total gap {gap} >= {LOGL_RTOL}")
+    check(differ > 1e-4, "unlinked lengths came out equal")
+    return counts
+
+
+def dense_f64_gradient(case32, params, rates, device, slice_sites=1024):
+    """(logL, gradient per FitParams field) of fit.loglikelihood_fn by
+    autograd of the dense f64 plain path, summed over site slices."""
+    import torch
+
+    from libpll2_tpu_torch import fit
+
+    cfg, program, _model, _bl, tipchars, pw, inv = case32
+    leaves = fit.FitParams(*(x.detach().double().requires_grad_()
+                             for x in params))
+    total = 0.0
+    for start in range(0, cfg.sites_padded, slice_sites):
+        stop = min(start + slice_sites, cfg.sites_padded)
+        cfg64 = dataclasses.replace(
+            cfg, sites=stop - start, site_block=stop - start,
+            dtype=torch.float64, use_kernel=False, sweep_mode=None)
+        logl = fit.loglikelihood_fn(
+            program, cfg64, leaves, rates, tipchars[:, start:stop],
+            pw[start:stop].double(), inv[start:stop], fit_alpha=True)
+        logl.backward()
+        total += logl.item()
+        del logl
+        torch.cuda.empty_cache()
+    return total, [x.grad for x in leaves]
+
+
+def gamma_cats_ms(device, alpha=0.7, categories=4, reps=7):
+    """Median host-clock ms of compute_gamma_cats_torch and its backward
+    pass with alpha on `device` (what one fit step pays for the
+    discretization), each call ended by a synchronise."""
+    import torch
+
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats_torch
+
+    times = []
+    for _ in range(reps + 1):
+        a = torch.tensor(alpha, dtype=torch.float64, device=device,
+                         requires_grad=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rates = compute_gamma_cats_torch(a, categories)
+        (rates * torch.arange(categories, device=rates.device)).sum() \
+            .backward()
+        a.grad.cpu()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def phase_fit(full_case, device, card):
+    """fit.fit_model at the main path's shape with the CUDA sweep in the
+    forward pass and the analytic reverse pass.  Returns the launches of
+    the path."""
+    import torch
+
+    from libpll2_tpu_torch import convert, engine, fit
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll2_tpu_torch.tree.generate import balanced_newick
+
+    cfg, program, _model, bl, tipchars, pw, inv = full_case
+    full = engine.compile_tree_full(
+        T.parse_newick_string(balanced_newick(cfg.tips)), cfg)
+    rates = compute_gamma_cats(1.0, cfg.rate_cats)
+    params0 = fit.pack([[1.5, 1.5, 0.8, 1.2, 2.5, 1.0]],
+                       [[0.3, 0.2, 0.3, 0.2]], bl, alpha=0.7,
+                       dtype=torch.float32, device=device)
+    site = (tipchars, pw, inv)
+
+    # the first gradient against the dense f64 path
+    leaves = fit.FitParams(*(x.clone().requires_grad_() for x in params0))
+    fwd, bwd, logl = [], [], None
+    for _ in range(3):
+        for x in leaves:
+            x.grad = None
+        res = {}
+        fwd.append(cuda_ms(lambda: res.setdefault("v", fit.loglikelihood_fn(
+            program, cfg, leaves, rates, *site, fit_alpha=True,
+            full_program=full)), 1)[0])
+        logl = res["v"]
+        bwd.append(cuda_ms(logl.backward, 1)[0])
+    ref_logl, ref_grads = dense_f64_gradient(full_case, params0, rates,
+                                             device)
+    gap = abs(logl.item() - ref_logl) / abs(ref_logl)
+    worst = 0.0
+    for name, leaf, ref in zip(convert.FIT_FIELDS, leaves, ref_grads):
+        err = ((leaf.grad.double() - ref).abs().max()
+               / ref.abs().max()).item()
+        worst = max(worst, err)
+        log(f"[fit] step-0 gradient, {name} {tuple(ref.shape)}: analytic f32 "
+            f"against dense f64 autograd, max gap {err:.3e} of the largest "
+            f"entry {ref.abs().max().item():.4e}")
+    log(f"[fit] step-0 logL kernel f32 {logl.item()!r} dense f64 "
+        f"{ref_logl!r} (rel gap {gap:.3e}); forward {fwd[-1]:.3f} ms "
+        f"(first, cold: {fwd[0]:.3f}), backward {bwd[-1]:.3f} ms (first: "
+        f"{bwd[0]:.3f}) per step ({card})")
+    log(f"[time] gamma discretization with its backward pass, alpha on the "
+        f"card (what a fit step runs) {gamma_cats_ms(device):.3f} ms, "
+        f"alpha on the host {gamma_cats_ms(torch.device('cpu')):.3f} ms, "
+        f"host clock, medians of 7 ({card})")
+    check(gap < LOGL_RTOL, f"fit logL gap {gap}")
+    check(worst < GRAD_RTOL, f"analytic gradient off the dense f64 "
+                             f"gradient by {worst} >= {GRAD_RTOL}")
+    del leaves, logl, res, ref_grads
+    torch.cuda.empty_cache()
+    try:
+        fit.loglikelihood_fn(program, cfg, params0, rates, *site,
+                             fit_alpha=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "a fit on the card with no FullTreeProgram took the dense "
+                   "path without being asked to")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fit.fit_model(program, cfg, params0, rates, *site,
+                        steps=FIT_STEPS, lr=FIT_LR, fit_alpha=True,
+                        full_program=full)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    trace = out.logl.tolist()
+    subst, freqs, _bl = fit.unpack(out.params)
+    log(f"[fit] tree_sweep launches during fit_model: "
+        f"{counts['tree_sweep']} for {FIT_STEPS} steps and the final "
+        f"gradient")
+    log(f"[fit] {cfg.tips} taxa x {cfg.sites} sites, {FIT_STEPS} Adam steps "
+        f"at lr {FIT_LR}: logL {trace[0]!r} -> {trace[-1]!r}, "
+        f"{sum(b > a for a, b in zip(trace, trace[1:]))} of "
+        f"{FIT_STEPS - 1} steps rose; final gradient norm "
+        f"{out.grad_norm.item():.4e}; rates {subst[0].tolist()} freqs "
+        f"{freqs[0].tolist()} alpha "
+        f"{out.params.log_alpha.exp().item():.4f}; {secs:.3f} s, "
+        f"{secs / FIT_STEPS * 1e3:.1f} ms per step ({card})")
+    check(counts["tree_sweep"] + counts["tree_sweep_mma"] >= FIT_STEPS,
+          "the fit's forward passes did not launch the CUDA sweep")
+    check(all(np.isfinite(trace)) and trace[-1] > trace[0],
+          "the fit's logL trace did not rise or is not finite")
+    return counts
+
+
+def phase_cache_probe(device, card):
+    """probes/cache.py's stages, then times of the kernel, its plain
+    version and the one torch expression that computes the same."""
+    import torch
+
+    from libpll2_tpu_torch.probes import cache
+
+    reset_counts()
+    results = cache.run_probe(emit=lambda line: log(f"[cache] {line}"))
+    launches = read_counts()["cache_probe"]
+    check(launches >= 1, "the cache probe launched no kernel here")
+    log(f"[cache] cold build nvcc {results['cold']['nvcc_seconds']:.2f} s "
+        f"(stage {results['cold']['wall_s']:.1f} s); warm reload without "
+        f"nvcc {results['warm']['wall_s']:.1f} s, nvcc "
+        f"{results['warm']['nvcc_seconds']:.2f} s; edited source rebuilt in "
+        f"{results['edited']['nvcc_seconds']:.2f} s ({card})")
+    x = cache.probe_input(device=device)
+    got = cache.scale_shift(x)
+    err = (got - cache.scale_shift_reference(x)).abs().max().item()
+    check(err == 0.0, f"cache kernel differs from its plain version: {err}")
+    for fn in (cache.scale_shift, cache.scale_shift_reference):
+        fn(x)
+    ms = statistics.median(cuda_ms(lambda: cache.scale_shift(x), 50))
+    plain = statistics.median(cuda_ms(
+        lambda: cache.scale_shift_reference(x), 50))
+    library = statistics.median(cuda_ms(lambda: x * 2 + 1, 50))
+    nbytes = 2 * x.numel() * 4
+    flops = 2 * x.numel()
+    log(f"[time] cache_probe kernel {ms:.4f} ms, plain scale_shift_reference "
+        f"{plain:.4f} ms, torch x * 2 + 1 {library:.4f} ms, medians of 50 "
+        f"launches at {tuple(x.shape)} f32 ({card})")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                library_ms=library,
+                bound_ms=max(nbytes / HBM_RATE, flops / F32_RATE) * 1e3,
+                bound_by="bytes" if nbytes / HBM_RATE >= flops / F32_RATE
+                else "operations")
+
+
+def phase_construct_probe(card):
+    from libpll2_tpu_torch.probes import constructs
+
+    n_ops, tb = 128, 128
+    reset_counts()
+    rows = constructs.run_probe(n_ops, tb, emit=lambda line: log(
+        f"[constructs] {line} ({card})"))
+    launches = read_counts()["construct_probe"]
+    check(len(rows) == 4 and launches > 0, "the probe launched nothing")
+    products = {"c0": 1, "c1": 3, "c2": 3, "c3": 3}
+    ops_s = sum(products[r["variant"]] for r in rows) * n_ops * 2 \
+        * constructs.SPAN ** 2 * constructs.SITES / TF32_RATE
+    bytes_s = len(rows) * (
+        (constructs.P_ROWS * 2 * constructs.SPAN ** 2
+         + constructs.N_SLOTS * constructs.SPAN * tb
+         + constructs.SITES * (constructs.SPAN + 1)) * 4) / HBM_RATE
+    # c0-c2 are plain sums of products, which one einsum over gathered
+    # operands computes; c3's chain with a rescue between its products has
+    # no single call, so the row of all four has none either
+    import torch
+    p, pool = constructs.probe_inputs(tb, device=torch.device("cuda", 0))
+    w = torch.arange(n_ops, device=p.device)
+    slot, pm = w % constructs.N_SLOTS, (w * 7) % constructs.P_ROWS
+    library = {"c3": None}
+    for r in rows[:3]:
+        rows_p = pm if r["variant"] == "c2" else torch.zeros_like(pm)
+
+        def one_call():
+            return torch.einsum("wij,wjt->it", p[rows_p], pool[slot])
+        want = constructs.constructs_reference(r["variant"], p, pool,
+                                               n_ops)[0]
+        gap = ((one_call() - want).abs().max() / want.abs().max()).item()
+        check(gap < 1e-5, f"einsum differs from the plain {r['variant']}: "
+                          f"{gap}")
+        library[r["variant"]] = statistics.median(cuda_ms(one_call, 20))
+    log(f"[time] construct_probe, one torch.einsum over gathered operands "
+        f"for the same [16, {tb}] result: c0 {library['c0']:.4f} ms, c1 "
+        f"{library['c1']:.4f} ms, c2 {library['c2']:.4f} ms; c3 (a dependent "
+        f"chain with a rescue between products) has no single call ({card})")
+    return dict(launches=launches,
+                max_abs_err=max(r["abs_err"] for r in rows
+                                if r["abs_err"] == r["abs_err"]),
+                ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows),
+                library_ms=None, library_ms_by_variant=library,
+                bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="bytes" if bytes_s >= ops_s else "operations")
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -1195,6 +1695,10 @@ def main() -> int:
     full_case = cases[(256, 65536)]
     launches = {"tree_sweep": n_main, "tree_sweep_mma": 0, "edge_score": 0,
                 "mma_probe": 0}
+
+    def add(counts):
+        for k in ("tree_sweep", "tree_sweep_mma", "edge_score"):
+            launches[k] += counts[k]
     phase_times(full_case, cold_ms, card)
     launches["tree_sweep"] += phase_training(full_case, card)
 
@@ -1206,14 +1710,22 @@ def main() -> int:
     times = phase_sweep_times({
         "dna_256": full_case, "dna_1024": cases[(1024, 16384)],
         "large_8192": large_case, "protein_128": protein_case}, card)
-    del cases, full_case, large_case, protein_case
+    del cases, large_case, protein_case
+    torch.cuda.empty_cache()
+    add(phase_fit(full_case, device, card))
+    del full_case
+    torch.cuda.empty_cache()
+    add(phase_multi_linked(device, card))
     torch.cuda.empty_cache()
     phase_all_edge(device, card)
 
     edge = phase_edge_scorer(device, card)
-    launches["edge_score"] = phase_search(device, card)
+    launches["edge_score"] += phase_search(device, card)
+    add(phase_multi_search(device, card))
     probe = phase_probe(card)
     launches["mma_probe"] = probe["launches"]
+    cache_probe = phase_cache_probe(device, card)
+    construct_probe = phase_construct_probe(card)
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err = times[("dna_256", "fma")]
@@ -1258,6 +1770,17 @@ def main() -> int:
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
         "library_ms": None,
         "shape": "all variants and units at TB 128, summed",
+    }, {
+        "name": "cache_probe", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/cache_probe.cu",
+        "replaces": "tools/cacheprobe.py:43 (kern)",
+        **cache_probe, "shape": "[256, 256] f32",
+    }, {
+        "name": "construct_probe", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/construct_probe.cu",
+        "replaces": "tools/static2probe.py:41 (kernel)",
+        **construct_probe,
+        "shape": "c0-c3, 128 ops, TB 128, 65536 sites, summed",
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
@@ -1265,8 +1788,11 @@ def main() -> int:
         log(f"[bound] {k['name']} ({k['shape']}): {k['ms']:.4f} ms against "
             f"a bound of {k['bound_ms']:.4f} ms by {k['bound_by']}: "
             f"{k['bound_ms'] / k['ms']:.4f} of the roof; plain "
-            f"{k['plain_ms']:.4f} ms; no single PyTorch call computes it "
-            f"({card})")
+            f"{k['plain_ms']:.4f} ms; " + (
+                "no single PyTorch call computes it"
+                if k["library_ms"] is None else
+                f"one PyTorch expression {k['library_ms']:.4f} ms")
+            + f" ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ together), the objects are linked into one shared library under
 build/libpll2_tpu_torch/ (beside the package), named by a hash of the
 sources and flags so that an edited source is rebuilt, and loaded with
 ctypes.  Nothing is built at import time: the CPU tests import every module
-of the package on machines with no nvcc.
+of the package on machines with no nvcc.  `build` and `library` take the
+build directory and the source directory as arguments (probes/cache.py
+builds into a fresh directory and from an edited copy of csrc/).
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ from pathlib import Path
 import torch
 
 PACKAGE = Path(__file__).resolve().parent
-SOURCES = tuple(PACKAGE / "csrc" / name for name in (
-    "tree_sweep.cu", "tree_sweep_mma.cu", "edge_score.cu", "mma_probe.cu"))
+SOURCE_DIR = PACKAGE / "csrc"
+SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_mma.cu", "edge_score.cu",
+                "mma_probe.cu", "cache_probe.cu", "construct_probe.cu")
+SOURCES = tuple(SOURCE_DIR / name for name in SOURCE_NAMES)
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,26 +52,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-@functools.cache
-def build() -> BuildInfo:
-    """Compile the sources (once per content hash) and return BuildInfo."""
+def _directories(build_dir, source_dir):
+    """The two directories as resolved paths, so that the caches below key
+    on one spelling.  The defaults, BUILD_DIR and SOURCE_DIR, are resolved
+    already (PACKAGE is) and are handed on as they are: a kernel wrapper
+    asks for the default library on every launch, and resolving two paths
+    costs more than the launch does."""
+    return (BUILD_DIR if build_dir is None else Path(build_dir).resolve(),
+            SOURCE_DIR if source_dir is None else Path(source_dir).resolve())
+
+
+def library_path(build_dir=None, source_dir=None) -> Path:
+    """Where the library of these sources goes: named by a hash of the
+    flags and of every source's bytes, inside the build directory."""
+    build_dir, source_dir = _directories(build_dir, source_dir)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libpll2_kernels_{digest.hexdigest()[:16]}.so"
+    for name in SOURCE_NAMES:
+        digest.update((source_dir / name).read_bytes())
+    return build_dir / f"libpll2_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(build_dir=None, source_dir=None) -> BuildInfo:
+    """Compile the sources of `source_dir` into `build_dir` (once per
+    content hash and pair of resolved directories) and return BuildInfo."""
+    return _build(*_directories(build_dir, source_dir))
+
+
+@functools.cache
+def _build(build_dir: Path, source_dir: Path) -> BuildInfo:
+    out = library_path(build_dir, source_dir)
+    sources = [source_dir / name for name in SOURCE_NAMES]
     if out.exists():
         return BuildInfo(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in SOURCES]
+    tag = f"{out.stem[-16:]}.{os.getpid()}"
+    objs = [build_dir / f"{src.stem}_{tag}.o" for src in sources]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs, failed = [], []
-    for src, proc in zip(SOURCES, procs):
+    for src, proc in zip(sources, procs):
         text, _ = proc.communicate()
         logs.append(f"[{src.name}]\n{text}")
         if proc.returncode != 0:
@@ -90,10 +117,15 @@ def build() -> BuildInfo:
     return BuildInfo(out, time.perf_counter() - t0, "\n".join(logs))
 
 
+def library(build_dir=None, source_dir=None) -> ctypes.CDLL:
+    """The kernel library with every entry point's C signature declared
+    (loaded once per pair of resolved directories)."""
+    return _library(*_directories(build_dir, source_dir))
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The kernel library with every entry point's C signature declared."""
-    lib = ctypes.CDLL(str(build().path))
+def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build(build_dir, source_dir).path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_sweep_launch.argtypes = [
         p, i,          # ops, n_ops
@@ -144,6 +176,20 @@ def library() -> ctypes.CDLL:
         p,             # stream
     ]
     lib.edge_score_launch.restype = ctypes.c_int
+    lib.cache_probe_launch.argtypes = [
+        p, p, i,       # x, out, n
+        p,             # stream
+    ]
+    lib.cache_probe_launch.restype = ctypes.c_int
+    lib.construct_probe_launch.argtypes = [
+        i,             # variant
+        p, p,          # pfrag, pool
+        p, p,          # out, scal_out
+        i, i, i,       # grid, tb, n_ops
+        f, f,          # thresh, factor
+        p,             # stream
+    ]
+    lib.construct_probe_launch.restype = ctypes.c_int
     lib.tree_sweep_max_smem.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.tree_sweep_max_smem.restype = ctypes.c_int

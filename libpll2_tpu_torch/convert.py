@@ -28,7 +28,7 @@ def model_arrays(model) -> dict[str, np.ndarray]:
     return out
 
 
-def model_from_jax(arrays: Mapping[str, np.ndarray], device="cpu") -> Model:
+def model_from_jax(arrays: Mapping[str, np.ndarray], device="cuda") -> Model:
     """Build the port's Model from the JAX Model's eight fields given as
     numpy arrays (see model_arrays).  The eigenvectors are taken as they
     are, not decomposed again, so both packages price the same numbers."""
@@ -148,3 +148,51 @@ def spr_program_mismatches(port, ref) -> list[str]:
                 if not same:
                     out.append(f"ball_groups[{i}].{f.name}")
     return out
+
+
+def spr_programs_mismatches(ports, refs) -> list[str]:
+    """spr_program_mismatches over the K programs of compile_spr_multi,
+    each name prefixed by its partition."""
+    if len(ports) != len(refs):
+        return ["n_partitions"]
+    return [f"[{k}].{name}" for k, (p, r) in enumerate(zip(ports, refs))
+            for name in spr_program_mismatches(p, r)]
+
+
+def multipartition_mismatches(port, ref) -> list[str]:
+    """Fields in which a port multipartition.MultiPartition differs from a
+    JAX one: programs, all-edge programs and configs per partition."""
+    if port.n_partitions != ref.n_partitions:
+        return ["n_partitions"]
+    out = []
+    for k in range(port.n_partitions):
+        out += [f"programs[{k}].{n}" for n in program_mismatches(
+            port.programs[k], ref.programs[k])]
+        out += [f"fulls[{k}].{n}" for n in full_program_mismatches(
+            port.fulls[k], ref.fulls[k])]
+        out += [f"cfgs[{k}].{n}" for n in config_mismatches(
+            port.cfgs[k], ref.cfgs[k])]
+    return out
+
+
+FIT_FIELDS = ("log_subst", "freq_logits", "log_branch", "log_alpha")
+
+
+def fit_params_arrays(params) -> dict[str, np.ndarray]:
+    """The four fields of a FitParams (JAX's or the port's) as numpy
+    arrays."""
+    out = {}
+    for name in FIT_FIELDS:
+        value = getattr(params, name)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        out[name] = np.asarray(value)
+    return out
+
+
+def fit_params_from_jax(arrays: Mapping[str, np.ndarray], device="cuda"):
+    """The port's fit.FitParams from a JAX FitParams' fields given as
+    numpy arrays (see fit_params_arrays): the same unconstrained values."""
+    from .fit import FitParams
+    return FitParams(*(torch.as_tensor(np.array(arrays[f]), device=device)
+                       for f in FIT_FIELDS))

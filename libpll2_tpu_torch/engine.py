@@ -6,7 +6,8 @@ Counterpart of libpll2_tpu/engine.py: the forward step (`compile_tree`,
 (`optimize_root_branch`) and the all-edge engine over the all-directions
 message sweep (`compile_tree_full`, `_sweep_all`,
 `all_edge_loglikelihoods`, `optimize_branch_lengths`, `score_placements`,
-`branch_derivatives`).  The forward CLV sweep runs in a hand-written CUDA
+`branch_derivatives`) with the analytic reverse pass built on it
+(`loglikelihood_analytic`).  The forward CLV sweep runs in a hand-written CUDA
 tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
 tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
 level-batched path (ops/partials.py) on CPU tensors or when
@@ -118,7 +119,7 @@ class Model(nn.Module):
 
 def make_model(subst_params, frequencies, rates, rate_weights=None,
                prop_invar=None, params_indices=None, dtype=torch.float64,
-               device="cpu") -> Model:
+               device="cuda") -> Model:
     """Build a Model from raw parameters: eigendecompose each rate matrix
     on the host (models/ratematrix.py) and stack the factors.
 
@@ -731,8 +732,155 @@ def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
     return torch.cat(d1s), torch.cat(d2s)
 
 
+# --------------------------------------------------------------------------
+# Analytic reverse pass for the fast forward path
+# --------------------------------------------------------------------------
+#
+# The tree-sweep kernels have no graph autograd could walk, so gradient-
+# based fitting (fit.py) through them needs a hand-written backward.  The
+# message machinery supplies one: with all directional messages of one
+# sweep at hand,
+#
+#     dlogL/dP_e[r,i,j] = sum_t bar[r,t] pi[r,i] msg_a[r,i,t] msg_b[r,j,t]
+#
+# where bar is the cotangent of the cheap [R, T] reduction tail of the
+# edge-e factorization (ordinary autograd of likelihood_ops.edge_reduce
+# with the messages held fixed).  Branch-length and model gradients follow
+# by autograd through compute_pmatrices (a tiny closed-form function), and
+# the reduction-side gradients (frequencies, rate weights, prop_invar,
+# pattern weights) by autograd of the root-edge reduction with messages
+# and P held fixed.
+#
+# Cost: forward = the fast path (the CUDA sweep on CUDA tensors); backward
+# = one dense message sweep + per-edge einsums in chunks.
+
+
+class _LoglikelihoodAnalytic(torch.autograd.Function):
+    """loglikelihood() with the message-based reverse pass.  The model's
+    tensors are explicit arguments so that gradients reach them."""
+
+    MODEL_FLOATS = ("eigenvals", "eigenvecs", "inv_eigenvecs", "frequencies",
+                    "rates", "rate_weights", "prop_invar")
+
+    @staticmethod
+    def forward(ctx, program, full, cfg, params_indices, tipchars, invariant,
+                branch_lengths, pattern_weights, *model_floats):
+        fields = dict(zip(_LoglikelihoodAnalytic.MODEL_FLOATS, model_floats))
+        model = Model(params_indices=params_indices, **fields)
+        ctx.static = (full, cfg)
+        ctx.save_for_backward(params_indices, tipchars, invariant,
+                              branch_lengths, pattern_weights, *model_floats)
+        return loglikelihood(program, cfg, model, branch_lengths, tipchars,
+                             pattern_weights, invariant)
+
+    @staticmethod
+    def backward(ctx, g):
+        full, cfg = ctx.static
+        (params_indices, tipchars, inv, bl, pw,
+         *model_floats) = ctx.saved_tensors
+        fields = dict(zip(_LoglikelihoodAnalytic.MODEL_FLOATS, model_floats))
+        model = Model(params_indices=params_indices, **fields)
+        dtype = cfg.dtype
+        device = tipchars.device
+        idx = params_indices.long()
+
+        clv, scalers, pmatrix = _sweep_all(full, cfg, model, bl, tipchars)
+        edge_rows = _edge_rows(full, device)
+        pmat_slots = torch.as_tensor(full.pmatrix_indices, dtype=torch.int64,
+                                     device=device)
+        freqs = model.cat_freqs.to(dtype)                         # [R, S]
+
+        # dlogL/dP_e by the belief-propagation identity: the edge-e
+        # factorization L_t = reduce(sum_ij pi_i msg_a,i P_ij msg_b,j)
+        # holds for EVERY edge with messages held fixed, so the true
+        # partial derivative in P_e is the VJP of that form.  The reduction
+        # tail (scaler undo, +I mixing, asc-bias corrections) is a cheap
+        # [R, T] function; autograd of it yields the per-(rate, site)
+        # cotangent `bar`, and the expensive message factors stay analytic
+        # (core_derivatives.c:321-471 is this factorization specialized to
+        # d/dt).
+        pmat_bar = torch.empty((len(edge_rows),) + pmatrix.shape[1:],
+                               dtype=dtype, device=device)
+        for chunk in _edge_chunks(full, cfg,
+                                  torch.arange(len(edge_rows),
+                                               device=device)):
+            rows = edge_rows[chunk]
+            msg_b = clv[rows[:, 2]]                               # [e,R,S,T]
+            A = freqs[None, :, :, None] * clv[rows[:, 0]]
+            apb = torch.einsum("erit,erij,erjt->ert", A,
+                               pmatrix[pmat_slots[chunk]].to(dtype), msg_b)
+            with torch.enable_grad():
+                apb = apb.requires_grad_()
+                red = likelihood_ops.edge_reduce(
+                    apb, scalers[rows[:, 1]], scalers[rows[:, 3]],
+                    model.cat_freqs, model.rate_weights, model.cat_pinv, inv,
+                    pw, cfg)
+                # one logL per edge, each a function of its own apb only
+                bar, = torch.autograd.grad(red.sum(), apb)
+            pmat_bar[chunk] = torch.einsum("ert,erit,erjt->erij", bar * g, A,
+                                           msg_b)
+            del msg_b, A, apb, bar
+
+        def leaf(x):
+            return x.detach().requires_grad_()
+
+        with torch.enable_grad():
+            bl_l, evals, evecs, ivecs, rates, pinv = (
+                leaf(x) for x in (bl, model.eigenvals, model.eigenvecs,
+                                  model.inv_eigenvecs, model.rates,
+                                  model.prop_invar))
+            pm = pmatrix_ops.compute_pmatrices(
+                bl_l, evals, evecs, ivecs, rates, pinv, params_indices,
+                dtype=dtype)
+            (bl_bar, evals_bar, evecs_bar, ivecs_bar, rates_bar,
+             pinv_bar_pm) = torch.autograd.grad(
+                pm, (bl_l, evals, evecs, ivecs, rates, pinv),
+                grad_outputs=pmat_bar.to(pm.dtype))
+
+            # reduction-side gradients (messages and P held fixed);
+            # pattern weights enter the likelihood only through the
+            # reduction, so pw_bar is exact here too (including the
+            # asc-bias correction terms)
+            frequencies, rate_weights, prop_invar, pw_l = (
+                leaf(x) for x in (model.frequencies, model.rate_weights,
+                                  model.prop_invar, pw))
+            ra, rsa, rb, rsb = full.edge_rows[full.root_edge].tolist()
+            red = likelihood_ops.edge_loglikelihood(
+                clv[ra], scalers[rsa], clv[rb], scalers[rsb],
+                pmatrix[int(full.pmatrix_indices[full.root_edge])],
+                frequencies[idx], rate_weights, prop_invar[idx], inv, pw_l,
+                cfg)
+            freqs_bar, rw_bar, pinv_bar_red, pw_bar = torch.autograd.grad(
+                red, (frequencies, rate_weights, prop_invar, pw_l),
+                grad_outputs=g.to(red.dtype))
+
+        model_bar = dict(
+            eigenvals=evals_bar, eigenvecs=evecs_bar, inv_eigenvecs=ivecs_bar,
+            frequencies=freqs_bar, rates=rates_bar, rate_weights=rw_bar,
+            prop_invar=pinv_bar_pm + pinv_bar_red)
+        return (None, None, None, None, None, None, bl_bar, pw_bar,
+                *(model_bar[f] for f in _LoglikelihoodAnalytic.MODEL_FLOATS))
+
+
+def loglikelihood_analytic(program: TreeProgram, full: FullTreeProgram,
+                           cfg: PartitionConfig, model: Model,
+                           branch_lengths, tipchars, pattern_weights,
+                           invariant):
+    """loglikelihood() with an analytic (message-based) reverse pass.
+
+    Differentiable in (the model's floating tensors, branch_lengths,
+    pattern_weights) on ANY forward path, including the CUDA tree sweep.
+    Supports per-site and per-rate scalers, +I, and every
+    ascertainment-bias correction (the per-edge reduction tail is
+    differentiated by ordinary autograd)."""
+    return _LoglikelihoodAnalytic.apply(
+        program, full, cfg, model.params_indices, tipchars, invariant,
+        branch_lengths, pattern_weights,
+        *(getattr(model, f) for f in _LoglikelihoodAnalytic.MODEL_FLOATS))
+
+
 def build_case(n_tips: int, sites: int, rate_cats: int = 4,
-               dtype=torch.float32, device="cpu", site_block: int = 128,
+               dtype=torch.float32, device="cuda", site_block: int = 128,
                seed: int = 0, use_kernel: Optional[bool] = None,
                states: int = 4, aa_model_name: str = "lg",
                newick: Optional[str] = None,

@@ -10,12 +10,17 @@ Two modes (pll.h:203-204):
   * mean:   category rate = mean of the Gamma density over the category's
             probability quantile interval (via incomplete-gamma masses).
   * median: category rate = quantile midpoint, renormalized to mean 1.
+
+The torch half (`gammainc`, `gamma_quantile_torch`,
+`compute_gamma_cats_torch`) is the differentiable counterpart that lets the
+gamma shape join gradient-based model fitting (fit.py).
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 from ..constants import GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN
 
@@ -203,3 +208,152 @@ def compute_gamma_cats(alpha: float, categories: int,
         raise ValueError(f"invalid gamma discretization mode ({mode})")
 
     return rates
+
+
+# --------------------------------------------------------------------------
+# Differentiable variants (torch, f64) — the autograd model-fitting path
+# (fit.py), counterparts of the JAX package's gamma_quantile_jax and
+# compute_gamma_cats_jax.  torch.special.gammainc has no derivative in its
+# first argument, so the regularized incomplete gamma gets an
+# autograd.Function of its own.
+# --------------------------------------------------------------------------
+
+_SERIES_MAX_TERMS = 20000
+
+
+def gammainc_grad_a(a, x):
+    """dP(a, x)/da of the regularized lower incomplete gamma, f64, from
+    the series  P = x^a e^-x sum_n x^n / Gamma(a + n + 1)  differentiated
+    term by term:
+
+        dP/da = ln(x) P - x^a e^-x sum_n psi(a + n + 1) x^n / Gamma(a+n+1).
+
+    Every term of both sums is positive, so nothing cancels inside them;
+    the terms grow until n ~ x, which bounds x to a few hundred (the
+    quantiles of a discretized Gamma stay far below)."""
+    a, x = torch.broadcast_tensors(a.double(), x.double())
+    positive = x > 0
+    xs = torch.where(positive, x, torch.ones_like(x))
+    log_pref = a * torch.log(xs) - xs - torch.lgamma(a + 1.0)
+    term = torch.ones_like(xs)               # x^n Gamma(a+1) / Gamma(a+n+1)
+    psi = torch.special.digamma(a + 1.0)
+    total = term.clone()
+    total_psi = term * psi
+    for n in range(1, _SERIES_MAX_TERMS):
+        term = term * xs / (a + n)
+        psi = psi + 1.0 / (a + n)
+        total = total + term
+        total_psi = total_psi + term * psi
+        if n % 16 == 0 and bool((n > xs).all()) and bool(
+                (term * psi.abs() <= 1e-18 * total_psi.abs()).all()):
+            break
+    else:
+        raise ValueError("gammainc_grad_a: the series did not converge "
+                         f"(x up to {float(xs.max())})")
+    pref = torch.exp(log_pref)
+    grad = pref * (torch.log(xs) * total - total_psi)
+    return torch.where(positive, grad, torch.zeros_like(grad))
+
+
+def _gamma_pdf(a, x):
+    """Density of Gamma(a, 1) at x: dP(a, x)/dx."""
+    return torch.exp((a - 1.0) * torch.log(x) - x - torch.lgamma(a))
+
+
+class _GammaInc(torch.autograd.Function):
+    """P(a, x) with both derivatives: the density in x, the
+    term-by-term differentiated series in a."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        ctx.save_for_backward(a, x)
+        return torch.special.gammainc(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        ga = gx = None
+        if ctx.needs_input_grad[0]:
+            ga = (g * gammainc_grad_a(a, x)).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gx = (g * _gamma_pdf(a, x)).sum_to_size(x.shape)
+        return ga, gx
+
+
+def gammainc(a, x):
+    """Regularized lower incomplete gamma P(a, x), f64, differentiable in
+    both arguments (torch.special.gammainc is in x only)."""
+    a = torch.as_tensor(a, dtype=torch.float64)
+    x = torch.as_tensor(x, dtype=torch.float64, device=a.device)
+    a, x = torch.broadcast_tensors(a, x)
+    return _GammaInc.apply(a, x)
+
+
+class _GammaQuantile(torch.autograd.Function):
+    """The converged Newton iterate with the implicit derivative of
+    P(a, x) = p:  dx/da = -(dP/da) / (dP/dx),  dx/dp = 1 / (dP/dx)."""
+
+    @staticmethod
+    def forward(ctx, a, p, newton_iters):
+        z = math.sqrt(2.0) * torch.special.erfinv(2.0 * p - 1.0)
+        p1 = 1.0 / (9.0 * a)
+        x = a * (z * torch.sqrt(p1) + 1.0 - p1) ** 3
+        x = torch.clamp(x, min=1e-10)
+        for _ in range(newton_iters):
+            f = torch.special.gammainc(a, x) - p
+            step = f / torch.clamp(_gamma_pdf(a, x), min=1e-300)
+            x_new = x - step
+            # halve toward the current point when Newton overshoots below 0
+            x = torch.where(x_new > 0, x_new, x * 0.5)
+        ctx.save_for_backward(a, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        pdf = torch.clamp(_gamma_pdf(a, x), min=1e-300)
+        ga = gp = None
+        if ctx.needs_input_grad[0]:
+            ga = (-g * gammainc_grad_a(a, x) / pdf).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            gp = (g / pdf).sum_to_size(x.shape)
+        return ga, gp, None
+
+
+def gamma_quantile_torch(alpha, p, newton_iters: int = 25):
+    """Quantile of Gamma(alpha, 1) at probability p, f64, differentiable
+    in both.  Wilson–Hilferty initialization (the same normal-approx start
+    AS 91 uses) + Newton on the regularized incomplete gamma, as the JAX
+    package's gamma_quantile_jax; its unrolled Newton converges far past
+    f64 rounding, so the implicit derivative taken here at the converged
+    point equals its autodiff."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float64)
+    p = torch.as_tensor(p, dtype=torch.float64, device=alpha.device)
+    alpha, p = torch.broadcast_tensors(alpha, p)
+    return _GammaQuantile.apply(alpha, p, newton_iters)
+
+
+def compute_gamma_cats_torch(alpha, categories: int,
+                             mode: int = GAMMA_RATES_MEAN):
+    """Differentiable counterpart of compute_gamma_cats ([categories] f64
+    on alpha's device): lets the gamma shape parameter join gradient-based
+    model fitting (fit.py)."""
+    C = categories
+    alpha = torch.as_tensor(alpha, dtype=torch.float64)
+    device = alpha.device
+    if C == 1:
+        return torch.ones(1, dtype=torch.float64, device=device)
+    if mode == GAMMA_RATES_MEDIAN:
+        ps = (2.0 * torch.arange(C, dtype=torch.float64, device=device)
+              + 1.0) / (2.0 * C)
+        rates = gamma_quantile_torch(alpha, ps) / alpha
+        return rates * (C / torch.sum(rates))
+    if mode != GAMMA_RATES_MEAN:
+        raise ValueError(f"invalid gamma discretization mode ({mode})")
+    ps = torch.arange(1, C, dtype=torch.float64, device=device) / C
+    q = gamma_quantile_torch(alpha, ps)          # Gamma(alpha, 1) quantiles
+    probs = gammainc(alpha + 1.0, q)             # category boundary masses
+    probs = torch.cat([torch.zeros(1, dtype=torch.float64, device=device),
+                       probs,
+                       torch.ones(1, dtype=torch.float64, device=device)])
+    return (probs[1:] - probs[:-1]) * C

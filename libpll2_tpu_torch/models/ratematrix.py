@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..constants import EIGEN_MINFREQ
 
@@ -113,6 +114,50 @@ def update_eigen(subst_params: np.ndarray, freqs: np.ndarray) -> EigenDecomp:
     return EigenDecomp(eigenvals=eigenvals,
                        eigenvecs=eigenvecs,
                        inv_eigenvecs=inv_eigenvecs)
+
+
+# --------------------------------------------------------------------------
+# Differentiable variants (torch) — the autograd model-fitting path
+# (fit.py), counterparts of the JAX package's build_rate_matrix_jax and
+# update_eigen_jax: d logL / d (subst params, frequencies) by autograd
+# through the eigendecomposition.  The zero-frequency state elimination
+# (data-dependent shapes) is omitted: fitted frequencies are kept strictly
+# positive by the softmax parametrization.  torch.linalg.eigh's backward
+# divides by eigenvalue gaps, so exactly degenerate spectra (all rates
+# equal, uniform frequencies) give a non-finite gradient: fit.pack nudges
+# tied rates apart.
+# --------------------------------------------------------------------------
+
+def build_rate_matrix_torch(subst_params, freqs):
+    """Symmetrized normalized sqrt(pi) Q sqrt(pi)^-1 from tensors
+    subst_params [S (S - 1) / 2] and freqs [S], differentiable."""
+    S = freqs.shape[0]
+    iu = np.triu_indices(S, 1)                      # static index pattern
+    params = subst_params / subst_params[-1]
+    rates = torch.zeros((S, S), dtype=freqs.dtype, device=freqs.device)
+    rates = rates.index_put(
+        (torch.as_tensor(iu[0], device=freqs.device),
+         torch.as_tensor(iu[1], device=freqs.device)), params.to(freqs.dtype))
+    rates = rates + rates.T                         # factor_ij, zero diag
+    sq = torch.sqrt(freqs)
+    b = rates * sq[:, None] * sq[None, :]
+    diag = -(rates * freqs[None, :]).sum(dim=1)     # q_ii
+    b = b + torch.diag(diag)
+    mean = torch.sum(freqs * -diag)
+    return b / mean
+
+
+def update_eigen_torch(subst_params, freqs):
+    """Differentiable eigendecomposition; returns (eigenvals, eigenvecs,
+    inv_eigenvecs) in the same orientation as update_eigen.  An
+    eigenvector's sign is the solver's choice; P(t) does not depend on
+    it."""
+    b = build_rate_matrix_torch(subst_params, freqs)
+    d, v = torch.linalg.eigh(b)
+    sq = torch.sqrt(freqs)
+    eigenvecs = v.T * sq[None, :]
+    inv_eigenvecs = v / sq[:, None]
+    return d, eigenvecs, inv_eigenvecs
 
 
 def normalize_frequencies(freqs: np.ndarray) -> np.ndarray:

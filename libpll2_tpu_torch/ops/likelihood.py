@@ -164,9 +164,9 @@ def edge_loglikelihood(clvp,             # [R, S, T] parent CLV
                        with_persite=with_persite)
 
 
-def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
-                scaler_p,         # [T] or [R, T] int32
-                scaler_c,         # [T] or [R, T] int32
+def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
+                scaler_p,         # [..., T] or [..., R, T] int32
+                scaler_c,         # [..., T] or [..., R, T] int32
                 freqs,            # [R, S]
                 rate_weights,     # [R]
                 prop_invar,       # [R]
@@ -176,7 +176,9 @@ def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
                 with_persite: bool = False):
     """Reduction tail of edge_loglikelihood from the per-(rate, site) edge
     terms sum_ij pi_i . clvp_i . P_ij . clvc_j (at the CLVs' stored
-    scaling): scaler undo, +I mixing and asc-bias corrections."""
+    scaling): scaler undo, +I mixing and asc-bias corrections.  Leading
+    axes of terma_r and the scalers are batch axes (one logL each), e.g.
+    the edges of the analytic reverse pass."""
     dtype = terma_r.dtype
     if cfg.per_rate_scalers:
         site_scalings, undo = _per_rate_undo(scaler_p, scaler_c, cfg, dtype)
@@ -189,7 +191,8 @@ def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
     inv_lk = _invariant_site_lk(freqs.to(dtype), invariant)       # [R, T]
 
     # variant part gets (1-p); invariant part accumulates separately
-    terma = torch.einsum("rt,r->t", terma_r * (1.0 - pinv)[:, None], rw)
+    terma = torch.einsum("...rt,r->...t", terma_r * (1.0 - pinv)[:, None],
+                         rw)
     terminv = torch.einsum("rt,r->t", inv_lk * pinv[:, None], rw)
 
     # site log-likelihood; three cases (core_likelihood.c:1462-1481)
@@ -204,10 +207,15 @@ def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
     has_scal = site_scalings > 0
     has_inv = terminv > 0.0
 
+    # each case's argument is 1 wherever the case is not taken, so that
+    # the logarithm of a case not taken (terma * cap_factor underflows to
+    # 0 at f32 once a site was rescued five times) is finite and its
+    # gradient 0 rather than 0 * inf
     one = torch.ones((), dtype=dtype, device=terma.device)
-    plain = torch.where(live, terma + terminv, one)
-    scaled_inv = torch.where(live, terma * cap_factor + terminv, one)
-    scaled_plain = torch.where(live, terma, one)
+    plain = torch.where(live & ~has_scal, terma + terminv, one)
+    scaled_inv = torch.where(live & has_scal & has_inv,
+                             terma * cap_factor + terminv, one)
+    scaled_plain = torch.where(live & has_scal & ~has_inv, terma, one)
 
     site_lk = torch.where(
         has_scal,
@@ -218,7 +226,7 @@ def edge_reduce(terma_r,          # [R, T] pre-log edge terms (stored scale)
 
     site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
                           torch.zeros_like(site_lk))
-    logl = torch.sum(site_lk)
+    logl = torch.sum(site_lk, dim=-1)
     if cfg.asc_bias != AB_NONE:
         # pinv is disallowed with asc bias, so terma+terminv == raw term
         logl = logl + asc_bias_correction(terma + terminv, site_scalings,

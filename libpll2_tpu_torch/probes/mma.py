@@ -47,7 +47,7 @@ UNITS = ("fma", "tf32", "bf16")
 CHAIN_TOL = 1e-3
 
 
-def probe_inputs(variant: int, tb: int, seed: int = 0, device="cpu"):
+def probe_inputs(variant: int, tb: int, seed: int = 0, device="cuda"):
     """(A [M, K], B [NBUF, K, tb]) f32 standard normal from numpy's
     generator at `seed`."""
     _, M, K, _ = VARIANTS[variant]

@@ -1,8 +1,9 @@
 """ML SPR search: every (prune, regraft) pair of a round scored on the
 device, for any topology of a given tip count.
 
-Counterpart of libpll2_tpu/search_fast.py (single partition).  The
-search rests on two ideas, both kept from the JAX package:
+Counterpart of libpll2_tpu/search_fast.py: the single-partition search
+and its `*_multi` forms (K partitions over one topology, unlinked branch
+lengths, summed scores).  The search rests on two ideas, both kept from the JAX package:
 
 1. **Runtime topology.**  The level-batched operation tensor, edge-row
    table and pmatrix-slot vector are data, not constants.  The JAX package
@@ -38,7 +39,7 @@ import json
 import math
 import pathlib
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -997,6 +998,161 @@ def use_edge_kernel(cfg: PartitionConfig, invariant, device) -> bool:
     return bool(cfg.use_kernel)
 
 
+def _marker(timings: Optional[dict]):
+    """mark(key, t0): add the wall seconds since t0 to timings[key] (when a
+    dict was passed) and return the clock."""
+    def mark(key, t0):
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + (time.perf_counter()
+                                                    - t0)
+        return time.perf_counter()
+    return mark
+
+
+def _score_partition(prog: SprProgram, model, site, newton_iters: int):
+    """The score phase of one radius-compiled program: the device round
+    and its flat tables.  site: (tipchars, pattern weights, invariant) on
+    the model's device.  Returns (logl0, scores, t3s, cand_of, edge_of,
+    scorer, edge-scorer launches)."""
+    device = _device_of(model)
+    cfg = prog.cfg_ext
+    tipchars, pw_d, inv_d = site
+    bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype, device=device)
+    erow = _long(prog.edge_rows, device)
+    pslots = _long(prog.pmatrix_slots, device)
+    group_args = tuple(
+        (tuple(_long(a, device) for a in g.ball_levels),
+         _long(g.score_ops, device), _long(g.sub_rows, device),
+         _long(g.edge_pos, device), _long(g.merge_edges, device))
+        for g in prog.ball_groups)
+    kernel_on = use_edge_kernel(cfg, inv_d, device)
+    launches0 = edge_score.edge_scores.launches
+    logl0_d, outs = _spr_round_device(
+        cfg, model, _long(prog.level_ops, device), pslots, bl, tipchars,
+        pw_d, inv_d, erow[prog.root_edge], pslots[prog.root_edge],
+        group_args, ball_slots=prog.ball_slots, newton_iters=newton_iters,
+        use_kernel=kernel_on)
+    return (float(logl0_d),) + _flatten_groups(prog.ball_groups, outs) + (
+        "kernel" if kernel_on else "plain",
+        edge_score.edge_scores.launches - launches0)
+
+
+def _recompile_pins(prog: SprProgram) -> dict:
+    """compile_spr keywords that keep a recompiled program in prog's shape
+    buckets."""
+    pins = {"min_level_shape": prog.level_ops.shape[:2],
+            "radius": prog.radius}
+    if prog.radius is not None:
+        pins["min_group_shapes"] = tuple(g.shape_key
+                                         for g in prog.ball_groups)
+        pins["min_ball_slots"] = prog.ball_slots
+    return pins
+
+
+def _select_apply_verify(progs: List[SprProgram], models, labels_list,
+                         sites, scores, t3_list, cand_of, edge_of,
+                         logl0: float, eps: float,
+                         max_moves: Optional[int], timings: Optional[dict],
+                         _t: float):
+    """The host half of a round after scoring, over K >= 1 programs of one
+    topology (scores: the move scores summed over the partitions; t3_list:
+    each partition's refined attachment branches): greedy selection, the
+    surgery on every partition's tree, and the exact verification ladder.
+    Returns (new programs or None when no move was made, logl, moves)."""
+    mark = _marker(timings)
+    prog0 = progs[0]
+    # greedy improving move selection (flat arrays).  Two region
+    # granularities:
+    #   * cand_hard — only the nodes the SPR surgery itself rewires: moves
+    #     may interact through stale scores, but every batch is verified
+    #     exactly below, so correctness never depends on the region
+    #     choice.  The default: conservative regions block most improving
+    #     moves on random starts.
+    #   * cand_affected — the full staleness region (pruned subtree +
+    #     attachment); scores of non-conflicting moves stay exact.  The
+    #     fallback when the aggressive batch verifies worse.
+    limit = max_moves if max_moves is not None else len(prog0.cand_affected)
+
+    def select(region_sets, block_regraft_edge: bool):
+        return _select_improving(scores, cand_of, edge_of, logl0, eps,
+                                 limit, region_sets,
+                                 prog0.edge_endpoints, block_regraft_edge)
+
+    chosen, chosen_idx = select(prog0.cand_hard, block_regraft_edge=False)
+    if timings is not None:
+        imp = scores > logl0 + eps
+        timings["n_improving"] = int(np.sum(imp))
+        timings["n_cand_improving"] = int(len(np.unique(cand_of[imp])))
+        timings["n_chosen"] = len(chosen)
+    _t = mark("select", _t)
+    if not chosen:
+        return None, logl0, 0
+
+    def apply_all(selection, sel_idx):
+        """Apply the moves to every partition's tree (shared topology,
+        per-partition t3); returns (new programs or None, applied flat
+        indices)."""
+        new_trees, applied_ref = [], None
+        for prog, t3s in zip(progs, t3_list):
+            tree_k, applied = _apply_to_tree(prog, selection, sel_idx, t3s)
+            if applied_ref is None:
+                applied_ref = applied
+            elif applied != applied_ref:   # topology-driven: the same
+                raise RuntimeError("partitions applied different moves")
+            new_trees.append(tree_k)
+        if not applied_ref:
+            return None, applied_ref
+        return [compile_spr(t, prog.cfg, **_recompile_pins(prog))
+                for t, prog in zip(new_trees, progs)], applied_ref
+
+    def total_exact(new_progs):
+        tot = 0.0
+        for new_prog, model, labels, (_, pw_d, inv_d) in zip(
+                new_progs, models, labels_list, sites):
+            tip_n = _tipchars_for(new_prog, labels, _device_of(model))
+            tot += _program_logl(new_prog, model, tip_n, pw_d, inv_d)
+        return tot
+
+    best_single = float(scores[chosen_idx[0]])
+    new_progs, applied = apply_all(chosen, chosen_idx)
+    if timings is not None:
+        timings["n_applied"] = len(applied)
+    if not applied:
+        return None, logl0, 0
+    _t = mark("apply", _t)
+
+    if len(applied) == 1:
+        # a single move's score is its exact post-move likelihood
+        return new_progs, float(scores[applied[0]]), 1
+
+    # verify the aggressive batch exactly; ladder down to the
+    # conservative-region batch, then the single best move — each rung
+    # is verified, so the returned logL is exact and monotone
+    logl_batch = total_exact(new_progs)
+    if logl_batch >= best_single - eps:
+        _t = mark("verify", _t)
+        if timings is not None:
+            timings["ladder"] = 0
+        return new_progs, logl_batch, len(applied)
+
+    chosen2, chosen_idx2 = select(prog0.cand_affected, block_regraft_edge=True)
+    if len(chosen2) > 1:
+        progs2, applied2 = apply_all(chosen2, chosen_idx2)
+        if progs2 is not None:
+            logl2 = total_exact(progs2)
+            if logl2 >= best_single - eps:
+                _t = mark("verify", _t)
+                if timings is not None:
+                    timings["ladder"] = 1
+                return progs2, logl2, len(applied2)
+
+    progs1, _applied1 = apply_all(chosen[:1], chosen_idx[:1])
+    _t = mark("verify", _t)
+    if timings is not None:
+        timings["ladder"] = 2
+    return progs1, best_single, 1
+
+
 def spr_round(prog: SprProgram, model,
               tipchars_by_label: Dict[str, np.ndarray],
               *, newton_iters: int = 3, max_moves: Optional[int] = None,
@@ -1014,47 +1170,26 @@ def spr_round(prog: SprProgram, model,
 
     Returns (new_program, logl, moves_applied); logl is exact for the
     returned topology and monotone vs. the input's."""
-
-    def _mark(key, t0):
-        if timings is not None:
-            timings[key] = timings.get(key, 0.0) + (time.perf_counter()
-                                                    - t0)
-        return time.perf_counter()
-
+    mark = _marker(timings)
     _t = time.perf_counter()
     device = _device_of(model)
     cfg = prog.cfg_ext
-    tipchars, pw_d, inv_d = _site_arrays(prog, tipchars_by_label, device,
-                                         pattern_weights, invariant)
-    bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype, device=device)
-    lops = _long(prog.level_ops, device)
-    erow = _long(prog.edge_rows, device)
-    pslots = _long(prog.pmatrix_slots, device)
-
-    _t = _mark("setup", _t)
+    site = _site_arrays(prog, tipchars_by_label, device, pattern_weights,
+                        invariant)
+    _t = mark("setup", _t)
     if prog.radius is not None:
-        group_args = tuple(
-            (tuple(_long(a, device) for a in g.ball_levels),
-             _long(g.score_ops, device), _long(g.sub_rows, device),
-             _long(g.edge_pos, device), _long(g.merge_edges, device))
-            for g in prog.ball_groups)
-        kernel_on = use_edge_kernel(cfg, inv_d, device)
-        launches0 = edge_score.edge_scores.launches
-        logl0_d, outs = _spr_round_device(
-            cfg, model, lops, pslots, bl, tipchars, pw_d, inv_d,
-            erow[prog.root_edge], pslots[prog.root_edge], group_args,
-            ball_slots=prog.ball_slots, newton_iters=newton_iters,
-            use_kernel=kernel_on)
-        logl0 = float(logl0_d)
-        scores, t3s, cand_of, edge_of = _flatten_groups(prog.ball_groups,
-                                                        outs)
+        logl0, scores, t3s, cand_of, edge_of, scorer, launches = \
+            _score_partition(prog, model, site, newton_iters)
         if timings is not None:
-            timings["scorer"] = "kernel" if kernel_on else "plain"
-            timings["edge_score_launches"] = \
-                edge_score.edge_scores.launches - launches0
-        C = len(prog.cand_affected)
-        _t = _mark("score", _t)
+            timings["scorer"] = scorer
+            timings["edge_score_launches"] = launches
     else:
+        tipchars, pw_d, inv_d = site
+        bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype,
+                             device=device)
+        lops = _long(prog.level_ops, device)
+        erow = _long(prog.edge_rows, device)
+        pslots = _long(prog.pmatrix_slots, device)
         logl0 = float(_logl_rt(cfg, model, lops, pslots, bl, tipchars,
                                pw_d, inv_d, erow[prog.root_edge],
                                pslots[prog.root_edge]))
@@ -1074,94 +1209,12 @@ def spr_round(prog: SprProgram, model,
         scores = np.where(np.isnan(scores), -np.inf, scores)
         if timings is not None:
             timings["scorer"] = "plain"
-        _t = _mark("score", _t)
+    _t = mark("score", _t)
 
-    # greedy improving move selection (flat arrays).  Two region
-    # granularities:
-    #   * cand_hard — only the nodes the SPR surgery itself rewires: moves
-    #     may interact through stale scores, but every batch is verified
-    #     exactly below, so correctness never depends on the region
-    #     choice.  The default: conservative regions block most improving
-    #     moves on random starts.
-    #   * cand_affected — the full staleness region (pruned subtree +
-    #     attachment); scores of non-conflicting moves stay exact.  The
-    #     fallback when the aggressive batch verifies worse.
-    limit = max_moves if max_moves is not None else C
-
-    def select(region_sets, block_regraft_edge: bool):
-        return _select_improving(scores, cand_of, edge_of, logl0, eps,
-                                 limit, region_sets,
-                                 prog.edge_endpoints, block_regraft_edge)
-
-    chosen, chosen_idx = select(prog.cand_hard, block_regraft_edge=False)
-    if timings is not None:
-        imp = scores > logl0 + eps
-        timings["n_improving"] = int(np.sum(imp))
-        timings["n_cand_improving"] = int(len(np.unique(cand_of[imp])))
-        timings["n_chosen"] = len(chosen)
-    _t = _mark("select", _t)
-    if not chosen:
-        return prog, logl0, 0
-
-    def apply_moves(selection, sel_idx):
-        return _apply_to_tree(prog, selection, sel_idx, t3s)
-
-    bucket = prog.level_ops.shape[:2]
-    if prog.radius is not None:
-        group_shapes = tuple(g.shape_key for g in prog.ball_groups)
-        ball_s = prog.ball_slots
-    else:
-        group_shapes = ball_s = None
-
-    def recompile(tree):
-        return compile_spr(tree, prog.cfg, min_level_shape=bucket,
-                           radius=prog.radius,
-                           min_group_shapes=group_shapes,
-                           min_ball_slots=ball_s)
-
-    def exact_logl(new_prog):
-        tip_n = _tipchars_for(new_prog, tipchars_by_label, device)
-        return _program_logl(new_prog, model, tip_n, pw_d, inv_d)
-
-    best_single = float(scores[chosen_idx[0]])
-    new_tree, applied = apply_moves(chosen, chosen_idx)
-    if timings is not None:
-        timings["n_applied"] = len(applied)
-    if not applied:
-        return prog, logl0, 0
-    new_prog = recompile(new_tree)
-    _t = _mark("apply", _t)
-
-    if len(applied) == 1:
-        # a single move's score is its exact post-move likelihood
-        return new_prog, float(scores[applied[0]]), 1
-
-    # verify the aggressive batch exactly; ladder down to the
-    # conservative-region batch, then the single best move — each rung
-    # is verified, so the returned logL is exact and monotone
-    logl_batch = exact_logl(new_prog)
-    if logl_batch >= best_single - eps:
-        _t = _mark("verify", _t)
-        if timings is not None:
-            timings["ladder"] = 0
-        return new_prog, logl_batch, len(applied)
-
-    chosen2, chosen_idx2 = select(prog.cand_affected, block_regraft_edge=True)
-    if len(chosen2) > 1:
-        tree2, applied2 = apply_moves(chosen2, chosen_idx2)
-        prog2 = recompile(tree2)
-        logl2 = exact_logl(prog2)
-        if logl2 >= best_single - eps:
-            _t = _mark("verify", _t)
-            if timings is not None:
-                timings["ladder"] = 1
-            return prog2, logl2, len(applied2)
-
-    single_tree, _applied1 = apply_moves(chosen[:1], chosen_idx[:1])
-    _t = _mark("verify", _t)
-    if timings is not None:
-        timings["ladder"] = 2
-    return recompile(single_tree), best_single, 1
+    new_progs, logl, applied = _select_apply_verify(
+        [prog], [model], [tipchars_by_label], [site], scores, [t3s],
+        cand_of, edge_of, logl0, eps, max_moves, timings, _t)
+    return (prog if new_progs is None else new_progs[0]), logl, applied
 
 
 def smooth_branches(prog: SprProgram, model,
@@ -1194,21 +1247,57 @@ def _write_lengths(prog: SprProgram, bl: np.ndarray) -> None:
         h.length = pm_to_len[h.pmatrix_index]
 
 
-def _smooth_if_better(prog: SprProgram, model, tipchars_by_label,
-                      **smooth_kw) -> Tuple[SprProgram, bool]:
-    """smooth_branches, kept only if the exact logL did not fall.  A class
-    of branches moves at once (a Jacobi step), which can lower the logL
-    where neighbouring branches interact; the climb's trace is promised
-    monotone, so such a smoothing is dropped.  Returns (program, kept)."""
-    site = _site_arrays(prog, tipchars_by_label, _device_of(model),
-                        smooth_kw.get("pattern_weights"),
-                        smooth_kw.get("invariant"))
-    before = _program_logl(prog, model, *site)
-    out = smooth_branches(prog, model, tipchars_by_label, **smooth_kw)
-    if _program_logl(out, model, *site) >= before:
+def _per_partition(values, k: int):
+    """Entry k of an optional per-partition list."""
+    return values[k] if values is not None else None
+
+
+def _total_logl(progs, models, labels_list, pattern_weights_list=None,
+                invariant_list=None) -> float:
+    """Sum of the exact logLs of K programs, each at its own lengths."""
+    total = 0.0
+    for k, (prog, model) in enumerate(zip(progs, models)):
+        site = _site_arrays(prog, labels_list[k], _device_of(model),
+                            _per_partition(pattern_weights_list, k),
+                            _per_partition(invariant_list, k))
+        total += _program_logl(prog, model, *site)
+    return total
+
+
+def _smooth_all_if_better(progs, models, labels_list, *, rounds: int = 2,
+                          pattern_weights_list=None, invariant_list=None
+                          ) -> Tuple[List[SprProgram], bool]:
+    """smooth_branches on each of K programs (K = 1: a single-partition
+    climb), kept only if the summed exact logL did not fall.  A class of
+    branches moves at once (a Jacobi step), which can lower the logL where
+    neighbouring branches interact; the climb's trace is promised
+    monotone, so such a smoothing is dropped as a whole.  Returns
+    (programs, kept)."""
+    before = _total_logl(progs, models, labels_list, pattern_weights_list,
+                         invariant_list)
+    out = [smooth_branches(
+        prog, models[k], labels_list[k], rounds=rounds,
+        pattern_weights=_per_partition(pattern_weights_list, k),
+        invariant=_per_partition(invariant_list, k))
+        for k, prog in enumerate(progs)]
+    if _total_logl(out, models, labels_list, pattern_weights_list,
+                   invariant_list) >= before:
         return out, True
-    _write_lengths(prog, prog.branch_lengths)    # the tree is shared
-    return prog, False
+    for prog in progs:
+        _write_lengths(prog, prog.branch_lengths)    # the trees are shared
+    return list(progs), False
+
+
+def _smooth_if_better(prog: SprProgram, model, tipchars_by_label, *,
+                      rounds: int = 2, pattern_weights=None, invariant=None
+                      ) -> Tuple[SprProgram, bool]:
+    """_smooth_all_if_better for one program."""
+    out, kept = _smooth_all_if_better(
+        [prog], [model], [tipchars_by_label], rounds=rounds,
+        pattern_weights_list=None if pattern_weights is None
+        else [pattern_weights],
+        invariant_list=None if invariant is None else [invariant])
+    return out[0], kept
 
 
 def evaluate_tree(tree: UTree, cfg: PartitionConfig, model,
@@ -1340,3 +1429,157 @@ def hill_climb(tree: UTree, cfg: PartitionConfig, model,
                              "radius_trace": radius_trace,
                              "phase_timings": phase_timings,
                              "init_smooth_s": init_smooth_s}
+
+
+# --------------------------------------------------------------------------
+# multi-partition search (K per-gene partitions, ONE topology)
+# --------------------------------------------------------------------------
+
+
+def compile_spr_multi(tree: UTree, cfgs: Sequence[PartitionConfig],
+                      radius: Optional[int] = None,
+                      pins: Optional[List[dict]] = None
+                      ) -> List[SprProgram]:
+    """K SprPrograms over one topology (reference clients drive one
+    partition per gene over the same tree — SURVEY.md §2.6).
+
+    The candidate tables, ball groups and edge layouts depend only on the
+    topology, so the K programs share one move/index structure; only the
+    per-partition row spaces and branch lengths differ."""
+    tips = {c.tips for c in cfgs}
+    if len(tips) != 1 or tips.pop() != tree.tip_count:
+        raise ValueError("all partitions must cover the same taxa as the "
+                         "shared topology")
+    progs = []
+    newick = export_newick(tree.vroot, precision=None)
+    for k, cfg in enumerate(cfgs):
+        pin = pins[k] if pins is not None else {}
+        # each partition owns its tree COPY: branch lengths are unlinked,
+        # and smooth_branches writes lengths back into the tree graph
+        progs.append(compile_spr(parse_newick_string(newick), cfg,
+                                 radius=radius, **pin))
+    for p in progs[1:]:
+        np.testing.assert_array_equal(p.cand_edge, progs[0].cand_edge)
+        np.testing.assert_array_equal(p.edge_endpoints,
+                                      progs[0].edge_endpoints)
+    return progs
+
+
+def spr_round_multi(progs: List[SprProgram], models,
+                    tipchars_by_label_list, *, newton_iters: int = 3,
+                    max_moves: Optional[int] = None, eps: float = 1e-6,
+                    pattern_weights_list=None, invariant_list=None,
+                    timings: Optional[dict] = None
+                    ) -> Tuple[List[SprProgram], float, int]:
+    """One SPR round over K partitions under UNLINKED branch lengths
+    (RAxML-NG `--brlen unlinked`): each partition keeps its own branch
+    vector, each move's attachment branch is Newton-optimized per
+    partition, and the move score is the SUM of the partitions' exact
+    post-move logLs.  Selection, verification and the monotone-logL
+    guarantee work exactly as in the single-partition spr_round, on the
+    summed scores.
+
+    timings: as in spr_round; "scorer" and "edge_score_launches" are lists
+    with one entry per partition.
+
+    Returns (new_programs, total_logl, moves_applied)."""
+    K = len(progs)
+    if len(models) != K or len(tipchars_by_label_list) != K:
+        raise ValueError(f"{K} programs need {K} models and tip tables")
+    mark = _marker(timings)
+    _t = time.perf_counter()
+    sites = []
+    for k, prog in enumerate(progs):
+        if prog.radius is None:
+            raise ValueError("spr_round_multi requires radius-compiled "
+                             "programs")
+        sites.append(_site_arrays(
+            prog, tipchars_by_label_list[k], _device_of(models[k]),
+            _per_partition(pattern_weights_list, k),
+            _per_partition(invariant_list, k)))
+    _t = mark("setup", _t)
+    logl0 = 0.0
+    scores = cand_of = edge_of = None
+    t3_list, scorers, launches = [], [], []
+    for prog, model, site in zip(progs, models, sites):
+        logl0_k, scores_k, t3s_k, cand_k, edge_k, scorer, n = \
+            _score_partition(prog, model, site, newton_iters)
+        logl0 += logl0_k
+        t3_list.append(t3s_k)
+        scorers.append(scorer)
+        launches.append(n)
+        if scores is None:
+            scores, cand_of, edge_of = scores_k, cand_k, edge_k
+        else:
+            np.testing.assert_array_equal(cand_k, cand_of)
+            np.testing.assert_array_equal(edge_k, edge_of)
+            scores = scores + scores_k
+    if timings is not None:
+        timings["scorer"] = scorers
+        timings["edge_score_launches"] = launches
+    _t = mark("score", _t)
+
+    new_progs, logl, applied = _select_apply_verify(
+        progs, models, tipchars_by_label_list, sites, scores, t3_list,
+        cand_of, edge_of, logl0, eps, max_moves, timings, _t)
+    return (progs if new_progs is None else new_progs), logl, applied
+
+
+def hill_climb_multi(tree: UTree, cfgs: Sequence[PartitionConfig], models,
+                     tipchars_by_label_list, *, max_rounds: int = 30,
+                     newton_iters: int = 3, smooth_every: int = 2,
+                     smooth_rounds: int = 2, eps: float = 1e-6,
+                     radius: int = 5, pattern_weights_list=None,
+                     invariant_list=None) -> Tuple[UTree, float, dict]:
+    """Multi-partition SPR hill-climb (unlinked branch lengths): one
+    shared topology, K per-gene partitions, summed logL maximized.  Every
+    partition is smoothed on its own; a smoothing is kept only if the
+    summed logL did not fall (see _smooth_all_if_better), so the trace of
+    the summed logL is monotone.
+
+    Returns (tree, total_logl, stats); the tree carries partition 0's
+    branch lengths (each partition's own lengths live in its program —
+    exposed via stats["programs"])."""
+    tree = parse_newick_string(export_newick(tree.vroot, precision=None))
+    progs = compile_spr_multi(tree, cfgs, radius=radius)
+    smooth_kw = dict(rounds=smooth_rounds,
+                     pattern_weights_list=pattern_weights_list,
+                     invariant_list=invariant_list)
+    if smooth_every:
+        progs, _ = _smooth_all_if_better(progs, models,
+                                         tipchars_by_label_list, **smooth_kw)
+    trace: List[float] = []
+    round_secs: List[float] = []
+    phase_timings: List[dict] = []
+    total_moves = rounds = 0
+    for r in range(max_rounds):
+        t0 = time.perf_counter()
+        tm: dict = {}
+        progs, logl, applied = spr_round_multi(
+            progs, models, tipchars_by_label_list,
+            newton_iters=newton_iters, eps=eps,
+            pattern_weights_list=pattern_weights_list,
+            invariant_list=invariant_list, timings=tm)
+        round_secs.append(time.perf_counter() - t0)
+        phase_timings.append(tm)
+        trace.append(logl)
+        rounds += 1
+        total_moves += applied
+        if applied == 0:
+            break
+        if smooth_every and (r + 1) % smooth_every == 0:
+            ts = time.perf_counter()
+            progs, tm["smooth_kept"] = _smooth_all_if_better(
+                progs, models, tipchars_by_label_list, **smooth_kw)
+            tm["smooth"] = time.perf_counter() - ts
+    if smooth_every:
+        progs, _ = _smooth_all_if_better(progs, models,
+                                         tipchars_by_label_list, **smooth_kw)
+    # final exact total at the smoothed lengths
+    total = _total_logl(progs, models, tipchars_by_label_list,
+                        pattern_weights_list, invariant_list)
+    trace.append(total)
+    return progs[0].tree, total, {
+        "rounds": rounds, "moves": total_moves, "logl_trace": trace,
+        "round_secs": round_secs, "phase_timings": phase_timings,
+        "programs": progs}

@@ -66,7 +66,8 @@ def test_protein_loglikelihood_f64(name):
     jmodel = jengine.make_model(rates, freqs, gamma, params_indices=indices,
                                 dtype=jnp.float64)
     prates, pfreqs = (np.atleast_2d(x) for x in aa.aa_model(name))
-    pmodel = engine.make_model(prates, pfreqs, gamma, params_indices=indices)
+    pmodel = engine.make_model(prates, pfreqs, gamma, params_indices=indices,
+                               device="cpu")
     jprog, pprog = jengine.compile_tree(jt, jcfg), engine.compile_tree(pt,
                                                                        pcfg)
     tipchars = jengine.pad_tipchars(
@@ -92,16 +93,17 @@ def test_build_case_protein():
     """build_case builds protein cases the way it builds DNA ones: LG, or
     a four-matrix mixture with one matrix per rate category."""
     cfg, program, model, *args = engine.build_case(
-        12, 130, dtype=torch.float64, states=20)
+        12, 130, dtype=torch.float64, states=20, device="cpu")
     assert cfg.states == 20 and model.eigenvals.shape == (1, 20)
     assert int(args[1].max()) < 1 << 20
     logl = engine.loglikelihood(program, cfg, model, *args)
     assert np.isfinite(logl.item())
     cfg4, program4, model4, *args4 = engine.build_case(
-        12, 130, dtype=torch.float64, states=20, aa_model_name="lg4x")
+        12, 130, dtype=torch.float64, states=20, aa_model_name="lg4x",
+        device="cpu")
     assert cfg4.rate_matrices == 4
     assert model4.params_indices.tolist() == [0, 1, 2, 3]
     assert engine.loglikelihood(program4, cfg4, model4, *args4).item() \
         != logl.item()
     with pytest.raises(ValueError, match="states"):
-        engine.build_case(12, 130, states=7)
+        engine.build_case(12, 130, states=7, device="cpu")

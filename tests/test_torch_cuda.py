@@ -1,5 +1,7 @@
 """The CUDA kernels (both tree-sweep forms, edge scorer, matrix-unit
-probe) against their plain PyTorch versions, on the card.
+probe, build-cache probe, construct probe) against their plain PyTorch
+versions, on the card; one multi-partition round and one fit step on the
+kernel paths.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
@@ -11,10 +13,13 @@ import pytest
 import torch
 
 import chip_smoke
-from libpll2_tpu_torch import engine, search_fast
+from libpll2_tpu_torch import engine, fit, search_fast
+from libpll2_tpu_torch import tree as T
 from libpll2_tpu_torch.ops import edge_score, partials_tree
+from libpll2_tpu_torch.probes import cache as cache_probe
+from libpll2_tpu_torch.probes import constructs as construct_probe
 from libpll2_tpu_torch.probes import mma as mma_probe
-from libpll2_tpu_torch.tree.generate import random_newick
+from libpll2_tpu_torch.tree.generate import balanced_newick, random_newick
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +169,81 @@ def test_probe_kernel_matches_plain(cuda_device, variant, unit):
     err = (got - want).abs().max().item() / want.abs().max().item()
     assert err <= mma_probe.CHAIN_TOL
     assert bool((got == got[0]).all())
+
+
+def test_cache_probe_kernel_matches_plain(cuda_device):
+    """One exact doubling and one rounded addition in both: equal bits."""
+    x = cache_probe.probe_input(seed=5, device=cuda_device)
+    before = cache_probe.scale_shift.launches
+    got = cache_probe.scale_shift(x)
+    torch.cuda.synchronize()
+    assert cache_probe.scale_shift.launches == before + 1
+    assert torch.equal(got, cache_probe.scale_shift_reference(x))
+    with pytest.raises(ValueError, match="contiguous"):
+        cache_probe.scale_shift(x.t())
+
+
+@pytest.mark.parametrize("tb", [32, 256])
+@pytest.mark.parametrize("variant", construct_probe.VARIANTS)
+def test_construct_probe_kernel_matches_plain(cuda_device, variant, tb):
+    """Relative to each site's largest entry, within
+    construct_probe.tolerance (TF32 operands for c0, the compensated
+    split's bound for c1-c3); c3's scalers equal or compensated."""
+    n_ops = 96
+    p, pool = construct_probe.probe_inputs(tb, seed=tb, device=cuda_device)
+    before = construct_probe.constructs.launches
+    out, scal = construct_probe.constructs(variant, p, pool, n_ops, grid=3)
+    torch.cuda.synchronize()
+    assert construct_probe.constructs.launches == before + 1
+    assert bool((out == out[0]).all()) and bool((scal == scal[0]).all())
+    want = construct_probe.constructs_reference(variant, p, pool, n_ops)
+    err, mismatches = construct_probe.site_error((out[0], scal[0]), want)
+    assert err <= construct_probe.tolerance(variant, n_ops)
+    assert mismatches <= 2
+    if variant == "c3":
+        assert int(want[1].max()) >= 2            # the rescue fired
+
+
+def test_spr_round_multi_on_the_kernel_path(cuda_device):
+    """One two-partition round: each partition's score phase launches the
+    edge scorer, and the round's total is the exact total of the new
+    trees."""
+    _truth, start, chars, cfg, model = chip_smoke.search_inputs(
+        cuda_device, tips=32, sites=512)
+    progs = search_fast.compile_spr_multi(start, [cfg, cfg], radius=3)
+    tm = {}
+    new, logl, applied = search_fast.spr_round_multi(
+        progs, [model, model], [chars, chars], timings=tm)
+    assert tm["scorer"] == ["kernel", "kernel"]
+    assert all(n > 0 for n in tm["edge_score_launches"])
+    assert applied > 0 and np.isfinite(logl)
+    exact = search_fast._total_logl(new, [model, model], [chars, chars])
+    assert abs(logl - exact) <= 5e-6 * abs(exact)
+
+
+def test_fit_step_on_the_kernel_path(cuda_device):
+    """One Adam step with the CUDA sweep in the forward pass; its gradient
+    within 1e-4 (of each leaf's largest entry) of the dense f64 path's."""
+    case = engine.build_case(32, 4096, dtype=torch.float32,
+                             device=cuda_device)
+    cfg, program, _model, bl, tipchars, pw, inv = case
+    full = engine.compile_tree_full(
+        T.parse_newick_string(balanced_newick(32)), cfg)
+    rates = np.array([0.2, 0.6, 1.1, 2.1])
+    params = fit.pack([[1.5, 1.5, 0.8, 1.2, 2.5, 1.0]], [[0.3, 0.2, 0.3, 0.2]],
+                      bl, alpha=0.7, dtype=torch.float32, device=cuda_device)
+    leaves = fit.FitParams(*(x.clone().requires_grad_() for x in params))
+    before = partials_tree.sweep.launches
+    fit.loglikelihood_fn(program, cfg, leaves, rates, tipchars, pw, inv,
+                         fit_alpha=True, full_program=full).backward()
+    assert partials_tree.sweep.launches == before + 1
+    _, ref = chip_smoke.dense_f64_gradient(case, params, rates, cuda_device)
+    for leaf, want in zip(leaves, ref):
+        gap = (leaf.grad.double() - want).abs().max() / want.abs().max()
+        assert gap.item() < 1e-4
+    out = fit.fit_model(program, cfg, params, rates, tipchars, pw, inv,
+                        steps=2, lr=0.02, fit_alpha=True, full_program=full)
+    assert out.logl[1] > out.logl[0] and bool(torch.isfinite(out.grad_norm))
+    # no FullTreeProgram on the card: refused, not run on the dense path
+    with pytest.raises(ValueError, match="full_program"):
+        fit.fit_model(program, cfg, params, rates, tipchars, pw, inv, steps=1)

@@ -60,7 +60,8 @@ def both(newick, sites, seed, dt, pinv=0.0, per_rate=False, asc=AB_NONE,
     jmodel = jengine.make_model(
         [[1.2, 2.1, 0.7, 1.3, 2.5, 1.0]], [[0.3, 0.25, 0.2, 0.25]],
         pll.compute_gamma_cats(0.8, 4), prop_invar=[pinv], dtype=jdt)
-    pmodel = convert.model_from_jax(convert.model_arrays(jmodel))
+    pmodel = convert.model_from_jax(convert.model_arrays(jmodel),
+                                    device="cpu")
 
     rng = np.random.default_rng(seed)
     raw = random_tipchars(n, sites, rng)
@@ -140,7 +141,7 @@ def test_tree_path_equals_dense_path_f32():
 def test_make_model_equal():
     args = ([[1.0, 2.0, 1.0, 1.0, 2.0, 1.5]], [[0.1, 0.2, 0.3, 0.4]],
             pll.compute_gamma_cats(0.5, 4))
-    got = convert.model_arrays(engine.make_model(*args))
+    got = convert.model_arrays(engine.make_model(*args, device="cpu"))
     want = convert.model_arrays(jengine.make_model(*args))
     for name in engine.Model.FIELDS:
         assert got[name].dtype == want[name].dtype, name

@@ -28,6 +28,13 @@ from libpll2_tpu_torch.tree import generate
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
+# The suite runs several pytest workers side by side.  torch's intra-op pool
+# would start one thread per core in each of them, and the small tensors of
+# these tests then spend their time contending for the cores (the port's
+# test files took eight times as long).  Every worker imports this module
+# when it collects, so the setting holds for all test_torch_* files.
+torch.set_num_threads(1)
+
 
 def caterpillar_newick(n):
     s = "(t0:0.1,t1:0.2)"
@@ -169,6 +176,8 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "libpll2_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    assert {"multipartition.py", "fit.py", "cache.py", "constructs.py"} <= \
+        {f.name for f in files}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -178,10 +187,68 @@ def test_port_never_imports_jax():
 
 def test_port_import_loads_no_jax():
     code = ("import sys, libpll2_tpu_torch.engine, libpll2_tpu_torch.convert,"
-            " libpll2_tpu_torch.search_fast, libpll2_tpu_torch.tree.moves;"
+            " libpll2_tpu_torch.search_fast, libpll2_tpu_torch.tree.moves,"
+            " libpll2_tpu_torch.multipartition, libpll2_tpu_torch.fit,"
+            " libpll2_tpu_torch.probes.mma, libpll2_tpu_torch.probes.cache,"
+            " libpll2_tpu_torch.probes.constructs, chip_smoke;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libpll2_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _public_functions():
+    """Every public function of the port's modules (and of chip_smoke)
+    that takes a `device` parameter."""
+    import importlib
+    import inspect
+    names = ["chip_smoke"] + [
+        ".".join(("libpll2_tpu_torch",)
+                 + f.relative_to(REPO / "libpll2_tpu_torch")
+                 .with_suffix("").parts).removesuffix(".__init__")
+        for f in sorted((REPO / "libpll2_tpu_torch").rglob("*.py"))]
+    for name in names:
+        module = importlib.import_module(name)
+        for attr, fn in vars(module).items():
+            if attr.startswith("_") or not inspect.isfunction(fn) \
+                    or fn.__module__ != name:
+                continue
+            param = inspect.signature(fn).parameters.get("device")
+            if param is not None:
+                yield f"{name}.{attr}", param
+
+
+def test_no_public_function_defaults_to_the_cpu():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    a `device` parameter has no default or the card as its default."""
+    found = dict(_public_functions())
+    assert {"libpll2_tpu_torch.engine.make_model",
+            "libpll2_tpu_torch.engine.build_case",
+            "libpll2_tpu_torch.engine.entry",
+            "libpll2_tpu_torch.convert.model_from_jax",
+            "libpll2_tpu_torch.convert.fit_params_from_jax",
+            "libpll2_tpu_torch.fit.pack",
+            "libpll2_tpu_torch.probes.mma.probe_inputs",
+            "libpll2_tpu_torch.probes.cache.probe_input",
+            "libpll2_tpu_torch.probes.constructs.probe_inputs"} <= set(found)
+    for name, param in found.items():
+        default = param.default
+        assert default is param.empty or default is None \
+            or str(default).startswith("cuda"), \
+            f"{name} defaults to device={default!r}"
+
+
+def test_default_device_raises_without_a_card():
+    """With no GPU the default raises; it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from libpll2_tpu_torch.probes import mma
+    with pytest.raises((AssertionError, RuntimeError)):
+        engine.make_model([[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25] * 4],
+                          [1.0])
+    with pytest.raises((AssertionError, RuntimeError)):
+        engine.build_case(8, 64)
+    with pytest.raises((AssertionError, RuntimeError)):
+        mma.probe_inputs(0, 32)

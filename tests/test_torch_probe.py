@@ -1,19 +1,38 @@
-"""The matrix-unit probe (probes/mma.py) on the CPU: its plain chain
-against the same chain in numpy f64, the operand layouts the CUDA kernel
-reads, and the wrapper's CPU path.  The kernel itself runs only on the
-card (chip_smoke.py, tests/test_torch_cuda.py)."""
+"""The probes (probes/mma.py, probes/cache.py, probes/constructs.py) on
+the CPU: each plain version against the same sums in numpy f64 and, for
+the two probes that have a Pallas kernel that runs there, against that
+kernel in interpret mode; the operand layouts the CUDA kernels read; the
+wrappers' CPU paths; and the naming of _build's libraries.  The kernels
+themselves run only on the card (chip_smoke.py, tests/test_torch_cuda.py).
+
+Tolerances: the build-cache probe's plain version equals the Pallas kernel
+bit for bit (one exact doubling and one rounded addition in both); the
+construct probe's plain version is within 1e-5 of the largest entry of the
+same sums in numpy f64 and in the Pallas kernel (f32 products summed in
+another order)."""
+import hashlib
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
-from libpll2_tpu_torch.probes import mma
+from libpll2_tpu_torch import _build
+from libpll2_tpu_torch.ops.partials_tree import split_tf32
+from libpll2_tpu_torch.probes import cache, constructs, mma
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.mark.parametrize("variant", range(len(mma.VARIANTS)))
 def test_chain_reference_matches_numpy(variant):
     """rtol 1e-5 of the largest entry: 32 f32 products summed in another
     order than numpy's f64."""
-    a, b = mma.probe_inputs(variant, 64, seed=variant)
+    a, b = mma.probe_inputs(variant, 64, seed=variant, device="cpu")
     got = mma.chain_reference(a, b, nrep=32)
     a64, b64 = a.double().numpy(), b.double().numpy()
     want = sum(a64 @ b64[j % mma.NBUF] for j in range(32))
@@ -24,7 +43,7 @@ def test_chain_reference_matches_numpy(variant):
 
 @pytest.mark.parametrize("unit", mma.UNITS)
 def test_wrapper_on_cpu_takes_plain_version(unit):
-    a, b = mma.probe_inputs(1, 32)
+    a, b = mma.probe_inputs(1, 32, device="cpu")
     before = mma.chain.launches
     got = mma.chain(1, unit, a, b, grid=3, nrep=8)
     assert mma.chain.launches == before and got.shape == (3, 16, 32)
@@ -36,7 +55,7 @@ def test_wrapper_on_cpu_takes_plain_version(unit):
 
 
 def test_wrapper_rejects_wrong_inputs():
-    a, b = mma.probe_inputs(0, 32)
+    a, b = mma.probe_inputs(0, 32, device="cpu")
     with pytest.raises(ValueError, match="unknown unit"):
         mma.chain(0, "fp8", a, b)
     with pytest.raises(ValueError, match="takes A"):
@@ -71,7 +90,7 @@ def test_operand_layouts(variant):
     A and B (rounded to the unit's precision)."""
     _, M, K, _ = mma.VARIANTS[variant]
     tb = 32
-    a, b = mma.probe_inputs(variant, tb)
+    a, b = mma.probe_inputs(variant, tb, device="cpu")
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
     at, bf = mma.pack_operands(a, b, "fma")
@@ -112,3 +131,214 @@ def test_operand_layouts(variant):
 def test_smem_bytes():
     assert mma.smem_bytes(4, "tf32", 128) == mma.NBUF * 192 * 128 * 4
     assert mma.smem_bytes(4, "bf16", 128) == mma.NBUF * 96 * 128 * 4
+
+
+# ---- the build-cache probe (probes/cache.py) -----------------------------
+
+
+def test_scale_shift_reference_equals_pallas_kernel():
+    """tools/cacheprobe.py's kernel, rebuilt here (it lives in a string
+    there), in interpret mode on the same numpy input: exact equality."""
+    def kern(x_ref, o_ref):
+        o_ref[...] = x_ref[...] * 2.0 + 1.0
+
+    x = cache.probe_input(seed=3, device="cpu")
+    assert x.shape == cache.SHAPE and x.dtype == torch.float32
+    want = pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32),
+        interpret=True)(jnp.asarray(x.numpy()))
+    got = cache.scale_shift_reference(x)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert "x_ref[...] * 2.0 + 1.0" in (REPO / "tools" /
+                                         "cacheprobe.py").read_text()
+
+
+def test_scale_shift_on_cpu_takes_plain_version():
+    x = cache.probe_input(device="cpu")
+    before = cache.scale_shift.launches
+    got = cache.scale_shift(x)
+    assert cache.scale_shift.launches == before
+    assert torch.equal(got, cache.scale_shift_reference(x))
+    assert cache.digest(got) == hashlib.sha256(
+        (x.numpy() * 2 + 1).astype(np.float32).tobytes()).hexdigest()
+    with pytest.raises(TypeError, match="f32"):
+        cache.scale_shift(x.double())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cache.scale_shift(x.to("meta"))
+
+
+def test_library_path_follows_sources_and_directories(tmp_path):
+    """The digest and path logic of _build (no nvcc needed): the name
+    changes with one source byte, the place with the build directory."""
+    default = _build.library_path()
+    assert default.parent == _build.BUILD_DIR.resolve()
+    assert default == _build.library_path(_build.BUILD_DIR,
+                                          str(_build.SOURCE_DIR))
+    moved = _build.library_path(tmp_path / "b")
+    assert moved.parent == (tmp_path / "b").resolve()
+    assert moved.name == default.name
+    edited = cache.edited_copy(_build.SOURCE_DIR, tmp_path / "csrc")
+    assert sorted(f.name for f in edited.iterdir()) == \
+        sorted(_build.SOURCE_NAMES)
+    a = _build.library_path(tmp_path / "b", edited)
+    assert a.parent == moved.parent and a.name != moved.name
+    again = (edited / "cache_probe.cu").read_bytes()
+    (edited / "cache_probe.cu").write_bytes(again[:-1])     # edit undone
+    assert _build.library_path(tmp_path / "b", edited).name == moved.name
+    assert _build.SOURCES == tuple(_build.SOURCE_DIR / n
+                                   for n in _build.SOURCE_NAMES)
+    assert {"cache_probe.cu", "construct_probe.cu"} <= set(
+        _build.SOURCE_NAMES)
+
+
+def test_build_keys_on_its_directories(tmp_path, monkeypatch):
+    """build() with no nvcc in reach: an existing library is a cache hit
+    (0.0 s) per pair of directories; a missing one raises."""
+    hit = _build.library_path(tmp_path / "hit")
+    hit.parent.mkdir()
+    hit.write_bytes(b"")
+    info = _build.build(tmp_path / "hit")
+    assert info.path == hit and info.seconds == 0.0
+    assert _build.build(str(tmp_path / "hit")) is info
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(tmp_path / "miss")
+
+
+def test_without_nvcc_drops_the_compiler(tmp_path):
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "nvcc").write_text("")
+    env = cache._without_nvcc(
+        {"PATH": f"{tmp_path / 'bin'}:/usr/bin", "HOME": "/h"},
+        str(tmp_path / "empty"))
+    assert env == {"PATH": "/usr/bin", "HOME": "/h",
+                   "CUDA_HOME": str(tmp_path / "empty")}
+
+
+# ---- the construct probe (probes/constructs.py) --------------------------
+
+
+def _numpy_sum(p, pool, n_ops, gathered):
+    p64, pool64 = p.double().numpy(), pool.double().numpy()
+    return sum(p64[(w * 7) % 64 if gathered else 0] @ pool64[w % 8]
+               for w in range(n_ops))
+
+
+@pytest.mark.parametrize("variant", ["c0", "c1", "c2"])
+def test_constructs_reference_matches_numpy(variant):
+    p, pool = constructs.probe_inputs(64, seed=1, device="cpu")
+    got, scal = constructs.constructs_reference(variant, p, pool, 40)
+    want = _numpy_sum(p, pool, 40, gathered=variant == "c2")
+    assert got.shape == (16, 64) and int(scal.abs().max()) == 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_constructs_reference_c3_chain_with_rescue():
+    """The chain in numpy f64 with the same rescue rule; a site whose
+    decision sits at the threshold may flip, so compare after undoing the
+    scalers' difference."""
+    p, pool = constructs.probe_inputs(64, seed=2, device="cpu")
+    n_ops = 100
+    got, scal = constructs.constructs_reference("c3", p, pool, n_ops)
+    x = pool[0].double().numpy()
+    want_s = np.zeros(64, np.int64)
+    for w in range(n_ops):
+        y = p[(w * 7) % 64].double().numpy() @ x
+        below = y.max(axis=0) < constructs.THRESH
+        x = np.where(below, y * constructs.FACTOR, y)
+        want_s += below
+    assert int(scal.max()) >= 2                   # the rescue did fire
+    err, mismatches = constructs.site_error(
+        (got, scal), (torch.as_tensor(x), torch.as_tensor(want_s)))
+    assert err <= 1e-5 and mismatches <= 2
+    assert float(got.max()) < 1.0 and float(got.amax(0).min()) >= 2.0 ** -30
+
+
+def test_constructs_reference_matches_static2probe_k0():
+    """tools/static2probe.py's k0 (one product per op, gathered pm) in
+    interpret mode is the sum c2's plain version computes, on the bf16
+    operands it takes (exact in f32)."""
+    spec = importlib.util.spec_from_file_location(
+        "static2probe", REPO / "tools" / "static2probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert (probe.SPAN, probe.P_ROWS) == (constructs.SPAN,
+                                          constructs.P_ROWS)
+    rng = np.random.default_rng(4)
+    n_ops, tb = 24, 32
+    pcm = jnp.asarray(rng.random((64, 16, 96)), jnp.bfloat16)
+    pool = jnp.asarray(rng.random((8, 48, tb)), jnp.bfloat16)
+    want = pl.pallas_call(
+        probe.make_kernel("k0", n_ops),
+        out_shape=jax.ShapeDtypeStruct((16, tb), jnp.float32),
+        interpret=True)(pcm, pool)
+    p32 = torch.as_tensor(np.array(pcm[:, :, :16].astype(jnp.float32)))
+    pool32 = torch.as_tensor(np.array(pool[:, :16].astype(jnp.float32)))
+    got, _ = constructs.constructs_reference("c2", p32, pool32, n_ops)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("variant", constructs.VARIANTS)
+def test_constructs_on_cpu_takes_plain_version(variant):
+    p, pool = constructs.probe_inputs(32, device="cpu")
+    before = constructs.constructs.launches
+    out, scal = constructs.constructs(variant, p, pool, n_ops=9, grid=3)
+    assert constructs.constructs.launches == before
+    assert out.shape == (3, 16, 32) and scal.shape == (3, 32)
+    want, want_s = constructs.constructs_reference(variant, p, pool, 9)
+    for blk, s in zip(out, scal):
+        assert torch.equal(blk, want) and torch.equal(s, want_s)
+
+
+def test_constructs_rejects_wrong_inputs():
+    p, pool = constructs.probe_inputs(32, device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        constructs.constructs("c4", p, pool)
+    with pytest.raises(ValueError, match="takes P"):
+        constructs.constructs("c0", p[:, :8], pool)
+    with pytest.raises(TypeError, match="f32"):
+        constructs.constructs("c0", p.double(), pool.double())
+    with pytest.raises(ValueError, match="CUDA device"):
+        constructs.constructs("c0", p.to("meta"), pool.to("meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        constructs.launch_packed("c0", *constructs.pack_operands(p, pool),
+                                 4, 1)
+    assert constructs.tolerance("c0", 128) == pytest.approx(
+        constructs.C0_TOL + 128 * 1.5e-7)
+    assert constructs.tolerance("c2", 128) == pytest.approx(2e-5 + 128 * 4e-7)
+    assert constructs.tolerance("c3", 128) == pytest.approx(2e-5 + 128 * 1.5e-7)
+
+
+def test_constructs_operand_layouts():
+    """Reading the packed operands back by the mma fragment layouts gives
+    P (head and remainder) and the pool, and the products of those
+    fragments give the plain version's sum."""
+    tb = 32
+    p, pool = constructs.probe_inputs(tb, device="cpu")
+    pfrag, tiled = constructs.pack_operands(p, pool)
+    assert pfrag.shape == (64, 2, 2, 32, 4) and tiled.shape == (8, 4, 16, 8)
+    hi, lo = split_tf32(p)
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    for ks in range(2):
+        for reg, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
+            for h, part in enumerate((hi, lo)):
+                np.testing.assert_array_equal(
+                    pfrag[37, ks, h, :, reg].numpy(),
+                    part[37, g + dr, 8 * ks + q + dc].numpy())
+        # B fragment of tile 3, slot 5: b0 at (k = 8 ks + q, site g)
+        np.testing.assert_array_equal(
+            tiled[5, 3, 8 * ks + q, g].numpy(),
+            pool[5, 8 * ks + q, 24 + g].numpy())
+    # rebuild A and B from the fragments and redo c2's sum
+    a = torch.zeros((64, 16, 16))
+    for ks in range(2):
+        for reg, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
+            a[:, g + dr, 8 * ks + q + dc] = pfrag[:, ks, :, :, reg].sum(1)
+    b = tiled.permute(0, 2, 1, 3).reshape(8, 16, tb)
+    got, _ = constructs.constructs_reference("c2", a, b, 16)
+    want, _ = constructs.constructs_reference("c2", p, pool, 16)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)

@@ -63,7 +63,8 @@ def make_case(n=12, sites=256, seed=5, dt="f64", start_seed=9, **cfg_kw):
     jmodel = jengine.make_model([SUBST], [FREQS], rates, dtype=jdt)
     return Case(jt, pt, chars, JConfig(**common, dtype=jdt),
                 PartitionConfig(**common, dtype=pdt), jmodel,
-                convert.model_from_jax(convert.model_arrays(jmodel)))
+                convert.model_from_jax(convert.model_arrays(jmodel),
+                                       device="cpu"))
 
 
 def newick(tree):
@@ -345,7 +346,8 @@ def balanced24_case():
     jmodel = jengine.make_model([SUBST], [FREQS], rates, dtype=jnp.float64)
     return Case(jt, pt, chars, JConfig(**common, dtype=jnp.float64),
                 PartitionConfig(**common, dtype=torch.float64), jmodel,
-                convert.model_from_jax(convert.model_arrays(jmodel)))
+                convert.model_from_jax(convert.model_arrays(jmodel),
+                                       device="cpu"))
 
 
 def test_color_masks_cover_every_class():
