@@ -52,8 +52,14 @@ Phases (any failure exits non-zero):
      gradient against autograd of the dense f64 path;
  18. the build-cache probe (probes/cache.py): cold build, warm reload in a
      process with no nvcc, rebuild after an edit, each with a timeout;
- 19. the construct probe (probes/constructs.py): four variants of the
+ 19. the construct probe (probes/constructs.py): five variants of the
      tensor-core sweep's inner loop, each against its plain version.
+
+The edge scorer's two forms (the sumtable resident in a thread-block
+cluster's shared memory, or re-read from the rows in every pass) are both
+held against the plain version and timed over the same round; the "mma"
+sweep runs with its register carry on and off (bit-equal rows) at the site
+block that fills the card.
 
 Prints a {"kernels": [...]} JSON line, then the result line
 {"ok": true, "device": {...}} last.  Needs a CUDA device; imports no JAX.
@@ -98,6 +104,14 @@ D1_RTOL = 2e-3           # f32 branch derivatives vs f64 central differences
 MMA_RTOL, MMA_RTOL_PER_OP = 2e-5, 1.5e-7
 COMP_RTOL = 2e-3         # scaling-compensated, where a rescue flipped
 LARGE_TIPS, LARGE_SITES = 8192, 8192
+# Earlier measurements on an NVIDIA H100 80GB HBM3 at 700.00 W, printed
+# beside this run's: the edge scorer over the full-width round while the
+# re-reading form was the only one, and the "mma" sweep before the register
+# carry and the SM-fill site block (PERF.md).
+EDGE_MS_BEFORE = 16.3053
+SEARCH_BEFORE = "RF 0.0198 in 19 rounds, 1,063 moves, delta logL -89.125"
+MMA_MS_BEFORE = {"dna_256": 1.2908, "dna_1024": 2.5914,
+                 "large_8192": 21.3937, "protein_128": 2.4378}
 PROTEIN_TIPS, PROTEIN_SITES = 128, 16384
 # published peaks of one H100 SXM (dense): HBM bytes/s, f32 FMA FLOP/s,
 # TF32 and bf16 tensor FLOP/s; shared memory at 128 B/clk/SM x 132 SMs x
@@ -140,6 +154,8 @@ def reset_counts() -> None:
     for mode in partials_tree.sweep.launches_by_mode:
         partials_tree.sweep.launches_by_mode[mode] = 0
     edge_score.edge_scores.launches = 0
+    for form in edge_score.edge_scores.launches_by_form:
+        edge_score.edge_scores.launches_by_form[form] = 0
     probe.chain.launches = 0
     cache.scale_shift.launches = 0
     constructs.constructs.launches = 0
@@ -591,12 +607,15 @@ def edge_score_work(score_ops, sub_rows, valid, R, S, T, newton_iters):
 
 
 def score_round_both(prog, model, chars, timed: bool):
-    """Every ball group of one round through the edge scorer kernel and
-    its plain version, chunk by chunk on the same recursion scratch.
-    Returns a dict of the worst agreement and, if timed, the summed CUDA
-    event times of both over the round."""
+    """Every ball group of one round through the edge scorer kernel (the
+    form `plan` picks for the shape and, where that is the resident form,
+    the re-reading form too) and its plain version, chunk by chunk on the
+    same recursion scratch.  Returns a dict of the worst agreement of each
+    form and, if timed, the summed CUDA event times of all over the round
+    (`launches` counts the chunks, one launch of the planned form each)."""
     import torch
 
+    from libpll2_tpu_torch import _build
     from libpll2_tpu_torch import search_fast as sf
     from libpll2_tpu_torch.ops import edge_score
 
@@ -610,9 +629,16 @@ def score_round_both(prog, model, chars, timed: bool):
     halves = halves.contiguous()
     consts = edge_score.model_constants(model, cfgx)
     R, S, T = cfgx.rate_cats, cfgx.states, tip.shape[-1]
+    form, cluster = edge_score.plan(R, S, T, _build.max_shared_memory(dev))
+    forms = (form,) if form == "reread" else (form, "reread")
     out = dict(same_inf=True, finite=0, slots=0, max_abs_err=0.0,
                max_rel_err=0.0, t3_excess=-1.0, t3_rel=0.0, kernel_ms=0.0,
-               plain_ms=0.0, launches=0, bytes=0, flops=0)
+               plain_ms=0.0, launches=0, bytes=0, flops=0, form=form,
+               cluster=cluster, forms=forms,
+               smem=edge_score.resident_smem_bytes(R, S, T, cluster)
+               if cluster else 0)
+    for f in forms:
+        out[f"{f}_ms"] = 0.0
     kw = dict(newton_iters=3, log_thresh=cfgx.log_scale_threshold)
     for g in prog.ball_groups:
         lvls = tuple(sf._long(a, dev) for a in g.ball_levels)
@@ -636,17 +662,20 @@ def score_round_both(prog, model, chars, timed: bool):
             args = (scratch, sscr, base_clv, base_scal, halves,
                     ops32[cs:cs + cb].contiguous(),
                     rows32[cs:cs + cb].contiguous(), t0, *consts, pw)
-            if timed and out["launches"] == 0:          # warm both up
-                edge_score.edge_scores(*args, **kw)
-                edge_score.edge_scores_reference(*args, **kw)
+            calls = {f: functools.partial(edge_score.edge_scores, *args,
+                                          form=f, **kw) for f in forms}
+            calls["plain"] = functools.partial(
+                edge_score.edge_scores_reference, *args, **kw)
+            # a form's time is the kernel's own: the median of three
+            # launches back to back after one that is not timed, so that no
+            # launch waits for the host (a single timed call after a
+            # synchronise holds 0.1-0.2 ms of the wrapper's host time)
             runs = {}
-            for name, fn in (("kernel", edge_score.edge_scores),
-                             ("plain", edge_score.edge_scores_reference)):
-                res = {}
-                ms = cuda_ms(lambda: res.setdefault("v", fn(*args, **kw)),
-                             1)[0]
-                runs[name] = res["v"]
-                out[f"{name}_ms"] += ms
+            for name, fn in calls.items():
+                runs[name] = fn()
+                if timed:
+                    reps = 1 if name == "plain" else 3
+                    out[f"{name}_ms"] += statistics.median(cuda_ms(fn, reps))
             out["launches"] += 1
             valid = g.score_ops[cs:cs + cb, :, sf.BOP_VALID] == 1
             nbytes, flops = edge_score_work(
@@ -654,15 +683,17 @@ def score_round_both(prog, model, chars, timed: bool):
                 R, S, T, kw["newton_iters"])
             out["bytes"] += nbytes
             out["flops"] += flops
-            same, fin, err, rel, excess, t_rel = compare_scores(
-                runs["kernel"], runs["plain"], valid)
-            out["same_inf"] &= same
-            out["finite"] += fin
             out["slots"] += int(valid.sum())
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-            out["max_rel_err"] = max(out["max_rel_err"], rel)
-            out["t3_excess"] = max(out["t3_excess"], excess)
-            out["t3_rel"] = max(out["t3_rel"], t_rel)
+            for f in forms:         # every form held to the same bounds
+                same, fin, err, rel, excess, t_rel = compare_scores(
+                    runs[f], runs["plain"], valid)
+                out["same_inf"] &= same
+                out["finite"] += fin if f == form else 0
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["max_rel_err"] = max(out["max_rel_err"], rel)
+                out["t3_excess"] = max(out["t3_excess"], excess)
+                out["t3_rel"] = max(out["t3_rel"], t_rel)
+    out["kernel_ms"] = out[f"{form}_ms"]
     return out
 
 
@@ -679,7 +710,10 @@ def phase_edge_scorer(device, card):
                      f"{SEARCH_RADIUS}", full),
                     (f"S={pcfg.states} {pcfg.tips}x{pcfg.sites} radius 3",
                      small)):
-        log(f"[edge] {name}: {r['launches']} launches, {r['slots']} valid "
+        log(f"[edge] {name}: form={r['form']} cluster={r['cluster']} "
+            f"({r['smem']} bytes of shared memory per CTA; forms held "
+            f"against the plain version: {', '.join(r['forms'])}); "
+            f"{r['launches']} launches, {r['slots']} valid "
             f"slots, {r['finite']} finite in both; -inf pattern equal "
             f"{r['same_inf']}; score max abs err {r['max_abs_err']:.3e}, "
             f"rel {r['max_rel_err']:.3e} (bound {SCORE_RTOL}); t3 max rel "
@@ -690,9 +724,12 @@ def phase_edge_scorer(device, card):
               f"{name}: score rel err {r['max_rel_err']} > {SCORE_RTOL}")
         check(r["t3_excess"] <= 0.0, f"{name}: t3 outside its bound")
     log(f"[time] edge scorer over one full-width round ({full['launches']} "
-        f"launches of up to {sf.CAND_BATCH} candidates): kernel "
-        f"{full['kernel_ms']:.4f} ms, "
-        f"plain edge_scores_reference {full['plain_ms']:.4f} ms ({card})")
+        f"launches of up to {sf.CAND_BATCH} candidates): " + ", ".join(
+            f"{f} form {full[f + '_ms']:.4f} ms" for f in full["forms"])
+        + f", medians of 3 launches back to back per chunk (the search runs "
+        f"the {full['form']} form; the re-reading form took {EDGE_MS_BEFORE} "
+        f"ms as the only form, one timed launch per chunk), plain "
+        f"edge_scores_reference {full['plain_ms']:.4f} ms ({card})")
     return full
 
 
@@ -819,8 +856,17 @@ def phase_search(device, card):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_counts()["edge_score"]
-    log(f"[search] edge_score launches during hill_climb: {launches}")
+    by_form = dict(edge_score.edge_scores.launches_by_form)
+    from libpll2_tpu_torch import _build
+    planned = edge_score.plan(
+        cfg.rate_cats, cfg.states,
+        sf.compile_spr(start, cfg, radius=SEARCH_RADIUS).cfg_ext.sites_padded,
+        _build.max_shared_memory(device))
+    log(f"[search] edge_score launches during hill_climb: {launches}, by "
+        f"form {by_form}; plan says form={planned[0]} cluster={planned[1]}")
     check(launches > 0, "the search did not launch the edge scorer")
+    check(by_form[planned[0]] == launches,
+          f"the search ran another form than the planned {planned[0]}")
 
     trace = stats["logl_trace"]
     rs = stats["round_secs"]
@@ -851,7 +897,9 @@ def phase_search(device, card):
     logl_true, _ = sf.evaluate_tree(truth, cfg, model, chars)
     logl64 = dense_f64_logl(final, chars, cfg.sites, device)
     gap = abs(logl - logl64) / abs(logl64)
-    log(f"[search] quality: RF {rf_start:.4f} -> {rf_final:.4f}; logL "
+    log(f"[search] quality: RF {rf_start:.4f} -> {rf_final:.4f} in "
+        f"{stats['rounds']} rounds ({SEARCH_BEFORE} with the re-reading form "
+        f"as the only one); logL "
         f"final {logl!r}, truth tree (smoothed) {logl_true!r}, delta "
         f"{logl - logl_true!r}; final tree by dense f64 {logl64!r} (rel gap "
         f"{gap:.3e})")
@@ -895,7 +943,11 @@ def phase_mma_vs_plain(device):
         mma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma")
         fma = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="fma")
         plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+        off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma",
+                                  carry=False)
         torch.cuda.synchronize()
+        check(torch.equal(off[0], mma[0]) and torch.equal(off[1], mma[1]),
+              f"{name}: mma rows differ between carry on and off")
         # the kernel's P operand: the split-and-layout prologue kernel
         # against its plain version, bit for bit
         check(torch.equal(
@@ -1165,9 +1217,11 @@ def phase_probe(card):
 
 
 def phase_sweep_times(cases, card):
-    """Both sweep forms alone at the main paths' shapes: first call and
-    warm median of 20, CUDA events; the plain version once.  Returns
-    {(name, mode): (ms, plain_ms, bound tuple, max_abs_err)}."""
+    """Both sweep forms alone at the main paths' shapes, each at the site
+    block `engine.kernel_choice` gives that form: first call and warm
+    median of 20, CUDA events; the plain version once.  The "mma" form
+    also with its register carry off: rows bit-equal, time beside.
+    Returns {(name, mode): (ms, plain_ms, bound tuple, max_abs_err)}."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -1178,21 +1232,35 @@ def phase_sweep_times(cases, card):
         cfg, program, model, bl, tipchars, *_ = case
         prog = program.vmem_prog
         pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
-        tb, _ = engine.kernel_choice(program, cfg, tipchars.device)
-        tip_b = engine.block_tips(tipchars, cfg, tb)
+        blocks = {mode: engine.kernel_choice(
+            program, dataclasses.replace(cfg, sweep_mode=mode),
+            tipchars.device)[0] for mode in partials_tree.MODES}
+        tips = {tb: engine.block_tips(tipchars, cfg, tb)
+                for tb in set(blocks.values())}
         plain = {}
+        tb0 = blocks["fma"]
         p_ms = cuda_ms(lambda: plain.setdefault(
-            "v", partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg,
-                                               tb)), 1)[0]
+            "v", partials_tree.sweep_reference(tips[tb0], pmatrix, prog, cfg,
+                                               tb0)), 1)[0]
+        # rows in site order, whatever the block: [E, R, S, sites]
+        want = (plain["v"][0].permute(0, 2, 3, 1, 4).flatten(3),
+                plain["v"][1].permute(0, 2, 1, 3).flatten(2))
         updates = (cfg.tips - 2) * cfg.sites
         for mode in partials_tree.MODES:
-            def call(mode=mode):
-                return partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
-                                           mode=mode)
+            tb = blocks[mode]
+
+            def call(carry=True, mode=mode, tb=tb):
+                clv, scal = partials_tree.sweep(tips[tb], pmatrix, prog, cfg,
+                                                tb, mode=mode, carry=carry)
+                return (clv.permute(0, 2, 3, 1, 4).flatten(3),
+                        scal.permute(0, 2, 1, 3).flatten(2))
             got = {}
             first = cuda_ms(lambda: got.setdefault("v", call()), 1)[0]
+            # compare_rows_site takes [E, NT, R, S, TB]: one block of all
+            # the sites
             rel, mism, comp, abs_err = compare_rows_site(
-                got["v"][0], plain["v"][0], got["v"][1], plain["v"][1])
+                got["v"][0][:, None], want[0][:, None], got["v"][1][:, None],
+                want[1][:, None])
             bound_rel = mma_bound(prog.n_ops) if mode == "mma" else CLV_RTOL
             check(rel <= bound_rel and comp <= COMP_RTOL,
                   f"{name} {mode}: rows off plain by {rel} (bound "
@@ -1201,17 +1269,40 @@ def phase_sweep_times(cases, card):
                 call()
             med = statistics.median(cuda_ms(call, 20))
             b = sweep_bound(prog, cfg, mode)
+            extra = ""
+            if mode == "mma":
+                off = call(carry=False)
+                torch.cuda.synchronize()
+                check(torch.equal(off[0], got["v"][0])
+                      and torch.equal(off[1], got["v"][1]),
+                      f"{name}: rows differ between carry on and off")
+                off_ms = statistics.median(cuda_ms(
+                    lambda: call(carry=False), 20))
+                flags = partials_tree.carry_flags(prog)
+                carried = int((flags[:, 0] > 0).sum()) if (
+                    cfg.states, cfg.rate_cats) in \
+                    partials_tree.MMA_CARRY_CASES else 0
+                extra = (f"; carry off {off_ms:.4f} ms, rows and scalers "
+                         f"bit-equal; {carried} of {prog.n_ops} ops take a "
+                         f"child from registers; before the carry and the "
+                         f"SM-fill site block {MMA_MS_BEFORE[name]} ms")
             log(f"[time] sweep {mode} {name} {cfg.tips}x{cfg.sites} "
-                f"S={cfg.states} ops={prog.n_ops} tb={tb}: warm median "
+                f"S={cfg.states} ops={prog.n_ops} tb={tb} "
+                f"ctas={cfg.sites_padded // tb}: warm median "
                 f"{med:.4f} ms over 20 calls, first call (cold for this "
                 f"shape and form) {first:.3f} ms, "
                 f"{updates / (med * 1e-3):.4e} site-updates/s; plain "
                 f"sweep_reference {p_ms:.3f} ms; rows against plain: "
                 f"site-rel {rel:.3e}, {mism} scaler mismatches; bound "
                 f"{b[0]:.4f} ms by {b[1]} (HBM bytes {b[2]:.4f}, operations "
-                f"{b[3]:.4f}; shared-memory traffic {b[4]:.4f}) ({card})")
+                f"{b[3]:.4f}; shared-memory traffic {b[4]:.4f}){extra} "
+                f"({card})")
             out[(name, mode)] = (med, p_ms, b, abs_err)
-        del plain, pmatrix, tip_b
+        if name == "large_8192":
+            check(cfg.sites_padded // blocks["mma"] >= 128,
+                  f"{name}: the 'mma' form runs on "
+                  f"{cfg.sites_padded // blocks['mma']} CTAs")
+        del plain, want, pmatrix, tips
         torch.cuda.empty_cache()
     return out
 
@@ -1644,8 +1735,8 @@ def phase_construct_probe(card):
     rows = constructs.run_probe(n_ops, tb, emit=lambda line: log(
         f"[constructs] {line} ({card})"))
     launches = read_counts()["construct_probe"]
-    check(len(rows) == 4 and launches > 0, "the probe launched nothing")
-    products = {"c0": 1, "c1": 3, "c2": 3, "c3": 3}
+    check(len(rows) == 5 and launches > 0, "the probe launched nothing")
+    products = {"c0": 1, "c1": 3, "c2": 3, "c3": 3, "c4": 3}
     ops_s = sum(products[r["variant"]] for r in rows) * n_ops * 2 \
         * constructs.SPAN ** 2 * constructs.SITES / TF32_RATE
     bytes_s = len(rows) * (
@@ -1653,13 +1744,13 @@ def phase_construct_probe(card):
          + constructs.N_SLOTS * constructs.SPAN * tb
          + constructs.SITES * (constructs.SPAN + 1)) * 4) / HBM_RATE
     # c0-c2 are plain sums of products, which one einsum over gathered
-    # operands computes; c3's chain with a rescue between its products has
-    # no single call, so the row of all four has none either
+    # operands computes; the chain of c3 and c4, with a rescue between its
+    # products, has no single call, so the row of all five has none either
     import torch
     p, pool = constructs.probe_inputs(tb, device=torch.device("cuda", 0))
     w = torch.arange(n_ops, device=p.device)
     slot, pm = w % constructs.N_SLOTS, (w * 7) % constructs.P_ROWS
-    library = {"c3": None}
+    library = {"c3": None, "c4": None}
     for r in rows[:3]:
         rows_p = pm if r["variant"] == "c2" else torch.zeros_like(pm)
 
@@ -1673,8 +1764,9 @@ def phase_construct_probe(card):
         library[r["variant"]] = statistics.median(cuda_ms(one_call, 20))
     log(f"[time] construct_probe, one torch.einsum over gathered operands "
         f"for the same [16, {tb}] result: c0 {library['c0']:.4f} ms, c1 "
-        f"{library['c1']:.4f} ms, c2 {library['c2']:.4f} ms; c3 (a dependent "
-        f"chain with a rescue between products) has no single call ({card})")
+        f"{library['c1']:.4f} ms, c2 {library['c2']:.4f} ms; c3 and c4 (a "
+        f"dependent chain with a rescue between products) have no single "
+        f"call ({card})")
     return dict(launches=launches,
                 max_abs_err=max(r["abs_err"] for r in rows
                                 if r["abs_err"] == r["abs_err"]),
@@ -1780,7 +1872,7 @@ def main() -> int:
         "source": "libpll2_tpu_torch/csrc/construct_probe.cu",
         "replaces": "tools/static2probe.py:41 (kernel)",
         **construct_probe,
-        "shape": "c0-c3, 128 ops, TB 128, 65536 sites, summed",
+        "shape": "c0-c4, 128 ops, TB 128, 65536 sites, summed",
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "

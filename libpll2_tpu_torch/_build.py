@@ -153,7 +153,7 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     lib.tree_sweep_mma_launch.restype = ctypes.c_int
     lib.tree_sweep_mma_fragments.argtypes = [
         p, p, p,       # pmat, idx, pfrag
-        i, i, i,       # n_slots, n_pairs, pm_words
+        i, i, i, i,    # n_slots, words, run, pm_words
         p,             # stream
     ]
     lib.tree_sweep_mma_fragments.restype = ctypes.c_int
@@ -173,9 +173,12 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         i, i, i,       # n_cand, vg, slots
         i, i, i, i,    # rates, states, sites, newton_iters
         f,             # log_thresh
+        i,             # cluster (0: the "reread" form)
         p,             # stream
     ]
     lib.edge_score_launch.restype = ctypes.c_int
+    lib.edge_score_resident_smem.argtypes = [i, i, i, i]
+    lib.edge_score_resident_smem.restype = ctypes.c_int
     lib.cache_probe_launch.argtypes = [
         p, p, i,       # x, out, n
         p,             # stream

@@ -1,7 +1,8 @@
 // Which construct of the tensor-core tree sweep (tree_sweep_mma.cu) costs
-// the time: four minimal kernels over the same n_ops dependent ops at span
-// 16, each adding one construct of that sweep's inner loop to the one
-// before.  Launched by libpll2_tpu_torch/probes/constructs.py.
+// the time: five minimal kernels over the same n_ops dependent ops at span
+// 16, the first four each adding one construct of that sweep's inner loop to
+// the one before, the fifth taking the costliest one out again the way the
+// sweep does.  Launched by libpll2_tpu_torch/probes/constructs.py.
 //
 // Replaces tools/static2probe.py:kernel (:41) of the JAX package, which found
 // the slow construct of a TPU sweep kernel the same way: four kernels k0-k3
@@ -29,7 +30,14 @@
 //       into pool slot (w + 1) % 8, which op w + 1 reads after one
 //       __syncwarp: the sweep's whole inner loop for one child, a chain
 //       x <- rescue(P[pm_w] . x) through shared memory.
-// c0-c2 write acc [16, TB]; c3 writes the last slot and the scaler counts.
+//   c4  c3 with the sweep's register carry: the parent goes from the
+//       C-fragment layout to the next op's B-fragment layout by four
+//       __shfl_sync per tile (tree_sweep_mma.cu's carry_tile) and never
+//       touches shared memory; only the last op stores.  The same chain as
+//       c3, bit for bit: what an op of the sweep costs when its inner child
+//       is the previous op's parent.
+// c0-c2 write acc [16, TB]; c3 and c4 write the last slot and the scaler
+// counts.
 //
 // What bounds them on an H100: operations by the count, but neither peak in
 // practice.  Per op and 8-site tile c0 runs 2 mma (c1-c3: 6) of 2048 FLOP;
@@ -37,7 +45,7 @@
 // rate, and the pool never leaves shared memory (4 MB of output, 0.001 ms).
 // What is left is dispatch and latency: the dependent accumulator chain of the
 // mma, the shared-memory round trip of c3, the shuffles.  The probe prices
-// each.
+// each, and c4 - c3 is what the register carry buys.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +73,25 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// A parent tile from C-fragment layout (y: rows g, g + 8 at sites 2q, 2q + 1)
+// to B-fragment layout (b[ks][h]: row 8ks + 4h + q at site g), as
+// tree_sweep_mma.cu's carry_tile does it at one m-tile.
+__device__ __forceinline__ void carry_tile(const float (&y)[4],
+                                           float (&b)[KS][2], int g, int q) {
+  const bool upper = g >= 4;
+  const int e = g & 1;
+  const int src_same = 4 * (4 * e + q) + (g >> 1);
+  const int src_other = 4 * (4 * (1 - e) + q) + (g >> 1);
+  const float r0 = __shfl_sync(FULL, upper ? y[1] : y[0], src_same);
+  const float r1 = __shfl_sync(FULL, upper ? y[3] : y[2], src_same);
+  const float r2 = __shfl_sync(FULL, upper ? y[0] : y[1], src_other);
+  const float r3 = __shfl_sync(FULL, upper ? y[2] : y[3], src_other);
+  b[0][0] = e ? r2 : r0;
+  b[0][1] = e ? r0 : r2;
+  b[1][0] = e ? r3 : r1;
+  b[1][1] = e ? r1 : r3;
 }
 
 // grid = CTAs of TB sites, block = TB threads.  shared: pool [8][TB/8][16][8]
@@ -97,9 +124,13 @@ construct_probe_kernel(const uint4* __restrict__ pfrag,
     a_lo[ks] = __ldg(A + (ks * 2 + 1) * 32);
   }
   float acc[WARP_TILES][4];
+  float held[WARP_TILES][KS][2];   // c4: the previous op's parent
 #pragma unroll
-  for (int i = 0; i < WARP_TILES; ++i)
+  for (int i = 0; i < WARP_TILES; ++i) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) held[i][ks][0] = held[i][ks][1] = 0.0f;
+  }
 
   for (int w = 0; w < n_ops; ++w) {
     if constexpr (V >= 2) {
@@ -116,12 +147,18 @@ construct_probe_kernel(const uint4* __restrict__ pfrag,
     for (int tile = 0; tile < WARP_TILES; ++tile) {
       const int tile_off = tile * SPAN * TILE;
       float y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float(&d)[4] = V == 3 ? y : acc[tile];
+      float(&d)[4] = V >= 3 ? y : acc[tile];
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         // the B fragment: k = q (+4) of this k-step, site g of the tile
-        const float x0 = src[tile_off + (8 * ks + q) * TILE + g];
-        const float x1 = src[tile_off + (8 * ks + q + 4) * TILE + g];
+        float x0, x1;
+        if (V == 4 && w > 0) {
+          x0 = held[tile][ks][0];
+          x1 = held[tile][ks][1];
+        } else {
+          x0 = src[tile_off + (8 * ks + q) * TILE + g];
+          x1 = src[tile_off + (8 * ks + q + 4) * TILE + g];
+        }
         const uint32_t h0 = to_tf32(x0), h1 = to_tf32(x1);
         if constexpr (V >= 1) {
           const uint32_t l0 = to_tf32(x0 - __uint_as_float(h0));
@@ -131,7 +168,7 @@ construct_probe_kernel(const uint4* __restrict__ pfrag,
         }
         mma_tf32(d, a_hi[ks], h0, h1);
       }
-      if constexpr (V == 3) {
+      if constexpr (V >= 3) {
         // this lane holds sites 2q, 2q+1 of the tile, rows g and g+8; the
         // other rows of those sites are in the lanes with equal q
         float m0 = fmaxf(y[0], y[2]), m1 = fmaxf(y[1], y[3]);
@@ -142,11 +179,18 @@ construct_probe_kernel(const uint4* __restrict__ pfrag,
         }
         const bool below0 = m0 < thresh, below1 = m1 < thresh;
         const float f0 = below0 ? factor : 1.0f, f1 = below1 ? factor : 1.0f;
-        float* o = dst + tile_off + 2 * q;
-        *reinterpret_cast<float2*>(o + g * TILE) =
-            make_float2(y[0] * f0, y[1] * f1);
-        *reinterpret_cast<float2*>(o + (g + 8) * TILE) =
-            make_float2(y[2] * f0, y[3] * f1);
+        y[0] *= f0;
+        y[1] *= f1;
+        y[2] *= f0;
+        y[3] *= f1;
+        if (V == 4 && w + 1 < n_ops) {
+          carry_tile(y, held[tile], g, q);
+        } else {
+          float* o = dst + tile_off + 2 * q;
+          *reinterpret_cast<float2*>(o + g * TILE) = make_float2(y[0], y[1]);
+          *reinterpret_cast<float2*>(o + (g + 8) * TILE) =
+              make_float2(y[2], y[3]);
+        }
         if (g == 0) {  // once per site: lanes 0-3 carry sites 2q, 2q+1
           int2* s = reinterpret_cast<int2*>(spool + warp * 32 + tile * TILE +
                                             2 * q);
@@ -158,11 +202,11 @@ construct_probe_kernel(const uint4* __restrict__ pfrag,
       }
     }
     // stores in C layout above, loads in B layout in the next op
-    if constexpr (V == 3) __syncwarp();
+    if (V == 3 || (V == 4 && w + 1 == n_ops)) __syncwarp();
   }
 
   float* o = out + (size_t)blockIdx.x * SPAN * tb;
-  if constexpr (V == 3) {
+  if constexpr (V >= 3) {
     // thread t copies site t, which its own warp wrote
     const float* src = pool + (n_ops % N_SLOTS) * slot_stride +
                        (t >> 3) * SPAN * TILE + (t & 7);
@@ -199,7 +243,7 @@ cudaError_t launch(const void* pfrag, const float* pool, float* out,
 
 extern "C" {
 
-// variant 0-3 (c0-c3).  pfrag [64][2][2 (hi, lo)][32][4] f32 rounded to
+// variant 0-4 (c0-c4).  pfrag [64][2][2 (hi, lo)][32][4] f32 rounded to
 // TF32; pool [8][tb/8][16][8] f32; out [grid][16][tb] f32; scal_out
 // [grid][tb] i32.  tb a multiple of 32 up to 256.  Returns the cudaError_t
 // of the launch.
@@ -218,6 +262,8 @@ int construct_probe_launch(int variant, const void* pfrag, const float* pool,
     case 2: return (int)launch<2>(pfrag, pool, out, scal_out, grid, tb, n_ops,
                                   thresh, factor, s);
     case 3: return (int)launch<3>(pfrag, pool, out, scal_out, grid, tb, n_ops,
+                                  thresh, factor, s);
+    case 4: return (int)launch<4>(pfrag, pool, out, scal_out, grid, tb, n_ops,
                                   thresh, factor, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
-// Fused SPR edge scorer: sumtable + Newton + logL per regraft slot, one CTA
-// per slot.  Built with nvcc for sm_90a into the package's shared library
+// Fused SPR edge scorer: sumtable + Newton + logL per regraft slot.  Built
+// with nvcc for sm_90a into the package's shared library
 // (libpll2_tpu_torch/_build.py) and launched through ctypes by
 // libpll2_tpu_torch/ops/edge_score.py:edge_scores().
 //
@@ -22,26 +22,54 @@
 // starts Newton from the real f32 branch length (the TPU kernel's 1e-7
 // fixed point exists because Mosaic cannot bitcast SMEM scalars).
 //
-// What bounds it on an H100: each Newton round is a reduction over all T
-// sites whose result feeds the next, so a slot is newton_iters + 1
-// dependent passes.  The sumtable (R*S*T floats) does not fit in shared
-// memory at T = 4096, so each pass recomputes it from the three message
-// rows: 3*R*S*T*4 bytes read per pass (the candidate's sub row and popular
-// facing rows hit L2), about 3*R*S*S FMAs per site and rate.  The kernel is
-// bound by device-memory (and L2) bandwidth over those re-reads.
+// What bounds it on an H100: bytes.  A slot is newton_iters + 1 dependent
+// reductions over all T sites, each needing the slot's sumtable st
+// (R*S*T floats: 256 KB for DNA with four rate categories at T = 4096).
+// The least the card must move is each distinct message row once; a design
+// that recomputes st from the three rows in every pass moves newton_iters +
+// 1 times that, and a block's 227 KB of shared memory does not hold st.
 //
-// What the design does about it:
-//   * one CTA per slot, threads striding over sites: each pass is a
-//     coalesced stream of the three rows, [R*S][T] with sites innermost;
-//   * the per-site work runs one rate category at a time with S-sized
-//     register arrays, so protein (S = 20) needs no spills;
-//   * the per-slot constants (H, ML, EV blocks and e^{x t} terms) live in
-//     shared memory; (d1, d2) reduce by warp shuffles, then one warp's sums;
-//   * invalid (padding) slots exit at once: ball groups are padded to their
-//     widest candidate, so many slots are padding.
+// What the design does about it: two forms, chosen on the host by shape
+// (ops/edge_score.py:plan), never one as the other's fallback.
+//   * "resident" (edge_score_resident_kernel): a slot is scored by a
+//     thread-block cluster of k CTAs (1, 2, 4 or 8) on neighbouring SMs.
+//     CTA `rank` owns the sites [rank * stripe, (rank + 1) * stripe) and
+//     keeps its stripe of st, [R*S][stripe] f32, in shared memory.  Pass 0
+//     streams the three rows once (coalesced, sites innermost; four sites a
+//     thread by 16-byte loads where the state count leaves the registers
+//     for it), builds st, stores it on chip and takes the first Newton sums
+//     from the registers it has; every later pass reads st only: 3*R*S FMAs
+//     per site, no device memory.  (d1, d2) and the score reduce inside a
+//     warp by shuffles; lane 0 of every warp then stores its sum into the
+//     shared memory of every CTA of the cluster (distributed shared
+//     memory), one cluster.sync() makes the stores visible, and every
+//     thread adds, from its own shared memory, each stripe's warp sums and
+//     then the stripes in rank order 0 .. k-1.  All CTAs therefore derive
+//     the same next t from the same operands in the same order (no
+//     broadcast), and a slot's result does not depend on where it ran.  The
+//     sums are double-buffered by pass parity and the e-terms are kept once
+//     per warp, so a pass has exactly one barrier, the cluster's.  The
+//     candidate's sub row and the popular facing rows are shared by many
+//     slots and are served by L2.
+//   * "reread" (edge_score_kernel): one CTA per slot, st recomputed from the
+//     three rows in every pass.  It serves the shapes whose stripe of st
+//     does not fit a block even at k = 8 (protein beyond 5,056 sites under
+//     the 232,448-byte limit).
+// Both forms: the per-site work runs one rate category at a time with
+// S-sized register arrays, so protein (S = 20) needs no spills; the per-slot
+// constants (H, ML, EV blocks and e^{x t} terms) live in shared memory;
+// invalid (padding) slots exit at once, the whole cluster of a slot together
+// (ball groups are padded to their widest candidate, so many slots are
+// padding).  The resident kernel's registers are bounded so that two CTAs
+// share an SM: with one (142 registers a thread) a full-width round took
+// 11.7 ms, with three (80, spilling) 9.2 ms, with two (128) 7.5 ms on an
+// H100 at 700 W (probes/variants.py registers).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,84 +102,283 @@ struct Args {
   float log_thresh;
 };
 
-// (L, L', L'') of one site from the three rows at the current e-terms.
+// The rows one slot reads.
+struct Rows {
+  const float *away, *other, *sub;
+  const int *away_sc, *other_sc, *sub_sc;
+};
+
+__device__ __forceinline__ Rows slot_rows(const Args& a, const int* op, int c,
+                                          int span) {
+  const size_t T = (size_t)a.sites;
+  const size_t row = (size_t)span * T;
+  const size_t scratch = (size_t)c * a.slots + __ldg(op + OP_PARENT);
+  Rows r;
+  r.away = a.away + scratch * row;
+  r.away_sc = a.away_scal + scratch * T;
+  r.other = a.base + (size_t)__ldg(op + OP_SC_ROW) * row;
+  r.other_sc = a.base_scal + (size_t)__ldg(op + OP_SC_SCAL) * T;
+  r.sub = a.base + (size_t)__ldg(a.sub_rows + 2 * c) * row;
+  r.sub_sc = a.base_scal + (size_t)__ldg(a.sub_rows + 2 * c + 1) * T;
+  return r;
+}
+
+// The per-slot constants: H, ML, EV [R][S][S] and x, w0 [R*S], consecutive
+// from sH.  The caller synchronises.
 template <int S>
+__device__ __forceinline__ void load_constants(const Args& a, const int* op,
+                                               float* sH) {
+  const int R = a.rates, span = R * S, ss = S * S;
+  float* sL = sH + R * ss;
+  float* sE = sL + R * ss;
+  float* sx = sE + R * ss;
+  float* sw = sx + span;
+  const float* H = a.halves + (size_t)__ldg(op + OP_EDGE) * R * ss;
+  for (int i = threadIdx.x; i < R * ss; i += THREADS) {
+    const int r = i / ss, j = (i % ss) / S, k = i % S;
+    const size_t bd = (size_t)(r * S + j) * span + r * S + k;
+    sH[i] = __ldg(H + i);
+    sL[i] = __ldg(a.lbd + bd);
+    sE[i] = __ldg(a.rbd + bd);
+  }
+  for (int q = threadIdx.x; q < span; q += THREADS) {
+    sx[q] = __ldg(a.xw + 2 * q);
+    sw[q] = __ldg(a.xw + 2 * q + 1);
+  }
+}
+
+// V consecutive sites from p: one 16-byte load at V = 4 (p 16-byte aligned).
+template <int V>
+__device__ __forceinline__ void load_sites(const float* p, float (&x)[V]) {
+  static_assert(V == 1 || V == 4, "one site or four");
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_sites(const int* p, int (&x)[V]) {
+  if constexpr (V == 4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
+
+// (L, L', L'') of V consecutive sites from the three rows at the current
+// e-terms se[q] = (e, x e, x^2 e, -).  KEEP: also store the sites' sumtable
+// columns to st[q * st_stride ..].  RC > 0: the number of rate categories,
+// known at compile time, so that the loop over them unrolls and the next
+// category's loads are in flight during this one's products.
+template <int S, int V, int RC, bool KEEP>
 __device__ __forceinline__ void site_lk(const float* __restrict__ away,
                                         const float* __restrict__ other,
                                         const float* __restrict__ sub,
                                         size_t T, int R, const float* sH,
                                         const float* sL, const float* sE,
-                                        const float* se0, const float* se1,
-                                        const float* se2, bool derivs,
-                                        float& lk0, float& lk1, float& lk2) {
-  lk0 = lk1 = lk2 = 0.0f;
-  for (int r = 0; r < R; ++r) {
-    float a[S], o[S], sb[S], clvp[S];
+                                        const float4* se, bool derivs,
+                                        float* st, int st_stride,
+                                        float (&lk0)[V], float (&lk1)[V],
+                                        float (&lk2)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) lk0[v] = lk1[v] = lk2[v] = 0.0f;
+  auto rate = [&](int r) {
+    float a[S][V], o[S][V], sb[S][V], clvp[S][V];
 #pragma unroll
     for (int j = 0; j < S; ++j) {
       const size_t off = (size_t)(r * S + j) * T;
-      a[j] = __ldg(away + off);
-      o[j] = __ldg(other + off);
-      sb[j] = __ldg(sub + off);
+      load_sites<V>(away + off, a[j]);
+      load_sites<V>(other + off, o[j]);
+      load_sites<V>(sub + off, sb[j]);
     }
     const float* H = sH + r * S * S;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      float ta = 0.0f, tb = 0.0f;
+      float ta[V], tb[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) ta[v] = tb[v] = 0.0f;
 #pragma unroll
       for (int j = 0; j < S; ++j) {
-        ta = fmaf(H[i * S + j], a[j], ta);
-        tb = fmaf(H[i * S + j], o[j], tb);
+        const float h = H[i * S + j];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          ta[v] = fmaf(h, a[j][v], ta[v]);
+          tb[v] = fmaf(h, o[j][v], tb[v]);
+        }
       }
-      clvp[i] = ta * tb;
+#pragma unroll
+      for (int v = 0; v < V; ++v) clvp[i][v] = ta[v] * tb[v];
     }
     const float* L = sL + r * S * S;
     const float* E = sE + r * S * S;
 #pragma unroll
     for (int j = 0; j < S; ++j) {
-      float lef = 0.0f, rig = 0.0f;
+      float lef[V], rig[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) lef[v] = rig[v] = 0.0f;
 #pragma unroll
       for (int k = 0; k < S; ++k) {
-        lef = fmaf(L[j * S + k], clvp[k], lef);
-        rig = fmaf(E[j * S + k], sb[k], rig);
+        const float l = L[j * S + k], e = E[j * S + k];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          lef[v] = fmaf(l, clvp[k][v], lef[v]);
+          rig[v] = fmaf(e, sb[k][v], rig[v]);
+        }
       }
-      const float st = lef * rig;
       const int q = r * S + j;
-      lk0 = fmaf(st, se0[q], lk0);
+      const float4 e = se[q];
+      float val[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        val[v] = lef[v] * rig[v];
+        lk0[v] = fmaf(val[v], e.x, lk0[v]);
+        if (derivs) {
+          lk1[v] = fmaf(val[v], e.y, lk1[v]);
+          lk2[v] = fmaf(val[v], e.z, lk2[v]);
+        }
+      }
+      if constexpr (KEEP) {
+        float* dst = st + (size_t)q * st_stride;
+        if constexpr (V == 4)
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(val[0], val[1], val[2], val[3]);
+        else
+          dst[0] = val[0];
+      }
+    }
+  };
+  if constexpr (RC > 0) {
+#pragma unroll
+    for (int r = 0; r < RC; ++r) rate(r);
+  } else {
+    for (int r = 0; r < R; ++r) rate(r);
+  }
+}
+
+// The same from sumtable columns kept in shared memory.
+template <int V>
+__device__ __forceinline__ void site_lk_resident(const float* st,
+                                                 int st_stride, int span,
+                                                 const float4* se, bool derivs,
+                                                 float (&lk0)[V],
+                                                 float (&lk1)[V],
+                                                 float (&lk2)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) lk0[v] = lk1[v] = lk2[v] = 0.0f;
+  for (int q = 0; q < span; ++q) {
+    float val[V];
+    const float* src = st + (size_t)q * st_stride;
+    if constexpr (V == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(src);
+      val[0] = t.x, val[1] = t.y, val[2] = t.z, val[3] = t.w;
+    } else {
+      val[0] = src[0];
+    }
+    const float4 e = se[q];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      lk0[v] = fmaf(val[v], e.x, lk0[v]);
       if (derivs) {
-        lk1 = fmaf(st, se1[q], lk1);
-        lk2 = fmaf(st, se2[q], lk2);
+        lk1[v] = fmaf(val[v], e.y, lk1[v]);
+        lk2[v] = fmaf(val[v], e.z, lk2[v]);
       }
     }
   }
 }
 
-// Sum (x, y) over the CTA; the result is valid in thread 0.  Ends with the
-// CTA's warps past their writes to `red`.
-__device__ __forceinline__ float2 block_sum2(float x, float y, float2* red) {
+__device__ __forceinline__ float4 e_term(float x, float w0, float t) {
+  const float e = w0 * expf(x * t);
+  return make_float4(e, x * e, x * x * e, 0.0f);
+}
+
+// The live sites' share of the pass's sums: (w d1, w d2) in a Newton pass,
+// the weighted log-likelihood with its scalers in the last.  A site of
+// weight 0 is padding and adds nothing (its L may be 0).
+template <int V>
+__device__ __forceinline__ void accumulate(bool last, const float (&w)[V],
+                                           const float (&lk0)[V],
+                                           const float (&lk1)[V],
+                                           const float (&lk2)[V],
+                                           const Rows& rows, size_t site,
+                                           float log_thresh, float& acc1,
+                                           float& acc2) {
+  if (!last) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!(w[v] > 0.0f)) continue;
+      const float deriv1 = -lk1[v] / lk0[v];
+      const float deriv2 = deriv1 * deriv1 - lk2[v] / lk0[v];
+      acc1 += w[v] * deriv1;
+      acc2 += w[v] * deriv2;
+    }
+  } else {
+    int s1[V], s2[V], s3[V];
+    load_sites<V>(rows.away_sc + site, s1);
+    load_sites<V>(rows.other_sc + site, s2);
+    load_sites<V>(rows.sub_sc + site, s3);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!(w[v] > 0.0f)) continue;
+      acc1 += w[v] * (logf(lk0[v]) +
+                      (float)(s1[v] + s2[v] + s3[v]) * log_thresh);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ bool any_live(const float (&w)[V]) {
+  bool live = false;
+#pragma unroll
+  for (int v = 0; v < V; ++v) live |= w[v] > 0.0f;
+  return live;
+}
+
+// The safeguarded Newton step from the pass's (d1, d2).
+__device__ __forceinline__ float newton_step(float t, float d1, float d2) {
+  const float newton = t - d1 / d2;
+  const float fallback = d1 > 0.0f ? t * 0.5f : t * 2.0f;
+  float tn = d2 > 0.0f ? newton : fallback;
+  if (!isfinite(tn)) tn = t;
+  return fminf(fmaxf(tn, 1e-8f), 100.0f);
+}
+
+// Sum (x, y) over the warp; the result is valid in lane 0.
+__device__ __forceinline__ float2 warp_sum2(float x, float y) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     x += __shfl_down_sync(0xffffffffu, x, off);
     y += __shfl_down_sync(0xffffffffu, y, off);
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_float2(x, y);
-  __syncthreads();
-  float2 tot = make_float2(0.0f, 0.0f);
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < NWARPS; ++w) {
-      tot.x += red[w].x;
-      tot.y += red[w].y;
-    }
-  }
-  return tot;
+  return make_float2(x, y);
 }
 
-// grid = cb * vg slots, block = THREADS.
-// shared: red [NWARPS] float2, then H, ML, EV [R][S][S], then x, w0, e0,
-// e1, e2 [R*S] f32.
+// Floats of shared memory of the two forms, before the resident form's
+// sumtable stripe.  "reread": red [NWARPS] float2, the e-terms [R*S] float4,
+// then H, ML, EV [R][S][S] and x, w0 [R*S].  "resident": sums [2][MAX_CLUSTER]
+// [NWARPS] float2 (every warp's sum of every CTA of the cluster, by pass
+// parity), the e-terms [NWARPS][R*S] float4 (a copy per warp, so that no
+// pass needs a CTA-wide barrier of its own), then the same constants;
+// rounded up to 16 bytes.
+__host__ __device__ constexpr int const_floats(int R, int S) {
+  return 3 * R * S * S + 2 * R * S;
+}
+__host__ __device__ constexpr int reread_floats(int R, int S) {
+  return 2 * NWARPS + 4 * R * S + const_floats(R, S);
+}
+constexpr int MAX_CLUSTER = 8;
+constexpr int SUM_FLOATS = 2 * MAX_CLUSTER * NWARPS * 2;
+__host__ __device__ constexpr int resident_head_floats(int R, int S) {
+  return (SUM_FLOATS + 4 * NWARPS * R * S + const_floats(R, S) + 3) / 4 * 4;
+}
+
+// The "reread" form.  grid = cb * vg slots, block = THREADS.
 template <int S>
 __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
-  extern __shared__ float2 smem2[];
+  extern __shared__ float4 smem4[];
   __shared__ float s_t;
   const int tid = threadIdx.x;
   const int slot = blockIdx.x;               // c * vg + v
@@ -170,77 +397,46 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
     return;
   }
 
-  float2* red = smem2;
-  float* sH = reinterpret_cast<float*>(smem2 + NWARPS);
+  float* smem = reinterpret_cast<float*>(smem4);
+  float4* se = smem4;
+  float2* red = reinterpret_cast<float2*>(smem + 4 * span);
+  float* sH = smem + 4 * span + 2 * NWARPS;
   float* sL = sH + R * ss;
   float* sE = sL + R * ss;
   float* sx = sE + R * ss;
   float* sw = sx + span;
-  float* se0 = sw + span;
-  float* se1 = se0 + span;
-  float* se2 = se1 + span;
-
-  const float* H = a.halves + (size_t)__ldg(op + OP_EDGE) * R * ss;
-  for (int i = tid; i < R * ss; i += THREADS) {
-    const int r = i / ss, j = (i % ss) / S, k = i % S;
-    const size_t bd = (size_t)(r * S + j) * span + r * S + k;
-    sH[i] = __ldg(H + i);
-    sL[i] = __ldg(a.lbd + bd);
-    sE[i] = __ldg(a.rbd + bd);
-  }
-  for (int q = tid; q < span; q += THREADS) {
-    sx[q] = __ldg(a.xw + 2 * q);
-    sw[q] = __ldg(a.xw + 2 * q + 1);
-  }
-  const size_t row = (size_t)span * T;
-  const float* away =
-      a.away + ((size_t)c * a.slots + __ldg(op + OP_PARENT)) * row;
-  const int* away_sc =
-      a.away_scal + ((size_t)c * a.slots + __ldg(op + OP_PARENT)) * T;
-  const float* other = a.base + (size_t)__ldg(op + OP_SC_ROW) * row;
-  const int* other_sc = a.base_scal + (size_t)__ldg(op + OP_SC_SCAL) * T;
-  const float* sub = a.base + (size_t)__ldg(a.sub_rows + 2 * c) * row;
-  const int* sub_sc = a.base_scal + (size_t)__ldg(a.sub_rows + 2 * c + 1) * T;
+  load_constants<S>(a, op, sH);
+  const Rows rows = slot_rows(a, op, c, span);
   if (tid == 0) s_t = t0;
   __syncthreads();
 
   for (int it = 0; it <= a.newton_iters; ++it) {
     const bool last = it == a.newton_iters;
     const float t = s_t;
-    for (int q = tid; q < span; q += THREADS) {
-      const float e = sw[q] * expf(sx[q] * t);
-      se0[q] = e;
-      se1[q] = sx[q] * e;
-      se2[q] = sx[q] * sx[q] * e;
-    }
+    for (int q = tid; q < span; q += THREADS) se[q] = e_term(sx[q], sw[q], t);
     __syncthreads();
     float acc1 = 0.0f, acc2 = 0.0f;
     for (size_t site = tid; site < T; site += THREADS) {
-      const float w = __ldg(a.pw + site);
-      if (!(w > 0.0f)) continue;       // padding: weight 0, inert
-      float lk0, lk1, lk2;
-      site_lk<S>(away + site, other + site, sub + site, T, R, sH, sL, sE,
-                 se0, se1, se2, !last, lk0, lk1, lk2);
-      if (!last) {
-        const float deriv1 = -lk1 / lk0;
-        const float deriv2 = deriv1 * deriv1 - lk2 / lk0;
-        acc1 += w * deriv1;
-        acc2 += w * deriv2;
-      } else {
-        const int sc = __ldg(away_sc + site) + __ldg(other_sc + site) +
-                       __ldg(sub_sc + site);
-        acc1 += w * (logf(lk0) + (float)sc * a.log_thresh);
-      }
+      float w[1], lk0[1], lk1[1], lk2[1];
+      load_sites<1>(a.pw + site, w);
+      if (!any_live(w)) continue;      // padding: weight 0, inert
+      site_lk<S, 1, 0, false>(rows.away + site, rows.other + site,
+                              rows.sub + site, T, R, sH, sL, sE, se, !last,
+                              nullptr, 0, lk0, lk1, lk2);
+      accumulate<1>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh, acc1,
+                    acc2);
     }
-    const float2 tot = block_sum2(acc1, acc2, red);
+    const float2 mine = warp_sum2(acc1, acc2);
+    if ((tid & 31) == 0) red[tid >> 5] = mine;
+    __syncthreads();
     if (tid == 0) {
+      float2 tot = make_float2(0.0f, 0.0f);
+      for (int w = 0; w < NWARPS; ++w) {
+        tot.x += red[w].x;
+        tot.y += red[w].y;
+      }
       if (!last) {
-        const float d1 = tot.x, d2 = tot.y;
-        const float newton = t - d1 / d2;
-        const float fallback = d1 > 0.0f ? t * 0.5f : t * 2.0f;
-        float tn = d2 > 0.0f ? newton : fallback;
-        if (!isfinite(tn)) tn = t;
-        s_t = fminf(fmaxf(tn, 1e-8f), 100.0f);
+        s_t = newton_step(t, tot.x, tot.y);
       } else {
         a.score[slot] = tot.x;
         a.t3[slot] = t;
@@ -250,27 +446,188 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
   }
 }
 
-template <int S>
-cudaError_t launch(const Args& a, int n_slots, cudaStream_t stream) {
-  const size_t smem = NWARPS * sizeof(float2) +
-                      (size_t)(3 * a.rates * S * S + 5 * a.rates * S) *
-                          sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        edge_score_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
+// The "resident" form.  grid = cb * vg slots * k CTAs in clusters of k along
+// x, block = THREADS.  V sites per thread and step (4: 16-byte loads; the
+// host checks the alignment), RC as in site_lk.  shared: the head as above,
+// then the CTA's stripe of the sumtable, st [R*S][stripe] f32.
+template <int S, int V, int RC>
+__global__ void __launch_bounds__(THREADS, V == 4 ? 2 : 1)
+edge_score_resident_kernel(Args a, int stripe) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int slot = blockIdx.x / k;           // c * vg + v
+  const int c = slot / a.vg;
+  const int R = RC > 0 ? RC : a.rates;
+  const int span = R * S;
+  const int ss = S * S;
+  const size_t T = (size_t)a.sites;
+  const int* op = a.ops + (size_t)slot * OP_COLS;
+  const float t0 = __ldg(a.t0 + c);
+  if (__ldg(op + OP_VALID) != 1) {           // the whole cluster leaves
+    if (rank == 0 && tid == 0) {
+      a.score[slot] = -INFINITY;
+      a.t3[slot] = t0;
+    }
+    return;
   }
-  edge_score_kernel<S><<<n_slots, THREADS, smem, stream>>>(a);
+
+  float* smem = reinterpret_cast<float*>(smem4);
+  float4* se = smem4 + warp * span;          // this warp's e-terms
+  float2* sums = reinterpret_cast<float2*>(smem + 4 * NWARPS * span);
+  float* sH = smem + 4 * NWARPS * span + SUM_FLOATS;
+  float* sL = sH + R * ss;
+  float* sE = sL + R * ss;
+  float* sx = sE + R * ss;
+  float* sw = sx + span;
+  float* st = smem + resident_head_floats(R, S);
+  load_constants<S>(a, op, sH);
+  const Rows rows = slot_rows(a, op, c, span);
+  const size_t first = (size_t)rank * stripe;
+  const size_t left = first < T ? T - first : 0;
+  const int mine = left < (size_t)stripe ? (int)left : stripe;
+  // the constants are in place, and every CTA of the cluster has started:
+  // its shared memory may be written from outside
+  cluster.sync();
+
+  float t = t0;
+  for (int it = 0; it <= a.newton_iters; ++it) {
+    const bool last = it == a.newton_iters;
+    for (int q = lane; q < span; q += 32) se[q] = e_term(sx[q], sw[q], t);
+    __syncwarp();
+    float acc1 = 0.0f, acc2 = 0.0f;
+    for (int ls = tid * V; ls < mine; ls += THREADS * V) {
+      const size_t site = first + ls;
+      float w[V], lk0[V], lk1[V], lk2[V];
+      load_sites<V>(a.pw + site, w);
+      if (!any_live(w)) continue;      // padding: weight 0, inert
+      if (it == 0)
+        site_lk<S, V, RC, true>(rows.away + site, rows.other + site,
+                                rows.sub + site, T, R, sH, sL, sE, se, !last,
+                                st + ls, stripe, lk0, lk1, lk2);
+      else
+        site_lk_resident<V>(st + ls, stripe, span, se, !last, lk0, lk1, lk2);
+      accumulate<V>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh, acc1,
+                    acc2);
+    }
+    // every warp pushes its sum into every CTA of the cluster (remote
+    // stores; the barrier makes them visible); the shuffles also bring the
+    // warp past its reads of this pass's e-terms
+    float2* pass_sums = sums + (it & 1) * MAX_CLUSTER * NWARPS;
+    const float2 warp_tot = warp_sum2(acc1, acc2);
+    if (lane == 0) {
+      float2* mine_at = pass_sums + rank * NWARPS + warp;
+      for (int r = 0; r < k; ++r)
+        *cluster.map_shared_rank(mine_at, r) = warp_tot;
+    }
+    cluster.sync();
+    // every thread of every CTA, from its own shared memory: each stripe's
+    // sum, the stripes in rank order
+    float d1 = 0.0f, d2 = 0.0f;
+    for (int r = 0; r < k; ++r) {
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) {
+        const float2 p = pass_sums[r * NWARPS + w];
+        s1 += p.x;
+        s2 += p.y;
+      }
+      d1 += s1;
+      d2 += s2;
+    }
+    if (!last) {
+      t = newton_step(t, d1, d2);
+    } else if (rank == 0 && tid == 0) {
+      a.score[slot] = d1;
+      a.t3[slot] = t;
+    }
+  }
+  // the last remote store was before the last barrier: a CTA may leave
+}
+
+template <class K>
+cudaError_t allow_shared(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+size_t resident_bytes(int rates, int S, int sites, int cluster) {
+  const int stripe = (sites + cluster - 1) / cluster;
+  return ((size_t)resident_head_floats(rates, S) +
+          (size_t)rates * S * stripe) * sizeof(float);
+}
+
+template <class K>
+cudaError_t launch_resident(K kernel, const Args& a, int n_slots, int S,
+                            int cluster, cudaStream_t stream) {
+  int stripe = (a.sites + cluster - 1) / cluster;
+  const size_t smem = resident_bytes(a.rates, S, a.sites, cluster);
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)n_slots * cluster, 1, 1);
+  config.blockDim = dim3(THREADS, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, a, stripe);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// cluster == 0: the "reread" form; else the "resident" form on clusters of
+// `cluster` CTAs: four sites per thread and step where the state count is
+// small enough for the registers, there are four rate categories and every
+// row and stripe starts on 16 bytes, else one.
+template <int S>
+cudaError_t launch(const Args& a, int n_slots, int cluster,
+                   cudaStream_t stream) {
+  if (cluster == 0) {
+    const size_t smem = (size_t)reread_floats(a.rates, S) * sizeof(float);
+    cudaError_t err = allow_shared(edge_score_kernel<S>, smem);
+    if (err != cudaSuccess) return err;
+    edge_score_kernel<S><<<n_slots, THREADS, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  if constexpr (S <= 4) {
+    const int stripe = (a.sites + cluster - 1) / cluster;
+    if (a.rates == 4 && a.sites % 4 == 0 && stripe % 4 == 0 &&
+        aligned16(a.away) && aligned16(a.base) && aligned16(a.pw) &&
+        aligned16(a.away_scal) && aligned16(a.base_scal))
+      return launch_resident(edge_score_resident_kernel<S, 4, 4>, a, n_slots,
+                             S, cluster, stream);
+  }
+  return launch_resident(edge_score_resident_kernel<S, 1, 0>, a, n_slots, S,
+                         cluster, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of dynamic shared memory one CTA of the resident form needs at
+// `cluster` CTAs per slot (what ops/edge_score.py:plan computes on the host;
+// the tests on the card hold the two against each other).
+int edge_score_resident_smem(int rates, int states, int sites, int cluster) {
+  return (int)resident_bytes(rates, states, sites, cluster);
+}
+
 // Launch the scorer on `stream`; returns the cudaError_t of the launch.
-// The kernel allocates nothing and does not synchronise.
+// cluster: 0 for the "reread" form, else 1, 2, 4 or 8 CTAs per slot for the
+// "resident" form.  The kernels allocate nothing and do not synchronise.
 int edge_score_launch(const float* away, const int* away_scal,
                       const float* base, const int* base_scal,
                       const float* halves, const int* ops,
@@ -278,18 +635,21 @@ int edge_score_launch(const float* away, const int* away_scal,
                       const float* rbd, const float* xw, const float* pw,
                       float* score, float* t3, int n_cand, int vg, int slots,
                       int rates, int states, int sites, int newton_iters,
-                      float log_thresh, void* stream) {
+                      float log_thresh, int cluster, void* stream) {
   const Args a{away, away_scal, base, base_scal, halves, ops, sub_rows, t0,
                lbd, rbd, xw, pw, score, t3, vg, slots, rates, sites,
                newton_iters, log_thresh};
+  if (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 &&
+      cluster != 8)
+    return (int)cudaErrorInvalidValue;
   const int n_slots = n_cand * vg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (states) {
-    case 2: return (int)launch<2>(a, n_slots, s);
-    case 4: return (int)launch<4>(a, n_slots, s);
-    case 10: return (int)launch<10>(a, n_slots, s);
-    case 16: return (int)launch<16>(a, n_slots, s);
-    case 20: return (int)launch<20>(a, n_slots, s);
+    case 2: return (int)launch<2>(a, n_slots, cluster, s);
+    case 4: return (int)launch<4>(a, n_slots, cluster, s);
+    case 10: return (int)launch<10>(a, n_slots, cluster, s);
+    case 16: return (int)launch<16>(a, n_slots, cluster, s);
+    case 20: return (int)launch<20>(a, n_slots, cluster, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,59 +11,88 @@
 // bf16 split terms along K to keep f32 quality.  (_tree_kernel with
 // mxu=False, the broadcast-FMA form, is csrc/tree_sweep.cu.)
 //
-// Same contract as tree_sweep.cu: a runtime op table [OPS, 9], CLV and
-// scaler pools in shared memory, tips expanded from packed bits, per-site
-// rescue, exported rows written as [E, NT, R, S, TB] / [E, NT, 1, TB].
-// The difference is the product.  Per warp and per 8-site tile,
-//   left = Pbd . c1,  right = Pbd . c2
-// by mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: the A operand is
-// the block-diagonal P (16-row m-tiles, 8-column k-steps; a (m-tile, k-step)
-// pair whose rows and columns share no rate is all zero and is skipped at
-// compile time: 2 pairs at span 16, 22 of 50 at span 80), the B operand the
-// child's [span, 8] column tile.  One TF32 pass keeps 11 significant bits,
-// so each operand is split into a TF32 head and a TF32 remainder
-// (x = hi + lo, |lo| <= 2^-11 |x|) and one f32 accumulator collects
-//   A_lo.B_hi + A_hi.B_lo + A_hi.B_hi
-// (the dropped A_lo.B_lo term and the remainders' own rounding are each
-// about 2^-22 relative: the size of f32 rounding itself).  The same idea as
-// the TPU kernel's stacked bf16 split terms, on this card's units.  P is
-// split once per call by a small kernel of this file
-// (pmatrix_fragments_kernel), which also lays it out in A-fragment order
-// (pfrag below), so a lane fetches its four A registers with one 16-byte
-// load and no conversion.  The tensor cores round their accumulator toward
-// zero where an FMA rounds to nearest: about half an f32 ulp per product,
-// always downward, so exported rows drift from the FMA form's by about
-// 3e-8 per op below them (2e-4 at 8,190 ops) while the logL, a sum of logs
-// of magnitude thousands per site, moves by less than 1e-7 relative.  Tip
-// children are 0/1: their remainder is zero and that product is skipped.
+// Same contract as tree_sweep.cu: a runtime op table, CLV and scaler pools
+// in shared memory, tips expanded from packed bits, per-site rescue,
+// exported rows written as [E, NT, R, S, TB] / [E, NT, 1, TB].  The
+// difference is the product, by
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  One TF32 pass keeps 11
+// significant bits, so each operand is split into a TF32 head and a TF32
+// remainder (x = hi + lo, |lo| <= 2^-11 |x|) and the three products
+//   P_lo.c_hi + P_hi.c_lo + P_hi.c_hi
+// are summed (the dropped P_lo.c_lo term and the remainders' own rounding
+// are each about 2^-22 relative: the size of f32 rounding itself).  The same
+// idea as the TPU kernel's stacked bf16 split terms, on this card's units.
+// P is split once per call by a small kernel of this file
+// (pmatrix_fragments_kernel), which also lays it out in fragment order, so a
+// lane fetches its registers with 16-byte loads and no conversion.  The
+// tensor cores round their accumulator toward zero where an FMA rounds to
+// nearest: about half an f32 ulp per product, always downward, so exported
+// rows drift from the FMA form's by about 2e-8 per op below them (1.6e-4 at
+// 8,190 ops) while the logL, a sum of logs of magnitude thousands per site,
+// moves by less than 1e-7 relative.  Tip children are 0/1: their remainder
+// is zero and that product is skipped.
 //
-// What bounds it on an H100: per op and 8-site tile, 3 * 2 * NP mma (NP
-// nonzero pairs), against 2 * span * 8 * 4 bytes read and span * 8 * 4 bytes
-// written in shared memory, plus the split of every B element (two cvt and
-// a subtract).  At span 16 that is 12 mma of 2048 FLOP each for 128 FMAs of
-// useful work per site (3/4 of every A tile is structural zero, and the
-// split triples the rest), so the tensor cores do 24x the useful FLOPs; at
-// their rate that still is less time than the FMA form's issue slots, and
-// the kernel is bound by shared-memory latency, the B splits and the
-// cross-lane rescue, like the FMA form.  (Measured on an H100 at 700 W,
-// PERF.md: at span 16 this form takes 0.84-0.88 of the FMA form's time, at
-// span 80 less than half.)
+// Two kernels share the file.  The general one (tree_sweep_mma_kernel, span
+// 80) takes the block-diagonal P as the A operand (16-row m-tiles, 8-column
+// k-steps; pairs whose rows and columns share no rate are all zero and are
+// skipped at compile time: 22 of 50) and the child's [span, 8] column tile
+// as B; every parent goes through its pool slot, tiled [TB/8][span][8] so
+// that the B loads and the C stores are free of bank conflicts.  One tile's
+// accumulators and B fragments fill its registers (122 a thread), so it
+// hands nothing on.  The small-span one (tree_sweep_mma_small_kernel, span
+// 16) is the redesign described next.
 //
-// What the design does about it:
-//   * every slot is laid out [TB/8 tiles][span][8 sites]: a B fragment load
-//     (k = lane%4 (+4), site = lane/4) then touches 32 different banks, and
-//     the C fragment (row = lane/4 (+8), cols 2*(lane%4), +1) is stored as
-//     float2 to 64 consecutive words.  The [span][TB] layout of
-//     tree_sweep.cu would make the B loads 4-way bank conflicts.  No
-//     padding, so the footprint equals the FMA form's;
-//   * a warp owns 32 sites (4 tiles) in every slot and reads nothing another
-//     warp writes: one __syncwarp per op orders the C-layout stores against
-//     the next op's B-layout loads, and there is no __syncthreads;
-//   * a site's span entries sit in 8 lanes (same lane%4): the rescue's max
-//     is three __shfl_xor_sync over lane bits 2-4, and the scaler is added
-//     once per site by the lanes with lane/4 == 0;
-//   * op rows are read with __ldg: tables above 4096 rows do not fit the
-//     constant cache.
+// What bounds the sweep on an H100: the time one warp needs for one op,
+// times the ops.  The ops of a tree are a dependent chain, thousands long,
+// and under the Sethi-Ullman order two thirds of them consume the parent
+// the op before them wrote.  The first version of this kernel took 2.6 us
+// per op on 8,192 taxa (21.4 ms for 8,190 ops, H100 at 700 W), with eight
+// warps on an SM or with two:
+//   * the op's tips and P fragments were loaded at addresses only the op
+//     row knows, after the row: two dependent trips to device memory per op;
+//   * the warp's four 8-site tiles ran one after the other, because the
+//     tip-or-inner branch sat inside the tile loop;
+//   * the parent went to the next op through shared memory: rescue
+//     shuffles, C-layout store, __syncwarp, B-layout load;
+//   * the products' FLOPs are under 1 % of the tensor cores' rate, but a
+//     warp's mma.sync, conversions and shuffles each wait for the one
+//     before: the instruction count on the chain is what an op costs.
+//
+// What the small-span kernel does about it:
+//   * sites on the M side: out[site][n] = sum_k child[site][k] Pbd[n][k],
+//     the child's 16-site tile as A, P^T as B.  With 8 % S == 0 only the
+//     SPAN / 8 pairs with k-step == n-tile are nonzero, each result tile is
+//     one product per split term (half the mma.sync of the other
+//     orientation), and with the contraction index permuted (k-index q is
+//     state 8j + 2q, q + 4 is state 8j + 2q + 1) the accumulator a lane holds
+//     IS the A fragment the next product needs: a parent stays in registers
+//     for the op that consumes it with no data movement at all.  The host
+//     marks which parents are handed on and which are stored
+//     (partials_tree.carry_flags); rows and scalers are bit-equal either way;
+//   * a lane reads from the pool only what it wrote itself, so the pool is
+//     laid out per lane (16-byte loads and stores, no bank conflicts) and
+//     nothing orders the lanes of a warp: no __syncwarp, no __syncthreads;
+//   * the kinds of an op's children (tip, pool slot, handed on) and whether
+//     its parent is stored are template parameters, chosen by one switch per
+//     op, so the warp's two 16-site tiles and both children's products are
+//     one straight line of code and their chains overlap; the host orders
+//     the children so that five cases cover all (left * right commutes
+//     exactly);
+//   * op rows are fetched two ops ahead and the tips and P fragments one op
+//     ahead, into registers: device memory is off the chain;
+//   * a site's 16 entries sit in the four lanes of a quad: the rescue's max
+//     is two __shfl_xor_sync, not three, and a quad's lane 0 keeps the
+//     scalers of its two sites;
+//   * the compensated split's three products go to two accumulators (the
+//     chain is two mma.sync long, not three);
+//   * the site block is chosen small (partials_tree.pick_site_block with the
+//     SM count): warps are independent, and small blocks pack more of them
+//     into an SM's shared memory; an op row is three 16-byte loads.
+// What is left is one warp's instruction stream: 0.73 us per op on the same
+// tree, about 1,200 cycles, which clock reads in the op loop
+// (probes/variants.py clocks) put mostly before the first tile's products
+// are done; neither fewer products per op, nor fetching two ops ahead, nor
+// 16 sites a warp moved it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +100,6 @@
 
 namespace {
 
-constexpr int OP_COLS = 9;
 constexpr int TILE = 8;        // sites per mma n-tile
 constexpr int WARP_TILES = 4;  // tiles per warp: 32 sites
 constexpr unsigned FULL = 0xffffffffu;
@@ -119,25 +147,25 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
 
 // acc[mt] = (Pbd . child)[16mt .. 16mt+15][8 sites of this tile] in C
 // fragment layout.  TIP: the child is a tip with packed state mask `code`
-// (this lane's site); else its tile [span][8] starts at `tile`.
-// A: this lane's entry of pfrag[slot], [NP][2 (hi, lo)][32 lanes] uint4.
-template <int S, int R, bool TIP>
+// (this lane's site); else b_of(ks, h) gives this lane's B-fragment entry,
+// row 8ks + 4h + q of the child's tile at site g.  a_of(p, h) gives this
+// lane's A fragment of nonzero pair p, TF32 head (h = 0) or remainder (1).
+template <int S, int R, bool TIP, class BF, class AF>
 __device__ __forceinline__ void child_product(float (&acc)[R * S / 16][4],
-                                              int code, const float* tile,
-                                              const uint4* __restrict__ A,
-                                              int g, int q) {
+                                              int code, BF&& b_of, AF&& a_of,
+                                              int q) {
   constexpr int SPAN = R * S, MT = SPAN / 16, KS = SPAN / 8;
   uint32_t bh[KS][2], bl[KS][2];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int k = 8 * ks + 4 * h + q;
       if constexpr (TIP) {
+        const int k = 8 * ks + 4 * h + q;
         bh[ks][h] = ((code >> (k % S)) & 1) ? 0x3f800000u : 0u;  // 1.0f / 0
         bl[ks][h] = 0u;
       } else {
-        const float x = tile[k * TILE + g];
+        const float x = b_of(ks, h);
         const uint32_t hi = to_tf32(x);
         bh[ks][h] = hi;
         bl[ks][h] = to_tf32(x - __uint_as_float(hi));
@@ -151,8 +179,8 @@ __device__ __forceinline__ void child_product(float (&acc)[R * S / 16][4],
       constexpr int ks = decltype(ki)::value;
       if constexpr (pair_nonzero(S, mt, ks)) {
         constexpr int p = pair_index(S, KS, mt, ks);
-        const uint4 a_hi = __ldg(A + (2 * p + 0) * 32);
-        const uint4 a_lo = __ldg(A + (2 * p + 1) * 32);
+        const uint4 a_hi = a_of(p, 0);
+        const uint4 a_lo = a_of(p, 1);
         mma_tf32(acc[mt], a_lo, bh[ks][0], bh[ks][1]);
         if constexpr (!TIP) mma_tf32(acc[mt], a_hi, bl[ks][0], bl[ks][1]);
         mma_tf32(acc[mt], a_hi, bh[ks][0], bh[ks][1]);
@@ -161,11 +189,105 @@ __device__ __forceinline__ void child_product(float (&acc)[R * S / 16][4],
   });
 }
 
+// left *= right, then the per-site rescue.  This lane holds sites 2q, 2q+1
+// of the tile, rows g and g+8 of each m-tile; the other rows of those sites
+// are in the seven lanes with equal q: three __shfl_xor_sync over lane bits
+// 2-4 take the site's maximum.  Returns whether each site was rescued.
+template <int MT>
+__device__ __forceinline__ int2 multiply_rescue(float (&left)[MT][4],
+                                                const float (&right)[MT][4],
+                                                float thresh, float factor) {
+  float m0 = 0.0f, m1 = 0.0f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) left[mt][i] *= right[mt][i];
+    m0 = fmaxf(m0, fmaxf(left[mt][0], left[mt][2]));
+    m1 = fmaxf(m1, fmaxf(left[mt][1], left[mt][3]));
+  }
+#pragma unroll
+  for (int x = 4; x < 32; x <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, x));
+    m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, x));
+  }
+  const bool below0 = m0 < thresh, below1 = m1 < thresh;
+  const float f0 = below0 ? factor : 1.0f, f1 = below1 ? factor : 1.0f;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    left[mt][0] *= f0;
+    left[mt][1] *= f1;
+    left[mt][2] *= f0;
+    left[mt][3] *= f1;
+  }
+  return make_int2(below0 ? 1 : 0, below1 ? 1 : 0);
+}
+
+// A parent tile in C-fragment layout to its place in a pool slot.
+template <int MT>
+__device__ __forceinline__ void store_tile(float* out,
+                                           const float (&y)[MT][4], int g,
+                                           int q) {
+  out += 2 * q;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    *reinterpret_cast<float2*>(out + (16 * mt + g) * TILE) =
+        make_float2(y[mt][0], y[mt][1]);
+    *reinterpret_cast<float2*>(out + (16 * mt + g + 8) * TILE) =
+        make_float2(y[mt][2], y[mt][3]);
+  }
+}
+
+// Export slots are never reused by the schedule, and an exported parent is
+// always stored.  Thread t copies site t, which its own warp wrote: no
+// block-wide barrier needed.
+template <int SPAN>
+__device__ __forceinline__ void export_rows(
+    const float* pool, const int* spool, size_t slot_stride, int tb,
+    const int* __restrict__ export_slots, int n_exp,
+    float* __restrict__ clv_out, int* __restrict__ scal_out) {
+  const int t = threadIdx.x;
+  const int blk = blockIdx.x, nt = gridDim.x;
+  for (int e = 0; e < n_exp; ++e) {
+    const int slot = __ldg(export_slots + e);
+    const float* src =
+        pool + slot * slot_stride + (size_t)(t >> 3) * SPAN * TILE + (t & 7);
+    float* dst = clv_out + ((size_t)e * nt + blk) * SPAN * tb + t;
+    for (int k = 0; k < SPAN; ++k) dst[(size_t)k * tb] = src[k * TILE];
+    scal_out[((size_t)e * nt + blk) * tb + t] = spool[(size_t)slot * tb + t];
+  }
+}
+
+// One row of the device table (partials_tree.mma_device_table): columns 0-8
+// the schedule's, 9 the op's case (which kinds of children), 10 whether the
+// parent is stored to its slot, 11 whether it is handed on in registers.
+struct OpRow {
+  int4 a, b, c;
+  __device__ int parent() const { return a.x; }
+  __device__ int tip1() const { return a.y; }
+  __device__ int slot1() const { return a.z; }
+  __device__ bool is_tip1() const { return a.w != 0; }
+  __device__ int tip2() const { return b.x; }
+  __device__ int slot2() const { return b.y; }
+  __device__ bool is_tip2() const { return b.z != 0; }
+  __device__ int pm1() const { return b.w; }
+  __device__ int pm2() const { return c.x; }
+  __device__ int kinds() const { return c.y; }
+  __device__ bool keep() const { return c.w != 0; }
+};
+
+__device__ __forceinline__ OpRow load_row(const int4* __restrict__ ops,
+                                          int w) {
+  const int4* row = ops + 3 * (size_t)w;
+  return OpRow{__ldg(row), __ldg(row + 1), __ldg(row + 2)};
+}
+
+// The general kernel: any (S, R) whose span fills whole m-tiles; every parent
+// goes through its pool slot (columns 9-11 of the table are not read).
 // grid = NT site blocks, block = TB threads: warp w owns sites 32w..32w+31.
 // shared: pool [pool_size][TB/8][span][8] f32, spool [pool_size][TB] i32.
 template <int S, int R>
 __global__ void __launch_bounds__(256)
-tree_sweep_mma_kernel(const int* __restrict__ ops, int n_ops,
+tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
                       const uint4* __restrict__ pfrag,
                       const int* __restrict__ tip_blocked, int tips,
                       const int* __restrict__ export_slots, int n_exp,
@@ -178,118 +300,392 @@ tree_sweep_mma_kernel(const int* __restrict__ ops, int n_ops,
   const int tb = blockDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int blk = blockIdx.x, nt = gridDim.x;
   const size_t slot_stride = (size_t)SPAN * tb;
   float* pool = smem;
   int* spool = reinterpret_cast<int*>(smem + (size_t)pool_size * slot_stride);
   const int warp_off = warp * WARP_TILES * SPAN * TILE;
   // tip i at this lane's site: tip_col[i * tb]
-  const int* tip_col = tip_blocked + (size_t)blk * tips * tb + threadIdx.x;
+  const int* tip_col =
+      tip_blocked + (size_t)blockIdx.x * tips * tb + threadIdx.x;
 
   for (int w = 0; w < n_ops; ++w) {
-    const int* op = ops + (size_t)w * OP_COLS;
-    const int p_slot = __ldg(op + 0);
-    const bool tip1 = __ldg(op + 3) != 0;
-    const bool tip2 = __ldg(op + 6) != 0;
-    const int slot1 = __ldg(op + 2);
-    const int slot2 = __ldg(op + 5);
-    const int code1 = tip1 ? __ldg(tip_col + (size_t)__ldg(op + 1) * tb) : 0;
-    const int code2 = tip2 ? __ldg(tip_col + (size_t)__ldg(op + 4) * tb) : 0;
-    const uint4* A1 = pfrag + (size_t)__ldg(op + 7) * (NP * 2 * 32) + lane;
-    const uint4* A2 = pfrag + (size_t)__ldg(op + 8) * (NP * 2 * 32) + lane;
-    const float* c1 = pool + slot1 * slot_stride + warp_off;
-    const float* c2 = pool + slot2 * slot_stride + warp_off;
-    float* par = pool + p_slot * slot_stride + warp_off;
+    const OpRow op = load_row(ops, w);
+    const bool tip1 = op.is_tip1(), tip2 = op.is_tip2();
+    const int code1 = tip1 ? __ldg(tip_col + (size_t)op.tip1() * tb) : 0;
+    const int code2 = tip2 ? __ldg(tip_col + (size_t)op.tip2() * tb) : 0;
+    const uint4* A1 = pfrag + (size_t)op.pm1() * (NP * 2 * 32) + lane;
+    const uint4* A2 = pfrag + (size_t)op.pm2() * (NP * 2 * 32) + lane;
+    auto a1 = [&](int p, int h) { return __ldg(A1 + (2 * p + h) * 32); };
+    auto a2 = [&](int p, int h) { return __ldg(A2 + (2 * p + h) * 32); };
+    const float* c1 = pool + op.slot1() * slot_stride + warp_off;
+    const float* c2 = pool + op.slot2() * slot_stride + warp_off;
+    float* par = pool + op.parent() * slot_stride + warp_off;
 
-    // span 16: the four tiles unrolled, so that one tile's shared-memory
-    // loads and splits overlap another's mma and the A fragments are
-    // loaded once per op; at span 80 one tile's state fills the registers
-#pragma unroll (NP <= 4 ? WARP_TILES : 1)
+    // one tile at a time: at span 80 one tile's accumulators and B
+    // fragments fill the registers
+#pragma unroll 1
     for (int tile = 0; tile < WARP_TILES; ++tile) {
       // the B fragment's site is lane/4 of this tile
       const int t1 = __shfl_sync(FULL, code1, tile * TILE + g);
       const int t2 = __shfl_sync(FULL, code2, tile * TILE + g);
       const int tile_off = tile * SPAN * TILE;
+      auto b1 = [&](int ks, int h) {
+        return c1[tile_off + (8 * ks + 4 * h + q) * TILE + g];
+      };
+      auto b2 = [&](int ks, int h) {
+        return c2[tile_off + (8 * ks + 4 * h + q) * TILE + g];
+      };
       float left[MT][4], right[MT][4];
       if (tip1)
-        child_product<S, R, true>(left, t1, nullptr, A1, g, q);
+        child_product<S, R, true>(left, t1, b1, a1, q);
       else
-        child_product<S, R, false>(left, 0, c1 + tile_off, A1, g, q);
+        child_product<S, R, false>(left, 0, b1, a1, q);
       if (tip2)
-        child_product<S, R, true>(right, t2, nullptr, A2, g, q);
+        child_product<S, R, true>(right, t2, b2, a2, q);
       else
-        child_product<S, R, false>(right, 0, c2 + tile_off, A2, g, q);
-
-      // this lane holds sites 2q, 2q+1 of the tile, rows g and g+8 of each
-      // m-tile; the other rows of those sites are in the lanes with equal q
-      float m0 = 0.0f, m1 = 0.0f;  // CLV entries are >= 0
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) left[mt][i] *= right[mt][i];
-        m0 = fmaxf(m0, fmaxf(left[mt][0], left[mt][2]));
-        m1 = fmaxf(m1, fmaxf(left[mt][1], left[mt][3]));
-      }
-#pragma unroll
-      for (int x = 4; x < 32; x <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, x));
-        m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, x));
-      }
-      const bool below0 = m0 < thresh, below1 = m1 < thresh;
-      const float f0 = below0 ? factor : 1.0f, f1 = below1 ? factor : 1.0f;
-      float* out = par + tile_off + 2 * q;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        *reinterpret_cast<float2*>(out + (16 * mt + g) * TILE) =
-            make_float2(left[mt][0] * f0, left[mt][1] * f1);
-        *reinterpret_cast<float2*>(out + (16 * mt + g + 8) * TILE) =
-            make_float2(left[mt][2] * f0, left[mt][3] * f1);
-      }
+        child_product<S, R, false>(right, 0, b2, a2, q);
+      int2 s = multiply_rescue<MT>(left, right, thresh, factor);
+      store_tile<MT>(par + tile_off, left, g, q);
       if (g == 0) {  // once per site: lanes 0-3 carry sites 2q, 2q+1
         const int site = warp * 32 + tile * TILE + 2 * q;
-        int2 s = make_int2(below0 ? 1 : 0, below1 ? 1 : 0);
         if (!tip1) {
-          const int2 a = *reinterpret_cast<const int2*>(
-              spool + (size_t)slot1 * tb + site);
-          s.x += a.x;
-          s.y += a.y;
+          const int2 x = *reinterpret_cast<const int2*>(
+              spool + (size_t)op.slot1() * tb + site);
+          s.x += x.x;
+          s.y += x.y;
         }
         if (!tip2) {
-          const int2 a = *reinterpret_cast<const int2*>(
-              spool + (size_t)slot2 * tb + site);
-          s.x += a.x;
-          s.y += a.y;
+          const int2 x = *reinterpret_cast<const int2*>(
+              spool + (size_t)op.slot2() * tb + site);
+          s.x += x.x;
+          s.y += x.y;
         }
-        *reinterpret_cast<int2*>(spool + (size_t)p_slot * tb + site) = s;
+        *reinterpret_cast<int2*>(spool + (size_t)op.parent() * tb + site) = s;
       }
     }
-    // stores in C layout above, loads in B layout in the next op
+    // stores in C layout above, loads in B layout in a later op
     __syncwarp();
   }
+  export_rows<SPAN>(pool, spool, slot_stride, tb, export_slots, n_exp,
+                    clv_out, scal_out);
+}
 
-  // Export slots are never reused by the schedule.  Thread t copies site t,
-  // which its own warp wrote: no block-wide barrier needed.
-  const int t = threadIdx.x;
-  for (int e = 0; e < n_exp; ++e) {
-    const int slot = __ldg(export_slots + e);
-    const float* src =
-        pool + slot * slot_stride + (size_t)(t >> 3) * SPAN * TILE + (t & 7);
-    float* dst = clv_out + ((size_t)e * nt + blk) * SPAN * tb + t;
-    for (int k = 0; k < SPAN; ++k) dst[(size_t)k * tb] = src[k * TILE];
-    scal_out[((size_t)e * nt + blk) * tb + t] = spool[(size_t)slot * tb + t];
+// ---- the small-span kernel: sites on the M side of the product, operands
+// fetched one op ahead, a parent handed on in its accumulator registers ----
+//
+// out[site][n] = sum_k child[site][k] Pbd[n][k]: the child's 16-site tile is
+// the A operand, P^T the B operand.  With 8 % S == 0 the 8 states of a
+// k-step share their rates with exactly one 8-row n-tile, so the nonzero
+// (k-step, n-tile) pairs are the SPAN / 8 with k-step == n-tile == j, and
+// n-tile j of the result is one product.  The contraction index may be
+// permuted freely as long as both operands agree; here k-index q stands
+// for state 8j + 2q and k-index q + 4 for state 8j + 2q + 1.  Then the
+// accumulator a lane holds for n-tile j (C fragment: sites g, g + 8; states
+// 8j + 2q, 8j + 2q + 1) IS the A fragment it needs for k-step j of the next
+// product (rows g, g + 8; k-indices q, q + 4): c0, c2, c1, c3 are a0, a1, a2,
+// a3.  A parent reaches the op that consumes it without any data movement.
+
+constexpr int M_SITES = 16;   // sites per m-tile
+constexpr int WARP_M = 2;     // m-tiles a warp owns: 32 sites
+
+// Where a child's tile comes from.  The host orders an op's children so
+// that the first kind is not after the second (the product left * right
+// commutes exactly), and at most the second is CARRIED.
+enum class Child { TIP, POOL, CARRIED };
+
+// What an op reads from device memory besides its row.  M: m-tiles a warp
+// owns; NT: n-tiles (= k-steps) of the span.
+template <int M, int NT>
+struct Fetched {
+  int code1[M][2], code2[M][2];  // the tips' packed states at sites g, g + 8
+  float4 b1[NT], b2[NT];         // this lane's B fragments of both P-matrices:
+                                 // (b0, b1) TF32 heads, (b0, b1) remainders
+};
+
+template <int M, int NT>
+__device__ __forceinline__ void fetch(Fetched<M, NT>& f, const OpRow& op,
+                                      const float4* __restrict__ pfrag_lane,
+                                      const int* __restrict__ tip_col,
+                                      int tb) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int site = m * M_SITES + 8 * c;
+      f.code1[m][c] = op.is_tip1()
+                          ? __ldg(tip_col + (size_t)op.tip1() * tb + site) : 0;
+      f.code2[m][c] = op.is_tip2()
+                          ? __ldg(tip_col + (size_t)op.tip2() * tb + site) : 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    f.b1[j] = __ldg(pfrag_lane + ((size_t)op.pm1() * NT + j) * 32);
+    f.b2[j] = __ldg(pfrag_lane + ((size_t)op.pm2() * NT + j) * 32);
   }
 }
 
-// pfrag [n_slots][n_pairs][2 (hi, lo)][32][4] from pmat [n_slots][pm_words]:
-// element j of a slot's [n_pairs][32][4] fragment table is pmat[idx[j]]
-// (idx[j] == pm_words: the zero outside the rate blocks), split into a TF32
-// head and a TF32 remainder.  One thread per element.
+// A tip's entries at one n-tile, in C order, as f32 bit patterns: 1.0f where
+// the packed state mask has the state, else 0 (both exact in TF32).
+__device__ __forceinline__ void tip_entries(float (&x)[4], int code_g,
+                                            int code_g8, int st) {
+  x[0] = __uint_as_float(((code_g >> st) & 1) ? 0x3f800000u : 0u);
+  x[1] = __uint_as_float(((code_g >> (st + 1)) & 1) ? 0x3f800000u : 0u);
+  x[2] = __uint_as_float(((code_g8 >> st) & 1) ? 0x3f800000u : 0u);
+  x[3] = __uint_as_float(((code_g8 >> (st + 1)) & 1) ? 0x3f800000u : 0u);
+}
+
+// d (C order: site g states 2q, 2q + 1; site g + 8 the same) = child tile .
+// P^T for one n-tile.  x: the child's entries in the same C order (a tip's
+// are 0 or 1: their own TF32 heads, with no remainder).  The three products
+// of the compensated split go to two accumulators that are added at the
+// end, so the chain is two mma long, not three.
+template <bool TIP>
+__device__ __forceinline__ void site_product(float (&d)[4],
+                                             const float (&x)[4],
+                                             const float4& b) {
+  uint4 hi, lo;
+  if constexpr (TIP) {
+    hi.x = __float_as_uint(x[0]), hi.y = __float_as_uint(x[2]);
+    hi.z = __float_as_uint(x[1]), hi.w = __float_as_uint(x[3]);
+  } else {
+    hi.x = to_tf32(x[0]), hi.y = to_tf32(x[2]);
+    hi.z = to_tf32(x[1]), hi.w = to_tf32(x[3]);
+  }
+  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+  const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+  float main[4] = {0.0f, 0.0f, 0.0f, 0.0f}, corr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(corr, hi, bl0, bl1);
+  if constexpr (!TIP) {
+    lo.x = to_tf32(x[0] - __uint_as_float(hi.x));
+    lo.y = to_tf32(x[2] - __uint_as_float(hi.y));
+    lo.z = to_tf32(x[1] - __uint_as_float(hi.z));
+    lo.w = to_tf32(x[3] - __uint_as_float(hi.w));
+    mma_tf32(corr, lo, bh0, bh1);
+  }
+  mma_tf32(main, hi, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = main[i] + corr[i];
+}
+
+// The warp's share of one op: M m-tiles of 16 sites, each NT products per
+// child.  The kinds of both children and whether the parent is handed on
+// (KEEP) or stored are compile-time, so the tiles are one straight line of
+// code and their chains overlap.  A lane reads from the pool only what it
+// wrote itself (pool4: [slot][16-site tile][n-tile][lane] float4 in C
+// order; spool: [slot][site], the lanes with q == 0), so nothing orders
+// the warp's lanes against each other.
+template <int S, int R, int M, Child K1, Child K2, bool KEEP>
+__device__ __forceinline__ void op_tiles(
+    const OpRow& op, const Fetched<M, R * S / 8>& f, float4* pool4,
+    int* spool, int tb, int warp, int lane, float thresh, float factor,
+    float (&held)[M][R * S / 8][4], int2 (&held_scal)[M]) {
+  constexpr int NT = R * S / 8;
+  static_assert(K1 != Child::CARRIED, "the host puts a carried child second");
+  const int g = lane >> 2, q = lane & 3;
+  const int tiles = tb / M_SITES;      // 16-site tiles of the CTA
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int tile = warp * M + m;
+    const float4* c1 = pool4 + ((size_t)op.slot1() * tiles + tile) * NT * 32
+                       + lane;
+    const float4* c2 = pool4 + ((size_t)op.slot2() * tiles + tile) * NT * 32
+                       + lane;
+    float y[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float x1[4], x2[4], right[4];
+      const int st = (8 * j + 2 * q) % S;   // state 8j + 2q within its rate
+      if constexpr (K1 == Child::TIP) {
+        tip_entries(x1, f.code1[m][0], f.code1[m][1], st);
+      } else {
+        const float4 v = c1[j * 32];
+        x1[0] = v.x, x1[1] = v.y, x1[2] = v.z, x1[3] = v.w;
+      }
+      if constexpr (K2 == Child::TIP) {
+        tip_entries(x2, f.code2[m][0], f.code2[m][1], st);
+      } else if constexpr (K2 == Child::CARRIED) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x2[i] = held[m][j][i];
+      } else {
+        const float4 v = c2[j * 32];
+        x2[0] = v.x, x2[1] = v.y, x2[2] = v.z, x2[3] = v.w;
+      }
+      site_product<K1 == Child::TIP>(y[j], x1, f.b1[j]);
+      site_product<K2 == Child::TIP>(right, x2, f.b2[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[j][i] *= right[i];
+    }
+    // the rescue: a site's 16 entries sit in the four lanes of its quad
+    float ma = 0.0f, mb = 0.0f;  // CLV entries are >= 0
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      ma = fmaxf(ma, fmaxf(y[j][0], y[j][1]));
+      mb = fmaxf(mb, fmaxf(y[j][2], y[j][3]));
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      ma = fmaxf(ma, __shfl_xor_sync(FULL, ma, x));
+      mb = fmaxf(mb, __shfl_xor_sync(FULL, mb, x));
+    }
+    const bool below_a = ma < thresh, below_b = mb < thresh;
+    const float fa = below_a ? factor : 1.0f, fb = below_b ? factor : 1.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      y[j][0] *= fa;
+      y[j][1] *= fa;
+      y[j][2] *= fb;
+      y[j][3] *= fb;
+    }
+    // scalers, once per site: the quad's lane 0 carries sites g and g + 8
+    const int site = tile * M_SITES + g;
+    int2 s = make_int2(below_a ? 1 : 0, below_b ? 1 : 0);
+    if (q == 0) {
+      if constexpr (K1 == Child::POOL) {
+        s.x += spool[(size_t)op.slot1() * tb + site];
+        s.y += spool[(size_t)op.slot1() * tb + site + 8];
+      }
+      if constexpr (K2 == Child::POOL) {
+        s.x += spool[(size_t)op.slot2() * tb + site];
+        s.y += spool[(size_t)op.slot2() * tb + site + 8];
+      }
+      if constexpr (K2 == Child::CARRIED) {
+        s.x += held_scal[m].x;
+        s.y += held_scal[m].y;
+      }
+    }
+    if constexpr (KEEP) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) held[m][j][i] = y[j][i];
+      }
+      held_scal[m] = s;
+    } else {
+      float4* par = pool4 + ((size_t)op.parent() * tiles + tile) * NT * 32
+                    + lane;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        par[j * 32] = make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+      if (q == 0) {
+        spool[(size_t)op.parent() * tb + site] = s.x;
+        spool[(size_t)op.parent() * tb + site + 8] = s.y;
+      }
+    }
+  }
+}
+
+// grid = NT site blocks of TB sites; block = TB threads: a warp owns WARP_M
+// tiles of 16 sites, whose chains overlap.  shared: pool4 and spool as
+// op_tiles says, TB * (span + 1) * 4 bytes a slot, the general kernel's
+// footprint.  A parent is either stored or handed on, never both
+// (partials_tree.carry_flags).
+template <int S, int R>
+__global__ void __launch_bounds__(256)
+tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
+                            const float4* __restrict__ pfrag,
+                            const int* __restrict__ tip_blocked, int tips,
+                            const int* __restrict__ export_slots, int n_exp,
+                            float* __restrict__ clv_out,
+                            int* __restrict__ scal_out, int pool_size,
+                            float thresh, float factor) {
+  constexpr int SPAN = R * S, NT = SPAN / 8, M = WARP_M;
+  static_assert(8 % S == 0, "a k-step's states must share whole rates");
+  extern __shared__ float4 smem4[];
+  const int tb = blockDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  float4* pool4 = smem4;
+  int* spool = reinterpret_cast<int*>(smem4 + (size_t)pool_size * tb * SPAN / 4);
+  // the tips at this lane's sites g (+ 8) of the warp's first tile
+  const int* tip_col = tip_blocked + (size_t)blockIdx.x * tips * tb +
+                       warp * M * M_SITES + g;
+  const float4* pfrag_lane = pfrag + lane;
+
+  float held[M][NT][4];   // the previous parent, as its accumulators left it
+  int2 held_scal[M];      // its scaler counts (lanes with q == 0)
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    held_scal[m] = make_int2(0, 0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) held[m][j][i] = 0.0f;
+    }
+  }
+
+  // rows two ops ahead, tips and B fragments one op ahead: their device
+  // memory latency is off the chain from one op to the next.  Past the end
+  // the last row is fetched again and not used.
+  const int last = n_ops - 1;
+  OpRow op = load_row(ops, 0), next_op = load_row(ops, min(1, last));
+  Fetched<M, NT> f, next_f;
+  fetch<M, NT>(f, op, pfrag_lane, tip_col, tb);
+  for (int w = 0; w < n_ops; ++w) {
+    const OpRow after = load_row(ops, min(w + 2, last));
+    fetch<M, NT>(next_f, next_op, pfrag_lane, tip_col, tb);
+#define LIBPLL_OP(K1, K2, KEEP)                                          \
+  op_tiles<S, R, M, Child::K1, Child::K2, KEEP>(                         \
+      op, f, pool4, spool, tb, warp, lane, thresh, factor, held, held_scal)
+    switch (2 * op.kinds() + (op.keep() ? 1 : 0)) {
+      case 0: LIBPLL_OP(TIP, TIP, false); break;
+      case 1: LIBPLL_OP(TIP, TIP, true); break;
+      case 2: LIBPLL_OP(TIP, POOL, false); break;
+      case 3: LIBPLL_OP(TIP, POOL, true); break;
+      case 4: LIBPLL_OP(TIP, CARRIED, false); break;
+      case 5: LIBPLL_OP(TIP, CARRIED, true); break;
+      case 6: LIBPLL_OP(POOL, POOL, false); break;
+      case 7: LIBPLL_OP(POOL, POOL, true); break;
+      case 8: LIBPLL_OP(POOL, CARRIED, false); break;
+      default: LIBPLL_OP(POOL, CARRIED, true); break;
+    }
+#undef LIBPLL_OP
+    op = next_op;
+    next_op = after;
+    f = next_f;
+  }
+
+  // Export slots are never reused by the schedule, and an exported parent is
+  // always stored.  Every lane writes out the entries it holds.
+  const int nt = gridDim.x, blk = blockIdx.x;
+  const int tiles = tb / M_SITES;
+  for (int e = 0; e < n_exp; ++e) {
+    const int slot = __ldg(export_slots + e);
+    float* dst = clv_out + ((size_t)e * nt + blk) * SPAN * tb;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int tile = warp * M + m;
+      const int site = tile * M_SITES + g;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 v =
+            pool4[(((size_t)slot * tiles + tile) * NT + j) * 32 + lane];
+        float* row = dst + (size_t)(8 * j + 2 * q) * tb + site;
+        row[0] = v.x;
+        row[tb] = v.y;
+        row[8] = v.z;
+        row[tb + 8] = v.w;
+      }
+      if (q == 0) {
+        int* out = scal_out + ((size_t)e * nt + blk) * tb + site;
+        out[0] = spool[(size_t)slot * tb + site];
+        out[8] = spool[(size_t)slot * tb + site + 8];
+      }
+    }
+  }
+}
+
+// The P operand of both kernels, from pmat [n_slots][pm_words]: element i of
+// a slot's `words` table entries is pmat[idx[i]] (idx[i] == pm_words: the
+// zero outside the rate blocks), split into a TF32 head and a TF32
+// remainder.  Entries come in runs of `run`; a run's heads are followed by
+// its remainders: pfrag[slot][i / run][2 (hi, lo)][run].  One thread per
+// entry.
 __global__ void pmatrix_fragments_kernel(const float* __restrict__ pmat,
                                          const int* __restrict__ idx,
                                          float* __restrict__ pfrag,
-                                         int n_slots, int n_pairs,
+                                         int n_slots, int words, int run,
                                          int pm_words) {
-  const int words = n_pairs * 128;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)n_slots * words) return;
   const int slot = (int)(i / words), j = (int)(i % words);
@@ -298,24 +694,23 @@ __global__ void pmatrix_fragments_kernel(const float* __restrict__ pmat,
                                : 0.0f;
   const float hi = __uint_as_float(to_tf32(x));
   const float lo = __uint_as_float(to_tf32(x - hi));
-  float* out = pfrag + ((size_t)slot * n_pairs + j / 128) * 256 + j % 128;
+  float* out = pfrag + ((size_t)slot * words + (j / run) * run) * 2 + j % run;
   out[0] = hi;
-  out[128] = lo;
+  out[run] = lo;
 }
 
-template <int S, int R>
-cudaError_t launch(const int* ops, int n_ops, const void* pfrag,
-                   const int* tip_blocked, int tips, const int* export_slots,
-                   int n_exp, float* clv_out, int* scal_out, int nt, int tb,
-                   int pool_size, float thresh, float factor,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)pool_size * (R * S + 1) * tb * 4;
+template <class K, class F>
+cudaError_t launch(K kernel, int span, const int* ops, int n_ops,
+                   const F* pfrag, const int* tip_blocked, int tips,
+                   const int* export_slots, int n_exp, float* clv_out,
+                   int* scal_out, int nt, int tb, int pool_size, float thresh,
+                   float factor, cudaStream_t stream) {
+  const size_t smem = (size_t)pool_size * (span + 1) * tb * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      tree_sweep_mma_kernel<S, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  tree_sweep_mma_kernel<S, R><<<nt, tb, smem, stream>>>(
-      ops, n_ops, static_cast<const uint4*>(pfrag), tip_blocked, tips,
+  kernel<<<nt, tb, smem, stream>>>(
+      reinterpret_cast<const int4*>(ops), n_ops, pfrag, tip_blocked, tips,
       export_slots, n_exp, clv_out, scal_out, pool_size, thresh, factor);
   return cudaGetLastError();
 }
@@ -325,21 +720,24 @@ cudaError_t launch(const int* ops, int n_ops, const void* pfrag,
 extern "C" {
 
 // tree_sweep_mma_fragments: split P [n_slots][pm_words] into TF32 (hi, lo)
-// in A-fragment order, by the index table idx [n_pairs][32][4] int32
+// in fragment order, by the index table idx [words] int32 and its run length
 // (partials_tree.mma_fragment_index), on `stream`.
 //
-// tree_sweep_mma_launch: the tensor-core sweep on `stream`.  pfrag:
-// [P][NP][2 (hi, lo)][32 lanes][4] f32 already rounded to TF32 (the output
-// of tree_sweep_mma_fragments).  tb is a multiple of 32; (states, rates)
-// one of (4, 4), (20, 4).  Both return the cudaError_t of the launch.
+// tree_sweep_mma_launch: the tensor-core sweep on `stream`.  ops: [n_ops][12]
+// int32, 16-byte aligned (partials_tree.mma_device_table).  pfrag: the
+// output of tree_sweep_mma_fragments for this case.  tb is a multiple of 32
+// up to 256.  (states, rates) (4, 4): the small-span kernel; (20, 4): the
+// general kernel, which never hands a parent on and always stores.  Both
+// return the cudaError_t of the launch.
 int tree_sweep_mma_fragments(const float* pmat, const int* idx, float* pfrag,
-                             int n_slots, int n_pairs, int pm_words,
+                             int n_slots, int words, int run, int pm_words,
                              void* stream) {
-  const size_t total = (size_t)n_slots * n_pairs * 128;
+  const size_t total = (size_t)n_slots * words;
   if (total == 0) return (int)cudaSuccess;
+  if (run <= 0 || words % run) return (int)cudaErrorInvalidValue;
   pmatrix_fragments_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      pmat, idx, pfrag, n_slots, n_pairs, pm_words);
+      pmat, idx, pfrag, n_slots, words, run, pm_words);
   return (int)cudaGetLastError();
 }
 
@@ -350,15 +748,20 @@ int tree_sweep_mma_launch(const int* ops, int n_ops, const void* pfrag,
                           int pool_size, float thresh, float factor,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tb % 32 != 0 || tb > 256) return (int)cudaErrorInvalidValue;
+  if (n_ops <= 0 || tb <= 0 || tb % 32 || tb > 256 ||
+      reinterpret_cast<uintptr_t>(ops) % 16 ||
+      reinterpret_cast<uintptr_t>(pfrag) % 16)
+    return (int)cudaErrorInvalidValue;
   if (states == 4 && rates == 4)
-    return (int)launch<4, 4>(ops, n_ops, pfrag, tip_blocked, tips,
-                             export_slots, n_exp, clv_out, scal_out, nt, tb,
-                             pool_size, thresh, factor, s);
+    return (int)launch(tree_sweep_mma_small_kernel<4, 4>, 16, ops, n_ops,
+                       static_cast<const float4*>(pfrag), tip_blocked, tips,
+                       export_slots, n_exp, clv_out, scal_out, nt, tb,
+                       pool_size, thresh, factor, s);
   if (states == 20 && rates == 4)
-    return (int)launch<20, 4>(ops, n_ops, pfrag, tip_blocked, tips,
-                              export_slots, n_exp, clv_out, scal_out, nt, tb,
-                              pool_size, thresh, factor, s);
+    return (int)launch(tree_sweep_mma_kernel<20, 4>, 80, ops, n_ops,
+                       static_cast<const uint4*>(pfrag), tip_blocked, tips,
+                       export_slots, n_exp, clv_out, scal_out, nt, tb,
+                       pool_size, thresh, factor, s);
   return (int)cudaErrorInvalidValue;
 }
 

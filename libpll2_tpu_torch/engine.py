@@ -189,20 +189,22 @@ def kernel_choice(program: TreeProgram, cfg: PartitionConfig,
         return None
     if cfg.use_kernel is None and device.type == "cpu":
         return None
-    limit = partials_tree.SMEM_LIMIT
+    limit, sm_count = partials_tree.SMEM_LIMIT, None
     if device.type == "cuda":
         from . import _build
         limit = _build.max_shared_memory(device)
+        sm_count = torch.cuda.get_device_properties(
+            device).multi_processor_count
     prog = program.vmem_prog
     if cfg.sweep_mode is None:
-        choice = partials_tree.choose(prog, cfg, limit)
+        choice = partials_tree.choose(prog, cfg, limit, sm_count)
         mode = "fma"      # the form whose refusal is reported
     else:
         mode = cfg.sweep_mode
         choice = None
         if partials_tree.unsupported(prog, cfg, limit, mode) is None:
-            choice = (partials_tree.pick_site_block(prog, cfg, limit, mode),
-                      mode)
+            choice = (partials_tree.pick_site_block(prog, cfg, limit, mode,
+                                                    sm_count), mode)
     if choice is None:
         reason = partials_tree.unsupported(prog, cfg, limit, mode)
         raise ValueError(f"tree-sweep kernel cannot take this case: {reason}"

@@ -19,13 +19,27 @@ site sums of (-L'/L, (L'/L)^2 - L''/L), with L^(k) = Σ st·w0·x^k·e^{x t}
 (x = eigenvalue·rate/(1-pinv), w0 = rate weight·(1-pinv)), and the final
 score Σ w·(log L + scalers·log_thresh).
 
-`edge_scores` is the wrapper: the CUDA kernel (csrc/edge_score.cu) on CUDA
+`edge_scores` is the wrapper: a CUDA kernel (csrc/edge_score.cu) on CUDA
 tensors, the plain version `edge_scores_reference` on CPU tensors.  Unlike
 the Pallas wrapper, it takes the base message rows, the half-P matrices
 and the scaler rows as they are and gathers them by the slot's op row, and
 it starts Newton from the real branch length (Pallas pre-gathers in slot
 order and quantizes t0 to 1e-7 only because Mosaic lacks dynamic row
 indices and SMEM bitcasts).
+
+The kernel has two forms, and `plan` picks one on the host from the shape
+and the device's shared memory:
+
+  * "resident": a slot is scored by a thread-block cluster of k CTAs, each
+    keeping its stripe of the sumtable st [R*S, ceil(T / k)] in shared
+    memory, so the message rows are read once and the Newton passes read
+    st only; the passes' sums are added across the cluster in stripe order
+    (`edge_scores_reference(..., stripes=k)` sums in that order);
+  * "reread": one CTA per slot recomputes st from the rows in every pass;
+    it serves the shapes whose stripe does not fit a block at k = 8.
+
+Neither form stands in for the other after a failure: a build or launch
+error raises.
 
 Contract (the caller takes the plain scorer otherwise): f32, per-site
 scalers, no ascertainment bias, no invariant-marked site (+I enters only
@@ -34,15 +48,58 @@ through prop_invar in x and w0).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from .derivatives import newton_update
-from .partials_tree import KERNEL_STATES
+from .partials_tree import KERNEL_STATES, SMEM_LIMIT
 
 # score-op columns the scorer reads (search_fast.BOP_*)
 OP_COLS = 12
 OP_PARENT, OP_SC_ROW, OP_SC_SCAL, OP_EDGE, OP_VALID = 0, 8, 9, 10, 11
+FORMS = ("resident", "reread")
+# CTAs per slot the resident form may run on: a cluster of up to 8 is
+# portable on sm_90
+CLUSTER_SIZES = (1, 2, 4, 8)
+# The resident form's stripe is sized so that this many CTAs fit one SM's
+# shared memory where a cluster size allows it (the kernel's registers let
+# two run, and a third stripe's room costs nothing); else the largest
+# stripe that fits a block alone.  Measured on an H100 at 700 W over a
+# full-width round (256 taxa x 4,096 sites, radius 5; probes/variants.py
+# passes): clusters of 4 (68 KB a CTA) 7.5 ms, of 2 (131 KB, one CTA an
+# SM) 8.5 ms, of 8 (half the threads idle at four sites a thread) 13.2 ms.
+RESIDENT_CTAS_PER_SM = 3
+
+
+def resident_smem_bytes(rate_cats: int, states: int, sites: int,
+                        cluster: int) -> int:
+    """Dynamic shared memory of one CTA of the resident form at `cluster`
+    CTAs per slot (csrc/edge_score.cu:edge_score_resident_smem): the sums
+    of every warp of the cluster [2, 8 CTAs, 8 warps, 2], the e-terms
+    [8 warps, R*S, 4], the constants H, ML, EV [R, S, S] and x, w0 [R*S],
+    rounded up to 16 bytes, then the stripe of the sumtable
+    [R*S, ceil(sites / cluster)], all f32."""
+    span = rate_cats * states
+    head = 256 + 32 * span + 3 * rate_cats * states * states + 2 * span
+    head = -(-head // 4) * 4
+    stripe = -(-sites // cluster)
+    return 4 * (head + span * stripe)
+
+
+def plan(rate_cats: int, states: int, sites: int,
+         smem_limit: int = SMEM_LIMIT) -> tuple:
+    """(form, cluster) of the kernel for this shape: "resident" on the
+    smallest cluster in CLUSTER_SIZES whose CTA needs at most
+    smem_limit / RESIDENT_CTAS_PER_SM bytes (so that CTAs of several slots
+    share an SM and hide each other's latency); failing that, on the
+    smallest cluster whose CTA fits `smem_limit` at all; ("reread", 0)
+    where even the largest cluster does not fit."""
+    for budget in (smem_limit // RESIDENT_CTAS_PER_SM, smem_limit):
+        for k in CLUSTER_SIZES:
+            if resident_smem_bytes(rate_cats, states, sites, k) <= budget:
+                return "resident", k
+    return "reread", 0
 
 
 def model_constants(model, cfg):
@@ -110,12 +167,25 @@ def _check(away, away_scal, base, base_scal, halves, score_ops, sub_rows,
 
 def edge_scores_reference(away, away_scal, base, base_scal, halves,
                           score_ops, sub_rows, t0, lbd, rbd, xw, pw, *,
-                          newton_iters: int, log_thresh: float):
+                          newton_iters: int, log_thresh: float,
+                          stripes: int = 1):
     """Plain PyTorch version of the edge scorer (same contract and output
-    as edge_scores)."""
+    as edge_scores).  stripes=k takes every sum over the sites as the
+    resident form's cluster of k CTAs does: one sum per stripe of
+    ceil(T / k) sites, the k sums added in stripe order."""
     _check(away, away_scal, base, base_scal, halves, score_ops, sub_rows,
            t0, lbd, rbd, xw, pw)
+    if stripes < 1:
+        raise ValueError(f"stripes must be at least 1, got {stripes}")
     cb, _, R, S, T = away.shape
+    stripe = -(-T // stripes)
+
+    def site_sum(x):
+        total = x[..., :stripe].sum(dim=-1)
+        for start in range(stripe, T, stripe):
+            total = total + x[..., start:start + stripe].sum(dim=-1)
+        return total
+
     ops = score_ops.long()
     vg = ops.shape[1]
     ar = torch.arange(cb, device=away.device)[:, None]
@@ -148,14 +218,14 @@ def edge_scores_reference(away, away_scal, base, base_scal, halves,
         safe0 = torch.where(live, lk0, one)
         deriv1 = -lk1 / safe0
         deriv2 = deriv1 * deriv1 - lk2 / safe0
-        t = newton_update(t, torch.sum(wlive * deriv1, dim=-1),
-                          torch.sum(wlive * deriv2, dim=-1))
+        t = newton_update(t, site_sum(wlive * deriv1),
+                          site_sum(wlive * deriv2))
     lk0 = lks(t)[0]
     scal = (away_scal[ar, ops[..., OP_PARENT]]
             + base_scal[ops[..., OP_SC_SCAL]]
             + base_scal[sub_rows[:, 1].long()][:, None]).to(torch.float32)
     site_lk = torch.log(torch.where(live, lk0, one)) + scal * log_thresh
-    score = torch.sum(wlive * site_lk, dim=-1)
+    score = site_sum(wlive * site_lk)
     valid = ops[..., OP_VALID] == 1
     return (torch.where(valid, score, torch.full_like(score, -float("inf"))),
             torch.where(valid, t, t0[:, None].expand(cb, vg)))
@@ -163,8 +233,8 @@ def edge_scores_reference(away, away_scal, base, base_scal, halves,
 
 def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
                 sub_rows, t0, lbd, rbd, xw, pw, *, newton_iters: int,
-                log_thresh: float):
-    """Score every slot of Cb candidates: the CUDA kernel on CUDA tensors,
+                log_thresh: float, form: Optional[str] = None):
+    """Score every slot of Cb candidates: a CUDA kernel on CUDA tensors,
     the plain version (edge_scores_reference) on CPU tensors.
 
     away:      [Cb, slots, R, S, T] f32 ball scratch (slot v of candidate c
@@ -178,11 +248,17 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
     sub_rows:  [Cb, 2] int32 pruned-subtree (message row, scaler row)
     t0:        [Cb] f32 Newton start (clipped to [1e-8, 100] by the caller)
     lbd, rbd, xw: model_constants; pw: [T] f32 pattern weights
+    form:      which kernel form runs on CUDA tensors: None for what `plan`
+               says of the shape; "resident" or "reread" for that form, or
+               a ValueError where it cannot take the shape
     Returns (scores [Cb, Vg], t3 [Cb, Vg]) f32; invalid slots score -inf
     with t3 = t0.
     """
     tensors = (away, away_scal, base, base_scal, halves, score_ops,
                sub_rows, t0, lbd, rbd, xw, pw)
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown edge scorer form {form!r}, not one of "
+                         f"{FORMS}")
     if all(x.device.type == "cpu" for x in tensors):
         return edge_scores_reference(*tensors, newton_iters=newton_iters,
                                      log_thresh=log_thresh)
@@ -205,6 +281,17 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
     t3 = torch.empty((cb, vg), dtype=torch.float32, device=device)
     if cb * vg == 0:
         return scores, t3
+    limit = _build.max_shared_memory(device)
+    planned, cluster = plan(R, S, T, limit)
+    if form == "reread":
+        cluster = 0
+    elif form == "resident" and planned != "resident":
+        raise ValueError(
+            f"the resident form cannot take R={R} S={S} T={T}: on "
+            f"{CLUSTER_SIZES[-1]} CTAs a stripe of the sumtable with the "
+            f"constants needs "
+            f"{resident_smem_bytes(R, S, T, CLUSTER_SIZES[-1])} bytes of "
+            f"shared memory, above the {limit}-byte limit")
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -214,12 +301,17 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
             sub_rows.data_ptr(), t0.data_ptr(), lbd.data_ptr(),
             rbd.data_ptr(), xw.data_ptr(), pw.data_ptr(), scores.data_ptr(),
             t3.data_ptr(), cb, vg, slots, R, S, T, newton_iters,
-            ctypes.c_float(log_thresh), stream)
+            ctypes.c_float(log_thresh), cluster, stream)
     if err != 0:
-        raise RuntimeError(f"edge_score kernel launch failed: CUDA error "
-                           f"{err} ({_build.error_string(err)})")
+        raise RuntimeError(
+            f"edge_score kernel launch failed ("
+            f"{'reread' if cluster == 0 else f'resident, cluster {cluster}'}"
+            f"): CUDA error {err} ({_build.error_string(err)})")
     edge_scores.launches += 1
+    edge_scores.launches_by_form["resident" if cluster else "reread"] += 1
     return scores, t3
 
 
-edge_scores.launches = 0   # kernel launches by this wrapper (plain excluded)
+# kernel launches by this wrapper (plain runs excluded), in all and per form
+edge_scores.launches = 0
+edge_scores.launches_by_form = {form: 0 for form in FORMS}

@@ -24,6 +24,11 @@ kernel exist, picked by `sweep(..., mode=)`:
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
     split of both operands.  It is the counterpart of the runtime-ops
     kernels' "mxu" and "splitk" modes (`_tree_kernel`, `_tree_kernel_splitk`).
+    Under the Sethi–Ullman order most ops consume the parent the op before
+    them wrote; `carry_flags` marks those, and the small-span kernel hands
+    such a parent on in registers instead of through its pool slot (same
+    values, so the rows are bit-equal with the carry on or off).  Its site
+    block is picked to fill the card (`pick_site_block` with the SM count).
 
 `choose()` picks (site block, mode) the way the JAX package's `choose`
 does: the "fma" form up to FMA_MAX_OPS operations, the runtime-ops family
@@ -60,6 +65,26 @@ KERNEL_STATES = (2, 4, 10, 16, 20)
 # whole 16-row tensor-core tiles, and it keeps per-site scalers only.
 MMA_CASES = ((4, 4), (20, 4))
 MODES = ("fma", "mma")
+# Columns of the "mma" kernel's device table (`mma_device_table`): the nine
+# above, the op's case by the kinds of its children, whether the parent is
+# stored to its slot, whether it is handed on to the next op in registers.
+# Twelve int32: three 16-byte loads per op.
+MMA_OP_COLS = 12
+# (states, rate_cats) that run on the "mma" form's small-span kernel, which
+# honours the hand-on columns; at span 80 the general kernel never hands a
+# parent on and always stores (its registers are full).
+MMA_CARRY_CASES = ((4, 4),)
+# With the SM count known, the "mma" form takes the largest site block that
+# still gives a CTA to this share of the SMs (site counts are powers of two,
+# SM counts are not: 8,192 sites in 64-site blocks are 128 CTAs for 132 SMs),
+# and on the small-span kernel no block above MMA_SMALL_BLOCK sites: its
+# warps share nothing, and small blocks pack more of them into an SM's
+# shared memory (on an H100 at 700 W, probes/variants.py blocks: 256 taxa x
+# 65,536 sites 0.56 ms in 256-site blocks, 0.59 in 128, 0.50 in 64, 0.51
+# in 32; 1,024 x 16,384: 1.13, 0.98, 0.86, 0.88; 8,192 x 8,192: 7.8, 6.0,
+# 6.0, 6.0 ms).
+SM_FILL = 15 / 16
+MMA_SMALL_BLOCK = 64
 # Up to this many operations `choose` takes the "fma" form, the counterpart
 # of the JAX package's static kernels (its STATIC_SEG_MAX_OPS); above, the
 # runtime-ops family.
@@ -82,15 +107,85 @@ class TreeVmemProgram:
     def n_ops(self) -> int:
         return self.ops.shape[0]
 
-    def device_tables(self, device: torch.device):
-        """(ops [OPS, 9] int32, export slots [E] int32) on `device`."""
-        key = str(device)
+    def device_tables(self, device: torch.device, mode: str = "fma",
+                      carry: bool = True):
+        """(op table int32, export slots [E] int32) on `device`: for "fma"
+        the schedule's ops [OPS, 9]; for "mma" `mma_device_table` [OPS, 12]
+        (with carry=False: nothing handed on, every parent stored)."""
+        key = (str(device), mode, carry)
         if key not in self._device:
+            table = self.ops if mode == "fma" \
+                else mma_device_table(self, carry)
             slots = np.asarray([s for _, s in self.exports], np.int32)
             self._device[key] = (
-                torch.as_tensor(self.ops, device=device).contiguous(),
+                torch.as_tensor(np.ascontiguousarray(table), device=device),
                 torch.as_tensor(slots, device=device).contiguous())
         return self._device[key]
+
+
+def carry_flags(prog: TreeVmemProgram, enabled: bool = True) -> np.ndarray:
+    """[OPS, 3] int32, per op of the schedule: which child is the parent the
+    previous op handed on in registers (0 none, 1, 2), whether this op's
+    parent is stored to its pool slot, whether it is handed on to the next
+    op instead.
+
+    A parent is handed on when the next op reads it as an inner child,
+    nothing else reads it before its slot is written again, and it is not
+    exported; then its store is dropped.  Every other parent is stored and
+    loaded as before: a parent is never both.  enabled=False: nothing
+    handed on, everything stored."""
+    n = prog.n_ops
+    flags = np.zeros((n, 3), dtype=np.int32)
+    flags[:, 1] = 1
+    if not enabled:
+        return flags
+    rows = prog.ops.tolist()
+    reads = [0] * n               # reads of the value op w wrote
+    writer: dict[int, int] = {}   # slot -> the op that wrote it last
+    for w, (p_slot, _t1, s1, f1, _t2, s2, f2, _pm1, _pm2) in enumerate(rows):
+        for slot, is_tip in ((s1, f1), (s2, f2)):
+            if not is_tip and slot in writer:
+                reads[writer[slot]] += 1
+        writer[p_slot] = w
+    exported = {op_index for op_index, _slot in prog.exports}
+    for w in range(1, n):
+        _p, _t1, s1, f1, _t2, s2, f2, _pm1, _pm2 = rows[w]
+        prev = rows[w - 1][0]
+        took = 1 if (not f1 and s1 == prev) else \
+            2 if (not f2 and s2 == prev) else 0
+        if took and reads[w - 1] == 1 and w - 1 not in exported:
+            flags[w, 0] = took
+            flags[w - 1, 1:] = (0, 1)
+    return flags
+
+
+# The "mma" kernel's cases by the kinds of an op's two children, the first
+# kind never after the second: (tip, tip), (tip, pool), (tip, carried),
+# (pool, pool), (pool, carried).
+MMA_KINDS = {("tip", "tip"): 0, ("tip", "pool"): 1, ("tip", "carried"): 2,
+             ("pool", "pool"): 3, ("pool", "carried"): 4}
+
+
+def mma_device_table(prog: TreeVmemProgram, carry: bool = True) -> np.ndarray:
+    """[OPS, MMA_OP_COLS] int32, the table the "mma" kernel reads: the
+    schedule's nine columns with an op's children ordered tip before pool
+    slot before carried (left * right commutes exactly, so the rows do not
+    change), then the op's case in MMA_KINDS and the store and hand-on
+    columns of `carry_flags`."""
+    order = {"tip": 0, "pool": 1, "carried": 2}
+    table = np.zeros((prog.n_ops, MMA_OP_COLS), dtype=np.int32)
+    for w, (row, (took, store, keep)) in enumerate(zip(
+            prog.ops.tolist(), carry_flags(prog, enabled=carry).tolist())):
+        p_slot, t1, s1, f1, t2, s2, f2, pm1, pm2 = row
+        kids = [("tip" if f1 else "carried" if took == 1 else "pool",
+                 (t1, s1, f1), pm1),
+                ("tip" if f2 else "carried" if took == 2 else "pool",
+                 (t2, s2, f2), pm2)]
+        kids.sort(key=lambda kid: order[kid[0]])
+        (k1, c1, m1), (k2, c2, m2) = kids
+        table[w] = [p_slot, *c1, *c2, m1, m2, MMA_KINDS[(k1, k2)], store,
+                    keep]
+    return table
 
 
 def schedule(ops: Sequence, tips: int, export_clvs: Sequence[int]
@@ -232,14 +327,29 @@ def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
 
 
 def pick_site_block(prog: TreeVmemProgram, cfg: PartitionConfig,
-                    smem_limit: int = SMEM_LIMIT, mode: str = "fma") -> int:
+                    smem_limit: int = SMEM_LIMIT, mode: str = "fma",
+                    sm_count: Optional[int] = None) -> int:
     """Largest site block in SITE_BLOCKS that divides sites_padded and
-    whose pools fit `smem_limit` bytes; 0 if none does."""
-    for tb in SITE_BLOCKS:
-        if (cfg.sites_padded % tb == 0
-                and smem_bytes(prog, cfg, tb, mode) <= smem_limit):
+    whose pools fit `smem_limit` bytes; 0 if none does.
+
+    With `sm_count` (the device's SMs) the "mma" form, whose warps are
+    independent, fills the card first: the largest such block (at most
+    MMA_SMALL_BLOCK sites on the small-span kernel) that gives at least
+    SM_FILL * sm_count CTAs, or the smallest block where none gives that
+    many.  The "fma" form keeps the largest block."""
+    fits = [tb for tb in SITE_BLOCKS
+            if cfg.sites_padded % tb == 0
+            and smem_bytes(prog, cfg, tb, mode) <= smem_limit]
+    if not fits:
+        return 0
+    if mode != "mma" or sm_count is None:
+        return fits[0]
+    if (cfg.states, cfg.rate_cats) in MMA_CARRY_CASES:
+        fits = [tb for tb in fits if tb <= MMA_SMALL_BLOCK] or fits[-1:]
+    for tb in fits:
+        if cfg.sites_padded // tb >= SM_FILL * sm_count:
             return tb
-    return 0
+    return fits[-1]
 
 
 def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
@@ -276,9 +386,11 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
 
 
 def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
-           smem_limit: int = SMEM_LIMIT) -> Optional[tuple]:
+           smem_limit: int = SMEM_LIMIT,
+           sm_count: Optional[int] = None) -> Optional[tuple]:
     """Pick (site_block, mode) for the kernel, or None if no form takes the
-    case (`unsupported` gives the reason).
+    case (`unsupported` gives the reason).  `sm_count` goes to
+    `pick_site_block` and does not change the mode.
 
     Mirrors the JAX package's `choose`: None for an empty schedule or a
     dtype other than f32; up to FMA_MAX_OPS operations the "fma" form (the
@@ -291,7 +403,8 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     modes = ("fma",) if prog.n_ops <= FMA_MAX_OPS else ("mma", "fma")
     for mode in modes:
         if unsupported(prog, cfg, smem_limit, mode) is None:
-            return pick_site_block(prog, cfg, smem_limit, mode), mode
+            return pick_site_block(prog, cfg, smem_limit, mode,
+                                   sm_count), mode
     return None
 
 
@@ -309,17 +422,37 @@ def split_tf32(x):
 
 @functools.cache
 def mma_fragment_index(states: int, rate_cats: int) -> np.ndarray:
-    """[NP, 32, 4] int64: for every nonzero (m-tile, k-step) pair of the
-    rate-block-diagonal P [span, span], in row-major pair order, the index
-    into P's flattened [R, S, S] (R*S*S = the zero outside the blocks) of
-    the four A-fragment registers of each lane of
-    mma.m16n8k8.row.col.tf32: a0 (row g, col q), a1 (g + 8, q),
-    a2 (g, q + 4), a3 (g + 8, q + 4) with g = lane / 4, q = lane % 4."""
+    """Where every register of the "mma" kernel's P operand comes from: an
+    int64 index into P's flattened [R, S, S] (R*S*S = the zero outside the
+    rate blocks), per nonzero tile pair and lane (g = lane / 4,
+    q = lane % 4) of mma.m16n8k8.row.col.tf32.
+
+    MMA_CARRY_CASES (the small-span kernel; P^T is the B operand) ->
+    [SPAN/8, 32, 2]: for n-tile j the registers b0, b1 = Pbd[8j + g,
+    8j + 2q (+ 1)]: output state 8j + g, and the contraction index permuted
+    so that k-index q is state 8j + 2q and q + 4 is state 8j + 2q + 1.  Only
+    the pairs with k-step == n-tile are nonzero there (8 % S == 0).
+
+    Other cases (the general kernel; the block-diagonal P is the A operand)
+    -> [NP, 32, 4]: for every nonzero (m-tile, k-step) pair in row-major
+    order the registers a0 (row g, col q), a1 (g + 8, q), a2 (g, q + 4),
+    a3 (g + 8, q + 4)."""
     S, R = states, rate_cats
     span = R * S
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
     pairs = []
+    if (S, R) in MMA_CARRY_CASES:
+        if 8 % S:
+            raise ValueError(f"the small-span layout needs 8 % states == 0, "
+                             f"got {S}")
+        for j in range(span // 8):
+            rows = 8 * j + g[:, None] + np.array([0, 0])           # [32, 2]
+            cols = 8 * j + 2 * q[:, None] + np.array([0, 1])
+            same = rows // S == cols // S
+            idx = (rows // S) * S * S + (rows % S) * S + cols % S
+            pairs.append(np.where(same, idx, R * S * S))
+        return np.stack(pairs).astype(np.int64)
     for mt in range(span // 16):
         for ks in range(span // 8):
             rows = 16 * mt + g[:, None] + np.array([0, 8, 0, 8])   # [32, 4]
@@ -330,6 +463,14 @@ def mma_fragment_index(states: int, rate_cats: int) -> np.ndarray:
             idx = (rows // S) * S * S + (rows % S) * S + cols % S
             pairs.append(np.where(same, idx, R * S * S))
     return np.stack(pairs).astype(np.int64)
+
+
+def _fragment_run(index: np.ndarray) -> int:
+    """Entries of the fragment table whose TF32 heads are stored together,
+    followed by their remainders: a lane's two registers in the small-span
+    layout (one 16-byte load fetches heads and remainders), a pair's 32 x 4
+    in the general one."""
+    return 2 if index.shape[-1] == 2 else 128
 
 
 @functools.cache
@@ -347,14 +488,16 @@ def pmatrix_fragments_reference(pmatrix, cfg: PartitionConfig):
                                  str(pmatrix.device))
     flat = torch.cat([pmatrix.reshape(P, -1),
                       pmatrix.new_zeros((P, 1))], dim=1)
-    frag = flat[:, idx]                                       # [P, NP, 32, 4]
-    return torch.stack(split_tf32(frag), dim=2).contiguous()
+    frag = flat[:, idx]                        # [P, NP, 32, 4] or [.., 2]
+    dim = 3 if idx.shape[-1] == 2 else 2
+    return torch.stack(split_tf32(frag), dim=dim).contiguous()
 
 
 def pmatrix_fragments(pmatrix, cfg: PartitionConfig):
-    """[P, R, S, S] f32 -> [P, NP, 2, 32, 4] f32: the block-diagonal P of
-    every slot split into TF32 (hi, lo) and laid out in A-fragment order
-    (mma_fragment_index), the "mma" kernel's P operand.  Once per call,
+    """[P, R, S, S] f32 -> the "mma" kernel's P operand: the block-diagonal
+    P of every slot split into TF32 (hi, lo) and laid out in fragment order
+    (mma_fragment_index): [P, SPAN/8, 32, 2 (hi, lo), 2] for
+    MMA_CARRY_CASES, [P, NP, 2 (hi, lo), 32, 4] otherwise.  Once per call,
     not per op: a small CUDA kernel of csrc/tree_sweep_mma.cu on a CUDA
     tensor, the plain version on a CPU tensor."""
     if pmatrix.device.type != "cuda":
@@ -364,12 +507,14 @@ def pmatrix_fragments(pmatrix, cfg: PartitionConfig):
         raise ValueError("pmatrix must be contiguous f32")
     idx = _fragment_index_tensor(cfg.states, cfg.rate_cats,
                                  str(pmatrix.device), torch.int32)
-    P, n_pairs = pmatrix.shape[0], idx.shape[0]
-    out = torch.empty((P, n_pairs, 2, 32, 4), dtype=torch.float32,
-                      device=pmatrix.device)
+    P, regs = pmatrix.shape[0], idx.shape[-1]
+    shape = (P, idx.shape[0], 32, 2, 2) if regs == 2 \
+        else (P, idx.shape[0], 2, 32, 4)
+    out = torch.empty(shape, dtype=torch.float32, device=pmatrix.device)
     with torch.cuda.device(pmatrix.device):
         err = _build.library().tree_sweep_mma_fragments(
-            pmatrix.data_ptr(), idx.data_ptr(), out.data_ptr(), P, n_pairs,
+            pmatrix.data_ptr(), idx.data_ptr(), out.data_ptr(), P,
+            idx.numel(), _fragment_run(idx),
             cfg.rate_cats * cfg.states ** 2,
             torch.cuda.current_stream(pmatrix.device).cuda_stream)
     if err != 0:
@@ -395,11 +540,14 @@ def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb):
 
 
 def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
-                    cfg: PartitionConfig, tb: int):
+                    cfg: PartitionConfig, tb: int, carry: bool = False):
     """Plain PyTorch version of the tree sweep (same contract as sweep()).
 
     A Python loop over the schedule rows, each row one einsum per child
-    over all site blocks at once.  Returns (clv_rows [E, NT, R, S, TB],
+    over all site blocks at once.  carry=True honours `carry_flags` as the
+    "mma" kernel does: a carried child is taken from the value the previous
+    op handed on, not from its pool slot, and a parent whose store is
+    dropped never reaches the pool.  Returns (clv_rows [E, NT, R, S, TB],
     scaler_rows [E, NT, SR, TB] int32) in prog.exports order."""
     _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
     nt = tip_blocked.shape[0]
@@ -412,15 +560,20 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
                         device=dev)
     shifts = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
 
-    def child(tip, slot, is_tip):
+    def child(tip, slot, is_tip, carried):
         if is_tip:
             bits = ((tip_blocked[:, tip, None, :] >> shifts) & 1).to(dtype)
             return bits[:, None].expand(nt, R, S, tb), 0      # [NT,R,S,TB]
+        if carried:
+            return held
         return pool[slot], spool[slot]
 
-    for (p_slot, t1, s1, f1, t2, s2, f2, pm1, pm2) in prog.ops.tolist():
-        c1, sc1 = child(t1, s1, f1)
-        c2, sc2 = child(t2, s2, f2)
+    flags = carry_flags(prog, enabled=carry).tolist()
+    held = None          # (CLV, scalers) the previous op handed on
+    for (p_slot, t1, s1, f1, t2, s2, f2, pm1, pm2), (took, store, keep) \
+            in zip(prog.ops.tolist(), flags):
+        c1, sc1 = child(t1, s1, f1, took == 1)
+        c2, sc2 = child(t2, s2, f2, took == 2)
         left = torch.einsum("rij,nrjt->nrit", pmatrix[pm1], c1)
         right = torch.einsum("rij,nrjt->nrit", pmatrix[pm2], c2)
         parent = left * right                                 # [NT,R,S,TB]
@@ -429,16 +582,20 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
             mask = below.all(dim=2)                           # [NT, R, TB]
         else:
             mask = below.all(dim=2).all(dim=1, keepdim=True)  # [NT, 1, TB]
-        pool[p_slot] = torch.where(mask[:, :, None],
-                                   parent * cfg.scale_factor, parent)
-        spool[p_slot] = mask.to(torch.int32) + sc1 + sc2
+        parent = torch.where(mask[:, :, None], parent * cfg.scale_factor,
+                             parent)
+        scal = mask.to(torch.int32) + sc1 + sc2
+        if store:
+            pool[p_slot] = parent
+            spool[p_slot] = scal
+        held = (parent, scal) if keep else None
 
     slots = [slot for _, slot in prog.exports]
     return pool[slots], spool[slots]
 
 
 def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
-          tb: int, mode: Optional[str] = None):
+          tb: int, mode: Optional[str] = None, carry: bool = True):
     """Run the tree sweep: a CUDA kernel on CUDA tensors, the plain
     version (sweep_reference) on CPU tensors, an error on anything else.
 
@@ -449,6 +606,10 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  mode) or "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
                  counterpart of its "mxu" and "splitk" modes); None is
                  "fma".  `choose` picks one by op count.
+    carry:       "mma" only: hand a parent on to the next op in registers
+                 where `carry_flags` allows (the default), or store every
+                 parent and load every child (the same rows, bit for bit;
+                 the card tests and timings hold the two side by side).
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     """
@@ -456,7 +617,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     if mode not in MODES:
         raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")
     if tip_blocked.device.type == "cpu" and pmatrix.device.type == "cpu":
-        return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb)
+        return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb,
+                               carry=carry and mode == "mma")
     if tip_blocked.device.type != "cuda" or pmatrix.device != \
             tip_blocked.device:
         raise ValueError(
@@ -486,7 +648,7 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     nt = tip_blocked.shape[0]
     R, S = cfg.rate_cats, cfg.states
     sr = _scaler_rows(cfg)
-    ops_dev, slots_dev = prog.device_tables(device)
+    ops_dev, slots_dev = prog.device_tables(device, mode, carry)
     n_exp = slots_dev.shape[0]
     clv_rows = torch.empty((n_exp, nt, R, S, tb), dtype=torch.float32,
                            device=device)

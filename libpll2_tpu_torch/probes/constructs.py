@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's tools/static2probe.py, which timed four
 minimal kernels over the same ops and shapes, adding one construct of a
-slow sweep kernel at a time.  The four variants here (csrc/
+slow sweep kernel at a time.  The first four variants here (csrc/
 construct_probe.cu) add the constructs of csrc/tree_sweep_mma.cu's inner
 loop one at a time, over `n_ops` dependent ops at span 16 with 64 P rows
-and 8 pool slots, pm = (7 w) % 64 and slot = w % 8 as in the TPU probe:
+and 8 pool slots, pm = (7 w) % 64 and slot = w % 8 as in the TPU probe; the
+fifth takes the costliest construct out again the way the sweep does:
 
   c0  one TF32 mma.sync product per op, the fixed P[0] in registers, B
       from the shared-memory pool:             acc = sum_w P[0] . pool[w % 8]
@@ -16,13 +17,16 @@ and 8 pool slots, pm = (7 w) % 64 and slot = w % 8 as in the TPU probe:
       the next op reads:     x <- rescue(P[pm_w] . x) from x = pool[0], with
       the sweep's f32 rule (a site whose largest entry is below 2^-30 is
       multiplied by 2^30 and its scaler counts one).
+  c4  c3 with the sweep's register carry: the parent moves to the next op's
+      operand layout by warp shuffles and only the last op stores.  The
+      same chain as c3, bit for bit (one plain version serves both).
 
     python -m libpll2_tpu_torch.probes.constructs [n_ops] [tb] [reps]
 
 prints, beside the card's name and power limit, microseconds per op for
-every variant and the increments c1-c0, c2-c1, c3-c2, after checking each
-variant against the plain version (`constructs_reference`: the same sums
-in f32 torch.matmul).
+every variant and the increments c1-c0, c2-c1, c3-c2, c4-c3, after
+checking each variant against the plain version (`constructs_reference`:
+the same sums in f32 torch.matmul).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import torch
 from ..ops.partials_tree import split_tf32
 from .mma import fragment_index
 
-VARIANTS = ("c0", "c1", "c2", "c3")
+VARIANTS = ("c0", "c1", "c2", "c3", "c4")
 SPAN = 16                # rates * states of DNA with four categories
 P_ROWS = 64
 N_SLOTS = 8
@@ -47,13 +51,14 @@ THRESH, FACTOR = 2.0 ** -30, 2.0 ** 30     # config.py's f32 scale rule
 # c1-c3 carry the compensated split and start from the bound the sweep's
 # "mma" rows are held to, 2e-5 plus 1.5e-7 per op: the tensor cores round
 # their accumulator toward zero, up to 2^-23 and about 4e-8 on average per
-# mma.  c3 restarts its accumulator every op as the sweep does and keeps
-# that bound.  c1 and c2 add all their ops into ONE accumulator, six
+# mma.  c3 and c4 restart their accumulator every op as the sweep does and
+# keep that bound.  c1 and c2 add all their ops into ONE accumulator, six
 # truncating mma per op each relative to the whole running sum (2.3e-7 to
 # 2.5e-7 per op measured on an H100), so their allowance per op is 4e-7.
 C0_TOL = 2e-3
 SPLIT_TOL = 2e-5
-TOL_PER_OP = {"c0": 1.5e-7, "c1": 4e-7, "c2": 4e-7, "c3": 1.5e-7}
+TOL_PER_OP = {"c0": 1.5e-7, "c1": 4e-7, "c2": 4e-7, "c3": 1.5e-7,
+              "c4": 1.5e-7}
 
 
 def tolerance(variant: str, n_ops: int) -> float:
@@ -82,7 +87,8 @@ def _check_variant(variant: str) -> int:
 
 def constructs_reference(variant: str, p, pool, n_ops: int = 128):
     """Plain version -> (out [16, TB] f32, scalers [TB] i32): the sums of
-    the module docstring in f32; scalers are zero except for c3."""
+    the module docstring in f32; scalers are zero except for c3 and c4
+    (one chain, two kernels)."""
     v = _check_variant(variant)
     tb = pool.shape[-1]
     scal = torch.zeros(tb, dtype=torch.int32, device=pool.device)

@@ -1,0 +1,345 @@
+"""Kernel experiments on the card: where the two redesigned kernels spend
+their time, and why their launch parameters are what they are.
+
+    python -m libpll2_tpu_torch.probes.variants [blocks] [passes]
+                                                [registers] [clocks]
+
+(all four with no argument; run from the repository root, beside
+chip_smoke.py, whose search inputs and timers it uses).  Each experiment
+prints its times beside the card's name and power limit:
+
+  blocks     the small-span "mma" sweep (csrc/tree_sweep_mma.cu) at three
+             shapes and every site block that fits: what
+             partials_tree.pick_site_block's rule rests on;
+  passes     the edge scorer (csrc/edge_score.cu) over one full-width
+             search round with 0, 1 and 3 Newton steps, for the re-reading
+             form and the resident form on clusters of 2, 4 and 8 CTAs:
+             what pass 0 costs, what every later pass costs, and what
+             edge_score.plan's stripe budget rests on;
+  registers  the resident form built under three register bounds
+             (one, two and three CTAs an SM), timed over the same round;
+  clocks     the small-span sweep built with clock reads in its op loop:
+             cycles per op, by the kinds of the op's children, split into
+             the stretch up to the products of the first tile, the rescue,
+             the store or hand-on, and the loop's tail and head.
+
+A variant of a kernel is a copy of csrc/ with a few exact text
+replacements (`PATCHES`), built by `_build.library(build_dir, source_dir)`
+into build/variants/.  A replacement that no longer matches the source
+raises; tests/test_torch_probe.py checks on the CPU that every one still
+applies.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import shutil
+import statistics
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import _build
+
+VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
+BOUND = "__global__ void __launch_bounds__(THREADS, V == 4 ? 2 : 1)"
+CLOCK_SEGMENTS = ("loop top to the first tile's products", "rescue",
+                  "store or hand-on, and the second tile", "loop tail and head")
+# name -> (source file, ((old, new), ...)); every `old` occurs exactly once
+PATCHES = {
+    "one_cta_an_sm": ("edge_score.cu", (
+        (BOUND, "__global__ void __launch_bounds__(THREADS)"),)),
+    "two_ctas_an_sm": ("edge_score.cu", ()),
+    "three_ctas_an_sm": ("edge_score.cu", (
+        (BOUND, BOUND.replace("? 2 :", "? 3 :")),)),
+    "clocks": ("tree_sweep_mma.cu", (
+        ("constexpr int M_SITES = 16;   // sites per m-tile",
+         "constexpr int M_SITES = 16;\n"
+         "__device__ long long dbg_clock[8192 * 4];\n"
+         "__device__ int dbg_op;\n"
+         "__device__ __forceinline__ long long tick(float& dep) {\n"
+         "  long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t), "
+         "\"+f\"(dep));\n  return t;\n}"),
+        ("    const OpRow after = load_row(ops, min(w + 2, last));",
+         "    const bool dbg = blockIdx.x == 0 && threadIdx.x == 0 && "
+         "w < 8192;\n"
+         "    if (dbg) { dbg_op = w; dbg_clock[4 * w] = clock64(); }\n"
+         "    const OpRow after = load_row(ops, min(w + 2, last));"),
+        ("    // the rescue: a site's 16 entries sit in the four lanes of "
+         "its quad",
+         "    if (blockIdx.x == 0 && threadIdx.x == 0 && m == 0)\n"
+         "      dbg_clock[4 * dbg_op + 1] = tick(y[0][0]);"),
+        ("    // scalers, once per site: the quad's lane 0 carries sites g "
+         "and g + 8",
+         "    if (blockIdx.x == 0 && threadIdx.x == 0 && m == 0)\n"
+         "      dbg_clock[4 * dbg_op + 2] = tick(y[0][0]);"),
+        ("#undef LIBPLL_OP\n",
+         "#undef LIBPLL_OP\n"
+         "    if (dbg) dbg_clock[4 * w + 3] = tick(held[0][0][0]);\n"),
+        ("extern \"C\" {\n",
+         "extern \"C\" {\n"
+         "int dbg_read(long long* out, int n) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, dbg_clock, (size_t)n * 8);"
+         "\n}\n"))),
+}
+
+
+def patched_source(name: str, source_dir=None) -> str:
+    """The text of variant `name`'s source file with its replacements made;
+    raises where one does not occur exactly once."""
+    file, patches = PATCHES[name]
+    source_dir = _build.SOURCE_DIR if source_dir is None else Path(source_dir)
+    text = (source_dir / file).read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise ValueError(f"variant {name!r}: {old!r} occurs "
+                             f"{text.count(old)} times in {file}, not once")
+        text = text.replace(old, new)
+    return text
+
+
+def variant_library(name: str):
+    """(library, BuildInfo) of variant `name`, built into
+    build/variants/<name>/ from a patched copy of csrc/."""
+    root = VARIANT_DIR / name
+    shutil.copytree(_build.SOURCE_DIR, root / "csrc", dirs_exist_ok=True)
+    (root / "csrc" / PATCHES[name][0]).write_text(patched_source(name))
+    return (_build.library(root / "lib", root / "csrc"),
+            _build.build(root / "lib", root / "csrc"))
+
+
+@contextlib.contextmanager
+def launching_from(lib):
+    """Inside the block the package's wrappers launch from `lib`."""
+    real = _build.library
+    _build.library = lambda build_dir=None, source_dir=None: lib
+    try:
+        yield
+    finally:
+        _build.library = real
+
+
+def _chip_smoke():
+    try:
+        import chip_smoke
+    except ImportError as err:
+        raise RuntimeError("run from the repository root: chip_smoke.py "
+                           "holds the search inputs and the timers") from err
+    return chip_smoke
+
+
+def _median_ms(fn, reps: int) -> float:
+    fn()
+    return statistics.median(_chip_smoke().cuda_ms(fn, reps))
+
+
+def round_chunks(device):
+    """The edge scorer's arguments for every chunk of one full-width search
+    round (chip_smoke.search_inputs, radius 5), one chunk at a time on the
+    same recursion scratch: yields (args, log_thresh)."""
+    cs = _chip_smoke()
+    from .. import search_fast as sf
+    from ..ops import edge_score
+
+    _truth, start, chars, cfg, model = cs.search_inputs(device)
+    prog = sf.compile_spr(start, cfg, radius=cs.SEARCH_RADIUS)
+    cfgx = prog.cfg_ext
+    tip, pw, _inv = sf._site_arrays(prog, chars, device)
+    bl = torch.as_tensor(prog.branch_lengths, dtype=cfgx.dtype, device=device)
+    base_clv, base_scal, pmatrix, halves = sf._spr_base(
+        cfgx, model, sf._long(prog.level_ops, device),
+        sf._long(prog.pmatrix_slots, device), bl, tip)
+    halves = halves.contiguous()
+    consts = edge_score.model_constants(model, cfgx)
+    R, S, T = cfgx.rate_cats, cfgx.states, tip.shape[-1]
+    for g in prog.ball_groups:
+        lvls = tuple(sf._long(a, device) for a in g.ball_levels)
+        medges = sf._long(g.merge_edges, device)
+        ops32 = torch.as_tensor(g.score_ops, device=device)
+        rows32 = torch.as_tensor(g.sub_rows, device=device)
+        n_cand = g.score_ops.shape[0]
+        cb = min(sf.CAND_BATCH, n_cand)
+        while n_cand % cb:
+            cb -= 1
+        scratch = torch.empty((cb, prog.ball_slots, R, S, T),
+                              dtype=torch.float32, device=device)
+        sscr = torch.empty((cb, prog.ball_slots, T), dtype=torch.int32,
+                           device=device)
+        for c0 in range(0, n_cand, cb):
+            sf._recurse(cfgx, model, base_clv, base_scal, pmatrix, bl, lvls,
+                        medges, torch.arange(c0, c0 + cb, device=device),
+                        scratch, sscr)
+            t0 = torch.clamp(bl[sf._long(g.edge_pos[c0:c0 + cb], device)],
+                             1e-8, 100.0)
+            yield ((scratch, sscr, base_clv, base_scal, halves,
+                    ops32[c0:c0 + cb].contiguous(),
+                    rows32[c0:c0 + cb].contiguous(), t0, *consts, pw),
+                   cfgx.log_scale_threshold)
+
+
+def round_ms(device, configs, libs=None, reps: int = 3) -> dict:
+    """Summed medians (ms) of `reps` back-to-back launches per chunk of the
+    round, for every (library name, form, cluster, newton_iters) in
+    `configs`; cluster 0 leaves the size to edge_score.plan."""
+    from ..ops import edge_score
+
+    libs = {None: _build.library()} if libs is None else libs
+    total = dict.fromkeys(configs, 0.0)
+    real_plan = edge_score.plan
+    try:
+        for args, log_thresh in round_chunks(device):
+            for config in configs:
+                name, form, cluster, iters = config
+                edge_score.plan = real_plan if not cluster else (
+                    lambda R, S, T, limit=0, k=cluster: ("resident", k))
+                with launching_from(libs[name]):
+                    total[config] += _median_ms(
+                        lambda: edge_score.edge_scores(
+                            *args, newton_iters=iters, log_thresh=log_thresh,
+                            form=form), reps)
+    finally:
+        edge_score.plan = real_plan
+    return total
+
+
+def run_blocks(device, card, emit=print):
+    cs = _chip_smoke()
+    from .. import engine
+    from ..ops import partials_tree
+
+    cases = {
+        "256 x 65536": engine.build_case(256, 65536, dtype=torch.float32,
+                                         device=device),
+        "1024 x 16384": engine.build_case(1024, 16384, dtype=torch.float32,
+                                          device=device),
+        f"{cs.LARGE_TIPS} x {cs.LARGE_SITES}": engine.build_case(
+            cs.LARGE_TIPS, cs.LARGE_SITES, dtype=torch.float32,
+            device=device, newick=cs.large_newick())}
+    limit = _build.max_shared_memory(device)
+    for name, (cfg, program, model, bl, tipchars, *_) in cases.items():
+        pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+        prog = program.vmem_prog
+        for tb in partials_tree.SITE_BLOCKS:
+            if partials_tree.smem_bytes(prog, cfg, tb, "mma") > limit:
+                continue
+            tip_b = engine.block_tips(tipchars, cfg, tb)
+            for carry in (True, False):
+                ms = _median_ms(lambda: partials_tree.sweep(
+                    tip_b, pmatrix, prog, cfg, tb, mode="mma", carry=carry),
+                    12)
+                emit(f"[blocks] mma sweep {name}, pool {prog.pool_size}, "
+                     f"site block {tb} ({cfg.sites_padded // tb} CTAs), "
+                     f"carry {'on' if carry else 'off'}: {ms:.4f} ms ({card})")
+
+
+def run_passes(device, card, emit=print):
+    configs = [(None, form, cluster, iters)
+               for form, cluster in (("reread", 0), ("resident", 2),
+                                     ("resident", 4), ("resident", 8))
+               for iters in (0, 1, 3)]
+    for (_, form, cluster, iters), ms in round_ms(device, configs).items():
+        emit(f"[passes] edge scorer, {form}"
+             + (f" on clusters of {cluster}" if cluster else "")
+             + f", {iters} Newton steps: {ms:.4f} ms over the round ({card})")
+
+
+def run_registers(device, card, emit=print):
+    names = ("one_cta_an_sm", "two_ctas_an_sm", "three_ctas_an_sm")
+    libs = {}
+    for name in names:
+        libs[name], info = variant_library(name)
+        entry = ""
+        for line in info.log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "resident_kernelILi4ELi4" in entry and (
+                    "registers" in line or "spill" in line):
+                emit(f"[registers] {name}: {line.strip()}")
+    configs = [(name, "resident", 4, iters) for name in names
+               for iters in (0, 3)]
+    for (name, _, cluster, iters), ms in round_ms(device, configs,
+                                                  libs).items():
+        emit(f"[registers] edge scorer, resident on clusters of {cluster}, "
+             f"{name}, {iters} Newton steps: {ms:.4f} ms over the round "
+             f"({card})")
+
+
+def run_clocks(device, card, emit=print):
+    cs = _chip_smoke()
+    from .. import engine
+    from ..ops import partials_tree
+
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
+    lib, _info = variant_library("clocks")
+    lib.dbg_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dbg_read.restype = ctypes.c_int
+    tb = 64
+    trees = {"random": cs.large_newick(),
+             "caterpillar": cs.caterpillar(cs.LARGE_TIPS)}
+    kinds = {v: k for k, v in partials_tree.MMA_KINDS.items()}
+    for name, newick in trees.items():
+        cfg, program, model, bl, tipchars, *_ = engine.build_case(
+            cs.LARGE_TIPS, cs.LARGE_SITES, dtype=torch.float32,
+            device=device, newick=newick)
+        pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+        tip_b = engine.block_tips(tipchars, cfg, tb)
+        prog = program.vmem_prog
+        n = min(prog.n_ops, 8192)
+        with launching_from(lib):
+            ms = _median_ms(lambda: partials_tree.sweep(
+                tip_b, pmatrix, prog, cfg, tb, mode="mma"), 8)
+            torch.cuda.synchronize()
+        buf = np.zeros(4 * n, dtype=np.int64)
+        err = lib.dbg_read(buf.ctypes.data, 4 * n)
+        if err != 0:
+            raise RuntimeError(f"reading the clocks failed: CUDA error {err}")
+        buf = buf.reshape(n, 4)
+        seg = np.stack([buf[:-1, 1] - buf[:-1, 0], buf[:-1, 2] - buf[:-1, 1],
+                        buf[:-1, 3] - buf[:-1, 2], buf[1:, 0] - buf[:-1, 3]],
+                       axis=1)
+        table = partials_tree.mma_device_table(prog)[:n - 1]
+        emit(f"[clocks] {name} tree, {cs.LARGE_TIPS} taxa x {cs.LARGE_SITES} "
+             f"sites, site block {tb}, with the clock reads {ms:.4f} ms; "
+             f"cycles per op of warp 0 of CTA 0: median "
+             f"{np.median(seg.sum(1)):.0f}, mean {seg.sum(1).mean():.0f} "
+             f"({card})")
+        for kind in sorted(set(table[:, 9].tolist())):
+            for keep in (0, 1):
+                sel = seg[(table[:, 9] == kind) & (table[:, 11] == keep)]
+                if len(sel) < 8:
+                    continue
+                emit(f"[clocks]   children {kinds[kind]}, parent "
+                     f"{'handed on' if keep else 'stored'}, {len(sel)} ops: "
+                     + "; ".join(f"{label} {np.median(sel[:, i]):.0f}"
+                                 for i, label in enumerate(CLOCK_SEGMENTS)))
+
+
+EXPERIMENTS = {"blocks": run_blocks, "passes": run_passes,
+               "registers": run_registers, "clocks": run_clocks}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    chosen = argv or list(EXPERIMENTS)
+    unknown = [name for name in chosen if name not in EXPERIMENTS]
+    if unknown:
+        print(f"probes.variants: unknown experiment {unknown}, not one of "
+              f"{list(EXPERIMENTS)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("probes.variants: torch.cuda.is_available() is False; the "
+              "experiments need a CUDA device", file=sys.stderr)
+        return 1
+    card = _chip_smoke().phase_device()
+    device = torch.device("cuda", 0)
+    for name in chosen:
+        EXPERIMENTS[name](device, card)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

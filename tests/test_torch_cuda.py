@@ -83,10 +83,68 @@ def test_edge_scorer_matches_plain(cuda_device, states, tips, sites, radius):
     before = edge_score.edge_scores.launches
     r = chip_smoke.score_round_both(prog, model, chars, timed=False)
     torch.cuda.synchronize()
-    assert edge_score.edge_scores.launches - before == r["launches"] > 0
+    assert edge_score.edge_scores.launches - before \
+        == len(r["forms"]) * r["launches"] > 0
     assert r["same_inf"] and r["finite"] > 100
     assert r["max_rel_err"] <= 2e-5
     assert r["t3_excess"] <= 0.0
+
+
+@pytest.mark.parametrize("states,tips,sites,radius", [
+    (4, 24, 4096, 3), (4, 16, 1000, 3), (20, 20, 512, 3)])
+def test_edge_scorer_forms_match_plain(cuda_device, states, tips, sites,
+                                       radius):
+    """Both forms of the scorer kernel (the sumtable resident in a
+    cluster's shared memory, 16-byte and 4-byte site loads; re-read in
+    every pass) against the plain version, at chip_smoke's bounds; the
+    resident form's shared memory as the host plans it."""
+    from libpll2_tpu_torch import _build
+    if states == 4:
+        _t, start, chars, cfg, model = chip_smoke.search_inputs(
+            cuda_device, tips=tips, sites=sites, seed=5)
+    else:
+        start, chars, cfg, model = chip_smoke.protein_search_inputs(
+            cuda_device, tips=tips, sites=sites)
+    prog = search_fast.compile_spr(start, cfg, radius=radius)
+    T = prog.cfg_ext.sites_padded
+    limit = _build.max_shared_memory(cuda_device)
+    form, cluster = edge_score.plan(cfg.rate_cats, states, T, limit)
+    assert form == "resident"
+    for k in edge_score.CLUSTER_SIZES:
+        assert _build.library().edge_score_resident_smem(
+            cfg.rate_cats, states, T, k) == edge_score.resident_smem_bytes(
+                cfg.rate_cats, states, T, k)
+    before = dict(edge_score.edge_scores.launches_by_form)
+    r = chip_smoke.score_round_both(prog, model, chars, timed=False)
+    after = edge_score.edge_scores.launches_by_form
+    assert r["forms"] == ("resident", "reread")
+    assert after["resident"] - before["resident"] == r["launches"] > 0
+    assert after["reread"] - before["reread"] == r["launches"]
+    assert r["same_inf"] and r["finite"] > 0
+    assert r["max_rel_err"] <= chip_smoke.SCORE_RTOL
+    assert r["t3_excess"] <= 0.0
+
+
+def test_edge_scorer_resident_refused_where_nothing_fits(cuda_device):
+    """form="resident" raises where even eight CTAs cannot hold the
+    sumtable; the planned form there is the re-reading one, which runs."""
+    start, chars, cfg, model = chip_smoke.protein_search_inputs(
+        cuda_device, tips=8, sites=5200)
+    prog = search_fast.compile_spr(start, cfg, radius=2)
+    r = chip_smoke.score_round_both(prog, model, chars, timed=False)
+    assert r["form"] == "reread" and r["forms"] == ("reread",)
+    assert r["same_inf"] and r["max_rel_err"] <= chip_smoke.SCORE_RTOL
+    R, S, T = 4, 20, prog.cfg_ext.sites_padded
+    z = torch.zeros
+    args = (z((1, 2, R, S, T)), z((1, 2, T), dtype=torch.int32),
+            z((2, R, S, T)), z((2, T), dtype=torch.int32), z((1, R, S, S)),
+            z((1, 1, 12), dtype=torch.int32), z((1, 2), dtype=torch.int32),
+            torch.ones(1), torch.eye(R * S), torch.eye(R * S),
+            z((R * S, 2)), torch.ones(T))
+    args = tuple(x.to(cuda_device) for x in args)
+    with pytest.raises(ValueError, match="resident form cannot take"):
+        edge_score.edge_scores(*args, newton_iters=1, log_thresh=-20.0,
+                               form="resident")
 
 
 def test_spr_round_launches_edge_scorer(cuda_device):
@@ -125,6 +183,53 @@ def test_mma_kernel_matches_plain(cuda_device, states, bl_scale):
         assert comp <= chip_smoke.COMP_RTOL
     if bl_scale > 1:
         assert int(plain[1].max()) > 0
+
+
+@pytest.mark.parametrize("shape,tb", [
+    ("random", 256), ("random", 32), ("caterpillar", 64), ("balanced", 128)])
+def test_mma_carry_on_and_off_bit_equal(cuda_device, shape, tb):
+    """The small-span kernel with parents handed on in registers and with
+    every parent stored and reloaded: the same rows and scalers, bit for
+    bit, at every site block; and both within the bound of the plain
+    version."""
+    newick = {"random": random_newick(90, np.random.default_rng(3)),
+              "caterpillar": chip_smoke.caterpillar(70),
+              "balanced": balanced_newick(64)}[shape]
+    cfg, program, pmatrix, tip_b, _tb = chip_smoke.sweep_inputs(
+        newick, 4096, 11, cuda_device, bl_scale=20.0)
+    tip_b = engine.block_tips(
+        tip_b.permute(1, 0, 2).reshape(cfg.tips, -1), cfg, tb)
+    prog = program.vmem_prog
+    flags = partials_tree.carry_flags(prog)
+    assert flags[:, 2].sum() > 0
+    on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma")
+    off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="mma",
+                              carry=False)
+    torch.cuda.synchronize()
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb,
+                                          carry=True)
+    rel, _, comp, _ = chip_smoke.compare_rows_site(on[0], plain[0], on[1],
+                                                   plain[1])
+    assert rel <= chip_smoke.mma_bound(prog.n_ops)
+    assert comp <= chip_smoke.COMP_RTOL
+    assert int(plain[1].max()) > 0
+
+
+def test_mma_fragments_kernel_matches_plain(cuda_device):
+    """The prologue kernel that splits P into TF32 (hi, lo) in fragment
+    order, in both layouts, against its plain version: bit for bit."""
+    from libpll2_tpu_torch.config import PartitionConfig
+    for states in (4, 20):
+        cfg = PartitionConfig(tips=4, clv_buffers=2, states=states, sites=8,
+                              rate_matrices=1, prob_matrices=5, rate_cats=4,
+                              scale_buffers=2, dtype=torch.float32)
+        pm = torch.as_tensor(np.random.default_rng(states).uniform(
+            0, 1, (7, 4, states, states)).astype(np.float32),
+            device=cuda_device)
+        got = partials_tree.pmatrix_fragments(pm, cfg)
+        want = partials_tree.pmatrix_fragments_reference(pm, cfg)
+        assert got.shape == want.shape and torch.equal(got, want)
 
 
 def test_mma_kernel_refuses_per_rate_scalers(cuda_device):

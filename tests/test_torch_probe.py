@@ -256,6 +256,49 @@ def test_constructs_reference_c3_chain_with_rescue():
     assert float(got.max()) < 1.0 and float(got.amax(0).min()) >= 2.0 ** -30
 
 
+def test_constructs_reference_c4_is_the_c3_chain():
+    """c4 is c3 with the parent carried in registers: one chain, one plain
+    version, bit for bit."""
+    p, pool = constructs.probe_inputs(64, seed=3, device="cpu")
+    a = constructs.constructs_reference("c3", p, pool, 70)
+    b = constructs.constructs_reference("c4", p, pool, 70)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(a[1].max()) >= 1
+    assert constructs.tolerance("c4", 128) == constructs.tolerance("c3", 128)
+    assert constructs.VARIANTS[-1] == "c4"
+
+
+def test_c4_shuffle_schedule_turns_a_c_fragment_into_b_fragments():
+    """The four shuffles csrc/construct_probe.cu:carry_tile makes per tile,
+    emulated lane by lane: from the C-fragment layout of a 16 x 8 parent
+    tile (lane 4g + q: rows g, g + 8 at sites 2q, 2q + 1) to the B-fragment
+    layout of the next product (lane 4g + q: rows 8ks + 4h + q at site g).
+    In step s the lanes with g < 4 offer registers 0, 2, 1, 3 and the
+    others 1, 3, 0, 2; a lane reads steps 0, 1 from lane
+    4 (4 (g & 1) + q) + g / 2 and steps 2, 3 from 4 (4 (1 - (g & 1)) + q)
+    + g / 2."""
+    tile = np.arange(128).reshape(16, 8)
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    y = np.array([[tile[g, 2 * q], tile[g, 2 * q + 1], tile[g + 8, 2 * q],
+                   tile[g + 8, 2 * q + 1]] for g, q in lanes])
+    upper = np.array([g >= 4 for g, _ in lanes])
+    e = np.array([g & 1 for g, _ in lanes])
+    same = np.array([4 * (4 * (g & 1) + q) + (g >> 1) for g, q in lanes])
+    other = np.array([4 * (4 * (1 - (g & 1)) + q) + (g >> 1)
+                      for g, q in lanes])
+    r0 = np.where(upper, y[:, 1], y[:, 0])[same]
+    r1 = np.where(upper, y[:, 3], y[:, 2])[same]
+    r2 = np.where(upper, y[:, 0], y[:, 1])[other]
+    r3 = np.where(upper, y[:, 2], y[:, 3])[other]
+    b = np.empty((32, 2, 2), dtype=tile.dtype)
+    b[:, 0, 0], b[:, 0, 1] = np.where(e, r2, r0), np.where(e, r0, r2)
+    b[:, 1, 0], b[:, 1, 1] = np.where(e, r3, r1), np.where(e, r1, r3)
+    for lane, (g, q) in enumerate(lanes):
+        for ks in range(2):
+            for h in range(2):
+                assert b[lane, ks, h] == tile[8 * ks + 4 * h + q, g]
+
+
 def test_constructs_reference_matches_static2probe_k0():
     """tools/static2probe.py's k0 (one product per op, gathered pm) in
     interpret mode is the sum c2's plain version computes, on the bf16
@@ -296,7 +339,7 @@ def test_constructs_on_cpu_takes_plain_version(variant):
 def test_constructs_rejects_wrong_inputs():
     p, pool = constructs.probe_inputs(32, device="cpu")
     with pytest.raises(ValueError, match="unknown variant"):
-        constructs.constructs("c4", p, pool)
+        constructs.constructs("c5", p, pool)
     with pytest.raises(ValueError, match="takes P"):
         constructs.constructs("c0", p[:, :8], pool)
     with pytest.raises(TypeError, match="f32"):
@@ -342,3 +385,26 @@ def test_constructs_operand_layouts():
     got, _ = constructs.constructs_reference("c2", a, b, 16)
     want, _ = constructs.constructs_reference("c2", p, pool, 16)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+
+
+def test_variant_patches_apply_to_the_sources():
+    """probes/variants.py builds its kernel variants by exact text
+    replacements on csrc/: every one still occurs exactly once, changes the
+    text, and an experiment name that does not exist is refused."""
+    from libpll2_tpu_torch import _build
+    from libpll2_tpu_torch.probes import variants
+    assert set(variants.EXPERIMENTS) == {"blocks", "passes", "registers",
+                                         "clocks"}
+    for name, (file, patches) in variants.PATCHES.items():
+        original = (_build.SOURCE_DIR / file).read_text()
+        text = variants.patched_source(name)
+        assert (text != original) == bool(patches), name
+        for old, new in patches:
+            assert original.count(old) == 1 and new in text, (name, old)
+    assert "clock64" in variants.patched_source("clocks")
+    assert "(THREADS, V == 4 ? 3 : 1)" in variants.patched_source(
+        "three_ctas_an_sm")
+    assert variants.main(["no_such_experiment"]) == 2
+    if not torch.cuda.is_available():
+        assert variants.main(["blocks"]) == 1
+

@@ -170,6 +170,127 @@ def test_edge_scorer_plain_vs_pallas_interpret():
     assert edge_score.edge_scores.launches == before     # no kernel on CPU
 
 
+@pytest.mark.parametrize("states,sites,want", [
+    (4, 512, ("resident", 1)), (4, 4096, ("resident", 4)),
+    (4, 16384, ("resident", 8)), (20, 512, ("resident", 4)),
+    (20, 4096, ("resident", 8)), (20, 16384, ("reread", 0))])
+def test_edge_score_plan(states, sites, want):
+    """Form and cluster size under an H100's 232,448-byte block limit: the
+    smallest cluster whose CTA fits a third of the limit, else the smallest
+    that fits at all, else the re-reading form; the CTA never exceeds the
+    limit, and a smaller cluster than planned would exceed its budget."""
+    limit = 232448
+    assert edge_score.plan(4, states, sites, limit) == want
+    form, k = want
+    need = edge_score.resident_smem_bytes
+    if form == "resident":
+        assert need(4, states, sites, k) <= limit
+        budget = limit // edge_score.RESIDENT_CTAS_PER_SM
+        if need(4, states, sites, k) > budget:
+            assert all(need(4, states, sites, c) > budget
+                       for c in edge_score.CLUSTER_SIZES)
+            budget = limit
+        smaller = [c for c in edge_score.CLUSTER_SIZES if c < k]
+        assert all(need(4, states, sites, c) > budget for c in smaller)
+    else:
+        assert k == 0
+        assert need(4, states, sites, edge_score.CLUSTER_SIZES[-1]) > limit
+    # the stripe and the constants are all of a CTA's shared memory
+    span = 4 * states
+    stripe = -(-sites // max(k, 1))
+    assert need(4, states, sites, max(k, 1)) >= 4 * span * stripe
+    assert edge_score.plan(4, states, sites, 1024) == ("reread", 0)
+
+
+def scorer_args(c, group=0, chunk=4):
+    """The edge scorer's arguments for the first `chunk` candidates of one
+    ball group of the start tree, radius 3 (CPU tensors, f32)."""
+    pp = search_fast.compile_spr(c.ptree, c.pcfg, radius=3)
+    cpu = torch.device("cpu")
+    cfgx = pp.cfg_ext
+    ptip, ppw, _ = search_fast._site_arrays(pp, c.chars, cpu)
+    pbl = torch.as_tensor(pp.branch_lengths, dtype=cfgx.dtype)
+    L = search_fast._long
+    base_clv, base_scal, pmatrix, halves = search_fast._spr_base(
+        cfgx, c.pmodel, L(pp.level_ops, cpu), L(pp.pmatrix_slots, cpu), pbl,
+        ptip)
+    g = pp.ball_groups[group]
+    cb = min(chunk, g.score_ops.shape[0])
+    R, S, T = cfgx.rate_cats, cfgx.states, ptip.shape[-1]
+    scratch = torch.zeros((cb, pp.ball_slots, R, S, T), dtype=torch.float32)
+    sscr = torch.zeros((cb, pp.ball_slots, T), dtype=torch.int32)
+    search_fast._recurse(
+        cfgx, c.pmodel, base_clv, base_scal, pmatrix, pbl,
+        tuple(L(a, cpu) for a in g.ball_levels), L(g.merge_edges, cpu),
+        torch.arange(cb), scratch, sscr)
+    t0 = torch.clamp(pbl[L(g.edge_pos[:cb], cpu)], 1e-8, 100.0)
+    return (scratch, sscr, base_clv, base_scal, halves.contiguous(),
+            torch.as_tensor(g.score_ops[:cb]).contiguous(),
+            torch.as_tensor(g.sub_rows[:cb]).contiguous(), t0,
+            *edge_score.model_constants(c.pmodel, cfgx), ppw), \
+        g.score_ops[:cb, :, search_fast.BOP_VALID] == 1, cfgx
+
+
+@pytest.mark.parametrize("stripes", [1, 2, 4, 8])
+def test_edge_scores_reference_striped(stripes):
+    """Summing per stripe of ceil(T / k) sites and adding the stripes in
+    order, as the resident form's cluster does, moves a score by f32
+    rounding only: 1e-6 relative (sums of a few thousand f32 terms in
+    another order), t3 by 1e-5."""
+    c = make_case(dt="f32")
+    args, valid, cfgx = scorer_args(c)
+    kw = dict(newton_iters=3, log_thresh=cfgx.log_scale_threshold)
+    s0, t0 = edge_score.edge_scores_reference(*args, **kw)
+    s1, t1 = edge_score.edge_scores_reference(*args, stripes=stripes, **kw)
+    assert torch.equal(torch.isneginf(s0), torch.isneginf(s1))
+    assert bool(torch.isneginf(s1[~torch.as_tensor(valid)]).all())
+    fin = torch.isfinite(s0)
+    assert int(fin.sum()) > 10
+    assert float(((s1[fin] - s0[fin]).abs() / s0[fin].abs()).max()) <= 1e-6
+    assert float(((t1[fin] - t0[fin]).abs() / t0[fin].abs()).max()) <= 1e-5
+    if stripes == 1:
+        assert torch.equal(s0, s1) and torch.equal(t0, t1)
+    with pytest.raises(ValueError, match="stripes"):
+        edge_score.edge_scores_reference(*args, stripes=0, **kw)
+
+
+def test_edge_scorer_striped_vs_pallas_interpret():
+    """The plain version summing in a cluster's stripe order against the
+    Pallas kernel in interpret mode, at the bounds of
+    test_edge_scorer_plain_vs_pallas_interpret."""
+    c = make_case(dt="f32")
+    valid, _got, (ws, wt3) = group_scores(c, use_kernel=True)[0]
+    args, _, cfgx = scorer_args(c, chunk=valid.shape[0])
+    s, t3 = (x.numpy() for x in edge_score.edge_scores_reference(
+        *args, newton_iters=3, log_thresh=cfgx.log_scale_threshold,
+        stripes=4))
+    np.testing.assert_array_equal(np.isneginf(s[valid]),
+                                  np.isneginf(ws[valid]))
+    fin = valid & np.isfinite(s) & np.isfinite(ws)
+    assert int(fin.sum()) > 20
+    rel = np.abs(s[fin] - ws[fin]) / np.maximum(1.0, np.abs(ws[fin]))
+    assert rel.max() <= 2e-5, rel.max()
+    np.testing.assert_allclose(t3[fin], wt3[fin], rtol=2e-3, atol=2e-5)
+
+
+def test_edge_scores_form_keyword():
+    """On CPU tensors every form is the plain version; an unknown form is
+    refused before any device is looked at."""
+    c = make_case(dt="f32")
+    args, _valid, cfgx = scorer_args(c, chunk=2)
+    kw = dict(newton_iters=2, log_thresh=cfgx.log_scale_threshold)
+    want = edge_score.edge_scores_reference(*args, **kw)
+    before = (edge_score.edge_scores.launches,
+              dict(edge_score.edge_scores.launches_by_form))
+    for form in (None, "resident", "reread"):
+        got = edge_score.edge_scores(*args, form=form, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert before == (edge_score.edge_scores.launches,
+                      edge_score.edge_scores.launches_by_form)
+    with pytest.raises(ValueError, match="unknown edge scorer form"):
+        edge_score.edge_scores(*args, form="cluster", **kw)
+
+
 def test_model_constants_equal():
     c = make_case(dt="f32")
     got = edge_score.model_constants(c.pmodel, c.pcfg)

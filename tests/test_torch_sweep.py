@@ -330,9 +330,11 @@ def test_split_tf32_is_compensated():
 
 @pytest.mark.parametrize("states,rates,pairs", [(4, 4, 2), (20, 4, 22)])
 def test_pmatrix_fragments_rebuild_block_diagonal(states, rates, pairs):
-    """Scattering the fragment table back by the mma A-fragment layout
-    (row lane/4 (+8), column lane%4 (+4) of each 16 x 8 tile) gives the
-    rate-block-diagonal P; all-zero tiles are left out."""
+    """Scattering the fragment table back by its mma fragment layout gives
+    the rate-block-diagonal P; all-zero tiles are left out.  Span 80: the
+    A-fragment layout (row lane/4 (+8), column lane%4 (+4) of each 16 x 8
+    tile).  Span 16, the small-span kernel: P^T as the B operand, registers
+    b0, b1 of n-tile j = Pbd[8j + lane/4, 8j + 2 (lane%4) (+1)]."""
     rng = np.random.default_rng(states)
     span = states * rates
     pm = torch.as_tensor(rng.uniform(0, 1, (3, rates, states, states))
@@ -341,21 +343,189 @@ def test_pmatrix_fragments_rebuild_block_diagonal(states, rates, pairs):
                           rate_matrices=1, prob_matrices=5, rate_cats=rates,
                           scale_buffers=2, dtype=torch.float32)
     frag = partials_tree.pmatrix_fragments(pm, cfg)
-    assert frag.shape == (3, pairs, 2, 32, 4) and frag.is_contiguous()
+    assert frag.is_contiguous()
     want = torch.zeros((3, span, span), dtype=torch.float64)
     for r in range(rates):
         blk = slice(r * states, (r + 1) * states)
         want[:, blk, blk] = pm[:, r].double()
     got = torch.zeros_like(want)
     lane = np.arange(32)
-    p = 0
-    for mt in range(span // 16):
-        for ks in range(span // 8):
-            rows = 16 * mt + (lane // 4)[:, None] + np.array([0, 8, 0, 8])
-            cols = 8 * ks + (lane % 4)[:, None] + np.array([0, 0, 4, 4])
-            if not (want[0][rows, cols] != 0).any():
-                continue
-            got[:, rows, cols] = frag[:, p].double().sum(dim=1)
-            p += 1
-    assert p == pairs
+    if (states, rates) in partials_tree.MMA_CARRY_CASES:
+        assert frag.shape == (3, pairs, 32, 2, 2)
+        for j in range(pairs):
+            rows = 8 * j + (lane // 4)[:, None] + np.array([0, 0])
+            cols = 8 * j + 2 * (lane % 4)[:, None] + np.array([0, 1])
+            got[:, rows, cols] = frag[:, j].double().sum(dim=2)
+        # every other (k-step, n-tile) pair of the block-diagonal is zero
+        for j in range(pairs):
+            for k in range(pairs):
+                if j != k:
+                    assert not want[:, 8 * j:8 * j + 8, 8 * k:8 * k + 8].any()
+    else:
+        assert frag.shape == (3, pairs, 2, 32, 4)
+        p = 0
+        for mt in range(span // 16):
+            for ks in range(span // 8):
+                rows = 16 * mt + (lane // 4)[:, None] + np.array([0, 8, 0, 8])
+                cols = 8 * ks + (lane % 4)[:, None] + np.array([0, 0, 4, 4])
+                if not (want[0][rows, cols] != 0).any():
+                    continue
+                got[:, rows, cols] = frag[:, p].double().sum(dim=1)
+                p += 1
+        assert p == pairs
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2.0 ** -22)
+
+
+CARRY_TREES = {
+    "random": lambda: random_newick(60, np.random.default_rng(5)),
+    "balanced": lambda: balanced_newick(64),
+    "caterpillar": lambda: caterpillar_newick(48),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(CARRY_TREES))
+def test_carry_flags(shape):
+    """A carried child is the previous op's parent; a parent whose store is
+    dropped is read by exactly that next op and is not exported; a parent
+    is either stored or handed on; every op with an inner child that the
+    previous op wrote takes it from registers (on a tree each parent is
+    read once).  prog.ops stays byte-equal to the JAX package's."""
+    jcfg, jprog, pcfg, pprog, tip_b, pmats = build(
+        CARRY_TREES[shape](), 256, 4, bl_scale=20.0)
+    prog = pprog.vmem_prog
+    assert prog.ops.tobytes() == np.asarray(jprog.vmem_prog.ops).tobytes()
+    flags = partials_tree.carry_flags(prog)
+    assert flags.shape == (prog.n_ops, 3) and flags.dtype == np.int32
+    assert ((flags[:, 1] + flags[:, 2]) == 1).all()
+    ops = prog.ops
+    exported = {i for i, _ in prog.exports}
+    carried = 0
+    for w in range(prog.n_ops):
+        took, store, keep = flags[w]
+        if took:
+            carried += 1
+            assert w > 0 and flags[w - 1, 2] == 1
+            slot, is_tip = (ops[w, 2], ops[w, 3]) if took == 1 \
+                else (ops[w, 5], ops[w, 6])
+            assert not is_tip and slot == ops[w - 1, 0]
+        else:
+            assert w == 0 or flags[w - 1, 2] == 0
+        if not store:
+            assert w not in exported
+            # no op reads the slot before it is written again, but the next
+            readers = []
+            for v in range(w + 1, prog.n_ops):
+                for slot, is_tip in ((ops[v, 2], ops[v, 3]),
+                                     (ops[v, 5], ops[v, 6])):
+                    if not is_tip and slot == ops[w, 0]:
+                        readers.append(v)
+                if ops[v, 0] == ops[w, 0]:
+                    break
+            assert readers == [w + 1]
+    # on a tree every parent is read once, so every inner child that the
+    # previous op wrote is carried unless that parent is exported
+    expected = sum(
+        1 for w in range(1, prog.n_ops)
+        if w - 1 not in exported
+        and ((not ops[w, 3] and ops[w, 2] == ops[w - 1, 0])
+             or (not ops[w, 6] and ops[w, 5] == ops[w - 1, 0])))
+    assert carried == expected > 0
+    assert not partials_tree.carry_flags(prog, enabled=False)[:, [0, 2]].any()
+
+    # the plain version honouring the flags: bit-equal rows and scalers,
+    # and still the JAX kernel's in interpret mode
+    plain = run_port(pcfg, pprog, tip_b, pmats)
+    held = partials_tree.sweep_reference(
+        torch.as_tensor(tip_b), torch.as_tensor(pmats), prog, pcfg, TB,
+        carry=True)
+    assert torch.equal(plain[0], held[0]) and torch.equal(plain[1], held[1])
+    assert int(plain[1].max()) > 0
+    # rtol 5e-6: the Pallas kernel rounds its six bf16 split terms
+    # differently from plain f32 at every op, and these trees are up to 63
+    # ops deep under heavy rescaling
+    want = ppt.sweep_static(jnp.asarray(tip_b), jnp.asarray(pmats),
+                            jprog.vmem_prog, jcfg, TB, interpret=True)
+    assert_rows_match(held, want, rtol=5e-6)
+
+
+@pytest.mark.parametrize("carry", [True, False])
+@pytest.mark.parametrize("shape", sorted(CARRY_TREES))
+def test_mma_device_table_runs_the_schedule(shape, carry):
+    """The table the "mma" kernel reads, interpreted row by row as the
+    kernel does (children by kind: tip, pool slot, handed on; a parent
+    stored or handed on), gives the plain version's rows bit for bit; its
+    children are ordered tip before pool before carried."""
+    _, _, pcfg, pprog, tip_b, pmats = build(CARRY_TREES[shape](), 128, 6,
+                                            bl_scale=20.0)
+    prog = pprog.vmem_prog
+    table = partials_tree.mma_device_table(prog, carry)
+    assert table.shape == (prog.n_ops, partials_tree.MMA_OP_COLS)
+    assert table.dtype == np.int32 and table.flags["C_CONTIGUOUS"]
+    kinds = {v: k for k, v in partials_tree.MMA_KINDS.items()}
+    if not carry:
+        assert not table[:, 11].any() and table[:, 10].all()
+        assert set(table[:, 9].tolist()) <= {0, 1, 3}
+    tips, pm = torch.as_tensor(tip_b), torch.as_tensor(pmats)
+    nt, R, S = tips.shape[0], pcfg.rate_cats, pcfg.states
+    pool = torch.zeros((prog.pool_size, nt, R, S, TB))
+    spool = torch.zeros((prog.pool_size, nt, 1, TB), dtype=torch.int32)
+    shifts = torch.arange(S, dtype=torch.int32)[:, None]
+    held = None
+    for row in table.tolist():
+        p, t1, s1, f1, t2, s2, f2, pm1, pm2, kind, store, keep = row
+        k1, k2 = kinds[kind]
+        assert (k1 == "tip") == bool(f1) and (k2 == "tip") == bool(f2)
+        assert store + keep == 1
+
+        def child(kind_name, tip, slot):
+            if kind_name == "tip":
+                bits = ((tips[:, tip, None, :] >> shifts) & 1).float()
+                return bits[:, None].expand(nt, R, S, TB), 0
+            if kind_name == "carried":
+                return held
+            return pool[slot], spool[slot]
+
+        c1, sc1 = child(k1, t1, s1)
+        c2, sc2 = child(k2, t2, s2)
+        par = torch.einsum("rij,nrjt->nrit", pm[pm1], c1) \
+            * torch.einsum("rij,nrjt->nrit", pm[pm2], c2)
+        mask = (par < pcfg.scale_threshold).all(dim=2).all(dim=1,
+                                                           keepdim=True)
+        par = torch.where(mask[:, :, None], par * pcfg.scale_factor, par)
+        scal = mask.to(torch.int32) + sc1 + sc2
+        held = (par, scal) if keep else None
+        if store:
+            pool[p], spool[p] = par, scal
+    slots = [slot for _, slot in prog.exports]
+    want = run_port(pcfg, pprog, tip_b, pmats)
+    assert torch.equal(pool[slots], want[0])
+    assert torch.equal(spool[slots], want[1])
+
+
+def test_pick_site_block_fills_the_card():
+    """With the SM count the "mma" form takes the largest block of at most
+    64 sites that gives a CTA to 15/16 of the SMs, else the smallest; the
+    "fma" form and a call with no SM count keep the largest block."""
+    _, _, pcfg, pprog, _, _ = build(caterpillar_newick(16), 256, 0)
+    prog = pprog.vmem_prog
+    pick = partials_tree.pick_site_block
+
+    def at(sites):
+        return dataclasses.replace(pcfg, sites=sites)
+    limit = partials_tree.SMEM_LIMIT
+    assert pick(prog, at(8192), limit, "mma", 132) == 64      # 128 CTAs
+    assert pick(prog, at(65536), limit, "mma", 132) == 64     # the cap
+    assert pick(prog, at(4096), limit, "mma", 132) == 32      # 128 CTAs
+    assert pick(prog, at(2048), limit, "mma", 132) == 32      # none fills
+    assert pick(prog, at(8192), limit, "mma", 16) == 64
+    for sites in (2048, 8192, 65536):
+        assert pick(prog, at(sites), limit, "fma", 132) == 256
+        assert pick(prog, at(sites), limit, "mma") == 256
+        assert pick(prog, at(sites), limit, "fma") == 256
+    assert pick(prog, at(8192), 1024, "mma", 132) == 0
+    # span 80 (the general kernel) follows the fill rule without the cap
+    aa = dataclasses.replace(at(65536), states=20)
+    assert pick(prog, aa, limit, "mma", 132) == 256
+    assert pick(prog, dataclasses.replace(aa, sites=8192), limit, "mma",
+                132) == 64
+    assert partials_tree.choose(prog, at(65536), limit, 132) == (256, "fma")
