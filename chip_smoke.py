@@ -28,7 +28,7 @@ Phases (any failure exits non-zero):
      lengths x 30;
  10. the large-tree path at full width: loglikelihood and
      optimize_root_branch on a random 8,192-taxon tree x 8,192 sites,
-     through `choose` (which must pick "mma") and with mode "fma", against
+     through `choose` (which must pick "fma") and with mode "mma", against
      the dense f64 path (summed over site slices);
  11. the protein path at full width: loglikelihood at 128 taxa x 16,384
      sites, LG + Gamma4, both modes, and LG4X at a smaller width, against
@@ -37,7 +37,10 @@ Phases (any failure exits non-zero):
      inputs, score_placements on a pruned tip, branch_derivatives against
      central differences;
  13. the matrix-unit probe (probes/mma.py) at one site block;
- 14. times of both sweep forms at four shapes;
+ 14. times of both sweep forms at four shapes, as single calls and as
+     calls back to back, with the register carry on and off; the plain
+     version at a fixed site block; the form `choose` picks beside the
+     faster one;
  15. linked and scaled multi-partition likelihoods (multipartition.py) at
      full width: a random 256-taxon tree, three partitions (GTR DNA 16,384
      sites, another GTR DNA 8,192 sites, LG protein 4,096 sites):
@@ -51,14 +54,16 @@ Phases (any failure exits non-zero):
      sweep in the forward pass and the analytic reverse pass, its first
      gradient against autograd of the dense f64 path;
  18. the build-cache probe (probes/cache.py): cold build, warm reload in a
-     process with no nvcc, rebuild after an edit, each with a timeout;
+     process with no nvcc, rebuild after an edit, each with a timeout; the
+     kernel, its plain version and x * 2 + 1 timed as calls back to back,
+     as single calls and as one CUDA graph;
  19. the construct probe (probes/constructs.py): five variants of the
      tensor-core sweep's inner loop, each against its plain version.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
-held against the plain version and timed over the same round; the "mma"
-sweep runs with its register carry on and off (bit-equal rows) at the site
+held against the plain version and timed over the same round; both sweep
+forms run with their register carry on and off (bit-equal rows) at the site
 block that fills the card.
 
 Prints a {"kernels": [...]} JSON line, then the result line
@@ -112,6 +117,18 @@ EDGE_MS_BEFORE = 16.3053
 SEARCH_BEFORE = "RF 0.0198 in 19 rounds, 1,063 moves, delta logL -89.125"
 MMA_MS_BEFORE = {"dna_256": 1.2908, "dna_1024": 2.5914,
                  "large_8192": 21.3937, "protein_128": 2.4378}
+# the "fma" sweep before its redesign (one thread per site, operands loaded
+# when the op starts; single calls in two runs), and the plain version's
+# single calls at 256-site blocks in the two runs before this one's timer
+FMA_MS_BEFORE = {"dna_256": (1.8123, 1.6223), "dna_1024": (3.5945,),
+                 "large_8192": (26.1673,), "protein_128": (6.56,)}
+PLAIN_MS_BEFORE = {"dna_256": "154.06 and 137.65 ms",
+                   "dna_1024": "632.79 and 309.72 ms",
+                   "large_8192": "4079.04 and 2447.35 ms",
+                   "protein_128": "not timed"}
+PLAIN_BLOCK = 64         # the plain sweep's fixed site block in its timings
+CACHE_REPS = 200         # cache-probe calls back to back in one timing
+CHOOSE_SLACK = 1.25      # choose's form against the faster one, same run
 PROTEIN_TIPS, PROTEIN_SITES = 128, 16384
 # published peaks of one H100 SXM (dense): HBM bytes/s, f32 FMA FLOP/s,
 # TF32 and bf16 tensor FLOP/s; shared memory at 128 B/clk/SM x 132 SMs x
@@ -142,6 +159,24 @@ def cuda_ms(fn, reps: int):
         stop.synchronize()
         out.append(start.elapsed_time(stop))
     return out
+
+
+def cuda_ms_back_to_back(fn, n: int) -> float:
+    """Device time (ms) of one call: after one call to warm up, `n` calls
+    launched back to back between one pair of CUDA events, divided by n.
+    The host time of a wrapper overlaps the device work of the calls
+    before it, so this is the kernel's time where the kernel is longer than
+    its launch, and the launch rate where it is not."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
 
 
 def reset_counts() -> None:
@@ -212,10 +247,10 @@ def phase_build():
 
 
 def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
-                 bl_scale=1.0, random_model=False):
+                 bl_scale=1.0, random_model=False, rates=4):
     """(cfg, program, pmatrix, tip_blocked, tb) for one sweep case; tb is
     the site block `choose` gives the "fma" form (the "mma" form's
-    footprint is no larger, so it takes the same block)."""
+    footprint is no larger, so it can run at the same block)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -228,7 +263,7 @@ def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
     n = tree.tip_count
     cfg = PartitionConfig(
         tips=n, clv_buffers=tree.inner_count, states=states, sites=sites,
-        rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=4,
+        rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=rates,
         scale_buffers=tree.inner_count, per_rate_scalers=per_rate,
         dtype=torch.float32, use_kernel=True)
     program = engine.compile_tree(tree, cfg)
@@ -238,7 +273,8 @@ def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
         freqs = rng.dirichlet(np.full(states, 5.0))
     else:
         subst, freqs = [1.2, 2.1, 0.7, 1.3, 2.5, 1.0], [0.3, 0.25, 0.2, 0.25]
-    model = engine.make_model([subst], [freqs], compute_gamma_cats(0.8, 4),
+    model = engine.make_model([subst], [freqs],
+                              compute_gamma_cats(0.8, rates),
                               dtype=torch.float32, device=device)
     tipchars = torch.as_tensor(engine.pad_tipchars(
         random_tipchars(n, sites, rng, states=states), cfg), device=device)
@@ -399,9 +435,11 @@ def phase_main_path(device, card):
         logls[s] = engine.loglikelihood(program, cfg, model, *args)
         torch.cuda.synchronize()
         logls[s] = (logls[s].item(), (time.perf_counter() - t0) * 1e3)
-    launches = read_counts()["tree_sweep"]
-    log(f"[main] tree_sweep launches during the main path: {launches}")
-    check(launches >= len(shapes), "the main path did not launch the kernel")
+    counts = read_counts()
+    log(f"[main] sweep launches during the main path: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}")
+    check(counts["tree_sweep"] + counts["tree_sweep_mma"] >= len(shapes),
+          "the main path did not launch the kernel")
 
     for s in shapes:
         logl, cold_ms = logls[s]
@@ -416,7 +454,7 @@ def phase_main_path(device, card):
             f"{cold_ms:.3f} ms, {card})")
         check(np.isfinite(logl), f"{s}: non-finite logL")
         check(gap < LOGL_RTOL, f"{s}: rel gap {gap} >= {LOGL_RTOL}")
-    return cases, logls[shapes[0]][1], launches
+    return cases, logls[shapes[0]][1], counts
 
 
 def phase_times(full_case, cold_ms, card):
@@ -462,10 +500,11 @@ def phase_training(full_case, card):
     reset_counts()
     new_bl, logl = engine.optimize_root_branch(program, cfg, model, *args)
     torch.cuda.synchronize()
-    launches = read_counts()["tree_sweep"]
-    log(f"[train] tree_sweep launches during optimize_root_branch: "
-        f"{launches}")
-    check(launches >= 1, "the training step did not launch the kernel")
+    counts = read_counts()
+    log(f"[train] sweep launches during optimize_root_branch: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}")
+    check(counts["tree_sweep"] + counts["tree_sweep_mma"] >= 1,
+          "the training step did not launch the kernel")
 
     root_pos = int(np.nonzero(
         program.pmatrix_indices == program.root_pmatrix)[0][0])
@@ -491,7 +530,7 @@ def phase_training(full_case, card):
           f"training step logL gap {gap} >= {LOGL_RTOL}")
     check(np.isfinite(t) and t_gap < BL_RTOL,
           f"root branch gap {t_gap} >= {BL_RTOL}")
-    return launches
+    return counts
 
 
 def search_inputs(device, tips=SEARCH_TIPS, sites=SEARCH_SITES,
@@ -1081,7 +1120,7 @@ def phase_large_tree(device, card):
     case = engine.build_case(LARGE_TIPS, LARGE_SITES, dtype=torch.float32,
                              device=device, newick=large_newick())
     torch.cuda.synchronize()
-    counts = phase_wide_path("large", case, "mma", device, card, train=True)
+    counts = phase_wide_path("large", case, "fma", device, card, train=True)
     return case, counts
 
 
@@ -1218,10 +1257,15 @@ def phase_probe(card):
 
 def phase_sweep_times(cases, card):
     """Both sweep forms alone at the main paths' shapes, each at the site
-    block `engine.kernel_choice` gives that form: first call and warm
-    median of 20, CUDA events; the plain version once.  The "mma" form
-    also with its register carry off: rows bit-equal, time beside.
-    Returns {(name, mode): (ms, plain_ms, bound tuple, max_abs_err)}."""
+    block `engine.kernel_choice` gives that form: first call, warm median
+    of 20 single calls (CUDA events around each, the wrapper's host time
+    inside), and 30 calls launched back to back (the kernel's time), with
+    the register carry on and off (rows bit-equal).  The plain version at
+    a fixed block of PLAIN_BLOCK sites and at the forms' blocks.  A
+    `[choose]` line per shape: the form `choose` picks and the faster one,
+    which must be within CHOOSE_SLACK of each other.  Returns
+    {(name, mode): (ms back to back, plain_ms, bound tuple, max_abs_err,
+    single-call ms)}."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -1235,16 +1279,30 @@ def phase_sweep_times(cases, card):
         blocks = {mode: engine.kernel_choice(
             program, dataclasses.replace(cfg, sweep_mode=mode),
             tipchars.device)[0] for mode in partials_tree.MODES}
+        chosen_tb, chosen = engine.kernel_choice(program, cfg,
+                                                 tipchars.device)
         tips = {tb: engine.block_tips(tipchars, cfg, tb)
-                for tb in set(blocks.values())}
-        plain = {}
-        tb0 = blocks["fma"]
-        p_ms = cuda_ms(lambda: plain.setdefault(
-            "v", partials_tree.sweep_reference(tips[tb0], pmatrix, prog, cfg,
-                                               tb0)), 1)[0]
-        # rows in site order, whatever the block: [E, R, S, sites]
-        want = (plain["v"][0].permute(0, 2, 3, 1, 4).flatten(3),
-                plain["v"][1].permute(0, 2, 1, 3).flatten(2))
+                for tb in set(blocks.values()) | {PLAIN_BLOCK, 256}
+                if cfg.sites_padded % tb == 0}
+        # the plain version: a Python loop of small launches, timed at one
+        # fixed block, at the forms' blocks and at the 256-site block of the
+        # earlier timings (PLAIN_MS_BEFORE)
+        p_ms, want = {}, None
+        for tb in sorted(tips):
+            plain = {}
+            p_ms[tb] = statistics.median(cuda_ms(lambda: plain.__setitem__(
+                "v", partials_tree.sweep_reference(tips[tb], pmatrix, prog,
+                                                   cfg, tb)), 2))
+            if tb == PLAIN_BLOCK:
+                # rows in site order, whatever the block: [E, R, S, sites]
+                want = (plain["v"][0].permute(0, 2, 3, 1, 4).flatten(3),
+                        plain["v"][1].permute(0, 2, 1, 3).flatten(2))
+            del plain
+        log(f"[time] plain sweep_reference {name}: "
+            + ", ".join(f"{p_ms[tb]:.2f} ms at site block {tb}"
+                        for tb in sorted(p_ms))
+            + f" (median of 2 calls; earlier single calls at 256 sites: "
+            f"{PLAIN_MS_BEFORE[name]}) ({card})")
         updates = (cfg.tips - 2) * cfg.sites
         for mode in partials_tree.MODES:
             tb = blocks[mode]
@@ -1265,44 +1323,59 @@ def phase_sweep_times(cases, card):
             check(rel <= bound_rel and comp <= COMP_RTOL,
                   f"{name} {mode}: rows off plain by {rel} (bound "
                   f"{bound_rel}), compensated {comp}")
-            for _ in range(2):
-                call()
-            med = statistics.median(cuda_ms(call, 20))
+            off = call(carry=False)
+            torch.cuda.synchronize()
+            check(torch.equal(off[0], got["v"][0])
+                  and torch.equal(off[1], got["v"][1]),
+                  f"{name} {mode}: rows differ between carry on and off")
+            del off
+            single = statistics.median(cuda_ms(call, 20))
+            b2b = [cuda_ms_back_to_back(call, 30) for _ in range(3)]
+            off_b2b = cuda_ms_back_to_back(lambda: call(carry=False), 30)
+            med = statistics.median(b2b)
             b = sweep_bound(prog, cfg, mode)
-            extra = ""
-            if mode == "mma":
-                off = call(carry=False)
-                torch.cuda.synchronize()
-                check(torch.equal(off[0], got["v"][0])
-                      and torch.equal(off[1], got["v"][1]),
-                      f"{name}: rows differ between carry on and off")
-                off_ms = statistics.median(cuda_ms(
-                    lambda: call(carry=False), 20))
-                flags = partials_tree.carry_flags(prog)
-                carried = int((flags[:, 0] > 0).sum()) if (
-                    cfg.states, cfg.rate_cats) in \
-                    partials_tree.MMA_CARRY_CASES else 0
-                extra = (f"; carry off {off_ms:.4f} ms, rows and scalers "
-                         f"bit-equal; {carried} of {prog.n_ops} ops take a "
-                         f"child from registers; before the carry and the "
-                         f"SM-fill site block {MMA_MS_BEFORE[name]} ms")
+            flags = partials_tree.carry_flags(prog)
+            carried = int((flags[:, 0] > 0).sum())
+            if mode == "mma" and (cfg.states, cfg.rate_cats) not in \
+                    partials_tree.MMA_CARRY_CASES:
+                carried = 0
+            before = (f"before the redesign: "
+                      f"{' / '.join(map(str, FMA_MS_BEFORE[name]))} ms"
+                      if mode == "fma" else
+                      f"before the register carry and SM-fill site block: "
+                      f"{MMA_MS_BEFORE[name]} ms")
             log(f"[time] sweep {mode} {name} {cfg.tips}x{cfg.sites} "
                 f"S={cfg.states} ops={prog.n_ops} tb={tb} "
-                f"ctas={cfg.sites_padded // tb}: warm median "
-                f"{med:.4f} ms over 20 calls, first call (cold for this "
+                f"ctas={cfg.sites_padded // tb} smem/cta="
+                f"{partials_tree.smem_bytes(prog, cfg, tb, mode)}: "
+                f"{med:.4f} ms a call in 30 launched back to back (3 runs: "
+                f"{', '.join(f'{t:.4f}' for t in b2b)}), warm median of 20 "
+                f"single calls {single:.4f} ms, first call (cold for this "
                 f"shape and form) {first:.3f} ms, "
-                f"{updates / (med * 1e-3):.4e} site-updates/s; plain "
-                f"sweep_reference {p_ms:.3f} ms; rows against plain: "
-                f"site-rel {rel:.3e}, {mism} scaler mismatches; bound "
-                f"{b[0]:.4f} ms by {b[1]} (HBM bytes {b[2]:.4f}, operations "
-                f"{b[3]:.4f}; shared-memory traffic {b[4]:.4f}){extra} "
-                f"({card})")
-            out[(name, mode)] = (med, p_ms, b, abs_err)
+                f"{updates / (med * 1e-3):.4e} site-updates/s; carry off "
+                f"{off_b2b:.4f} ms back to back, rows and scalers bit-equal;"
+                f" {carried} of {prog.n_ops} ops take a child from registers; "
+                f"{before}; rows against plain: site-rel {rel:.3e}, {mism} "
+                f"scaler mismatches; bound {b[0]:.4f} ms by {b[1]} (HBM bytes "
+                f"{b[2]:.4f}, operations {b[3]:.4f}; shared-memory traffic "
+                f"{b[4]:.4f}) ({card})")
+            out[(name, mode)] = (med, p_ms[tb], b, abs_err, single)
+        times = {mode: out[(name, mode)][0] for mode in partials_tree.MODES}
+        fastest = min(times, key=times.get)
+        log(f"[choose] {name}: choose picks {chosen!r} (site block "
+            f"{chosen_tb}), {times[chosen]:.4f} ms; faster in this run: "
+            f"{fastest!r}, {times[fastest]:.4f} ms ("
+            + ", ".join(f"{m} {t:.4f}" for m, t in times.items())
+            + f", back to back) ({card})")
+        check(times[chosen] <= CHOOSE_SLACK * times[fastest],
+              f"{name}: choose picked {chosen} at {times[chosen]} ms, "
+              f"{fastest} took {times[fastest]} ms")
         if name == "large_8192":
-            check(cfg.sites_padded // blocks["mma"] >= 128,
-                  f"{name}: the 'mma' form runs on "
-                  f"{cfg.sites_padded // blocks['mma']} CTAs")
-        del plain, want, pmatrix, tips
+            for mode in partials_tree.MODES:
+                check(cfg.sites_padded // blocks[mode] >= 124,
+                      f"{name}: the {mode!r} form runs on "
+                      f"{cfg.sites_padded // blocks[mode]} CTAs")
+        del want, pmatrix, tips
         torch.cuda.empty_cache()
     return out
 
@@ -1671,9 +1744,9 @@ def phase_fit(full_case, device, card):
     counts = read_counts()
     trace = out.logl.tolist()
     subst, freqs, _bl = fit.unpack(out.params)
-    log(f"[fit] tree_sweep launches during fit_model: "
-        f"{counts['tree_sweep']} for {FIT_STEPS} steps and the final "
-        f"gradient")
+    log(f"[fit] sweep launches during fit_model: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']} "
+        f"for {FIT_STEPS} steps and the final gradient")
     log(f"[fit] {cfg.tips} taxa x {cfg.sites} sites, {FIT_STEPS} Adam steps "
         f"at lr {FIT_LR}: logL {trace[0]!r} -> {trace[-1]!r}, "
         f"{sum(b > a for a, b in zip(trace, trace[1:]))} of "
@@ -1691,7 +1764,9 @@ def phase_fit(full_case, device, card):
 
 def phase_cache_probe(device, card):
     """probes/cache.py's stages, then times of the kernel, its plain
-    version and the one torch expression that computes the same."""
+    version and the one torch expression that computes the same: as calls
+    back to back (the numbers of the kernels line), as single calls, and
+    as one CUDA graph of the same calls (device time alone)."""
     import torch
 
     from libpll2_tpu_torch.probes import cache
@@ -1709,19 +1784,54 @@ def phase_cache_probe(device, card):
     got = cache.scale_shift(x)
     err = (got - cache.scale_shift_reference(x)).abs().max().item()
     check(err == 0.0, f"cache kernel differs from its plain version: {err}")
-    for fn in (cache.scale_shift, cache.scale_shift_reference):
-        fn(x)
-    ms = statistics.median(cuda_ms(lambda: cache.scale_shift(x), 50))
-    plain = statistics.median(cuda_ms(
-        lambda: cache.scale_shift_reference(x), 50))
-    library = statistics.median(cuda_ms(lambda: x * 2 + 1, 50))
+    calls = {"kernel": lambda: cache.scale_shift(x),
+             "plain": lambda: cache.scale_shift_reference(x),
+             "library": lambda: x * 2 + 1}
+    # N calls back to back between one pair of events, three runs each, in
+    # turns; then single calls (the wrapper's host time inside each window)
+    runs = {label: [] for label in calls}
+    for _ in range(3):
+        for label, fn in calls.items():
+            runs[label].append(cuda_ms_back_to_back(fn, CACHE_REPS))
+    b2b = {label: statistics.median(t) for label, t in runs.items()}
+    single = {label: statistics.median(cuda_ms(fn, 50))
+              for label, fn in calls.items()}
+    # the device alone: the same N calls captured in one CUDA graph, replayed
+    graph_ms = {}
+    for label, fn in calls.items():
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+            with torch.cuda.graph(graph, stream=stream):
+                for _ in range(CACHE_REPS):
+                    fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph_ms[label] = statistics.median(
+            cuda_ms(graph.replay, 5)) / CACHE_REPS
+        del graph
     nbytes = 2 * x.numel() * 4
     flops = 2 * x.numel()
-    log(f"[time] cache_probe kernel {ms:.4f} ms, plain scale_shift_reference "
-        f"{plain:.4f} ms, torch x * 2 + 1 {library:.4f} ms, medians of 50 "
-        f"launches at {tuple(x.shape)} f32 ({card})")
-    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                library_ms=library,
+    log(f"[time] cache_probe, {CACHE_REPS} calls launched back to back "
+        f"between one pair of CUDA events, a call (median of 3 runs): kernel "
+        f"{b2b['kernel']:.4f} ms, plain scale_shift_reference "
+        f"{b2b['plain']:.4f} ms, torch x * 2 + 1 {b2b['library']:.4f} ms "
+        f"at {tuple(x.shape)} f32 (runs: "
+        + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+                    for k, v in runs.items()) + f") ({card})")
+    log(f"[time] cache_probe, single calls (one pair of events around each, "
+        f"the wrapper's host time inside; median of 50): kernel "
+        f"{single['kernel']:.4f} ms, plain {single['plain']:.4f} ms, "
+        f"x * 2 + 1 {single['library']:.4f} ms ({card})")
+    log(f"[time] cache_probe, the same {CACHE_REPS} calls captured in one "
+        f"CUDA graph and replayed (device time, no host launch), a call: "
+        f"kernel {graph_ms['kernel']:.4f} ms, plain {graph_ms['plain']:.4f} "
+        f"ms, x * 2 + 1 {graph_ms['library']:.4f} ms ({card})")
+    return dict(launches=launches, max_abs_err=err, ms=b2b["kernel"],
+                plain_ms=b2b["plain"], library_ms=b2b["library"],
+                single_call_ms=single["kernel"],
+                graph_ms=graph_ms["kernel"],
                 bound_ms=max(nbytes / HBM_RATE, flops / F32_RATE) * 1e3,
                 bound_by="bytes" if nbytes / HBM_RATE >= flops / F32_RATE
                 else "operations")
@@ -1783,16 +1893,17 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     phase_kernel_vs_plain(device)
-    cases, cold_ms, n_main = phase_main_path(device, card)
+    cases, cold_ms, main_counts = phase_main_path(device, card)
     full_case = cases[(256, 65536)]
-    launches = {"tree_sweep": n_main, "tree_sweep_mma": 0, "edge_score": 0,
+    launches = {"tree_sweep": 0, "tree_sweep_mma": 0, "edge_score": 0,
                 "mma_probe": 0}
 
     def add(counts):
         for k in ("tree_sweep", "tree_sweep_mma", "edge_score"):
             launches[k] += counts[k]
+    add(main_counts)
     phase_times(full_case, cold_ms, card)
-    launches["tree_sweep"] += phase_training(full_case, card)
+    add(phase_training(full_case, card))
 
     phase_mma_vs_plain(device)
     large_case, counts = phase_large_tree(device, card)
@@ -1820,8 +1931,9 @@ def main() -> int:
     construct_probe = phase_construct_probe(card)
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
-    fma_ms, fma_plain, fma_b, fma_err = times[("dna_256", "fma")]
-    mma_ms, mma_plain, mma_b, mma_err = times[("large_8192", "mma")]
+    fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
+    mma_ms, mma_plain, mma_b, mma_err, mma_single = times[("large_8192",
+                                                           "mma")]
     edge_bytes_s = edge["bytes"] / HBM_RATE
     edge_ops_s = edge["flops"] / F32_RATE
     kernels = [{
@@ -1830,8 +1942,9 @@ def main() -> int:
         "replaces": f"{ppt}:808 (_tree_kernel_static); :1136 "
                     f"(_tree_kernel_static_seg); :410 (_tree_kernel, vpu)",
         "launches": launches["tree_sweep"], "max_abs_err": fma_err,
-        "ms": fma_ms, "plain_ms": fma_plain, "bound_ms": fma_b[0],
-        "bound_by": fma_b[1], "smem_ms": fma_b[4], "library_ms": None,
+        "ms": fma_ms, "single_call_ms": fma_single, "plain_ms": fma_plain,
+        "bound_ms": fma_b[0], "bound_by": fma_b[1], "smem_ms": fma_b[4],
+        "library_ms": None,
         "shape": "256 x 65536 DNA",
     }, {
         "name": "tree_sweep_mma", "route": "cuda",
@@ -1839,8 +1952,9 @@ def main() -> int:
         "replaces": f"{ppt}:547 (_tree_kernel_splitk); :410 (_tree_kernel, "
                     f"mxu)",
         "launches": launches["tree_sweep_mma"], "max_abs_err": mma_err,
-        "ms": mma_ms, "plain_ms": mma_plain, "bound_ms": mma_b[0],
-        "bound_by": mma_b[1], "smem_ms": mma_b[4], "library_ms": None,
+        "ms": mma_ms, "single_call_ms": mma_single, "plain_ms": mma_plain,
+        "bound_ms": mma_b[0], "bound_by": mma_b[1], "smem_ms": mma_b[4],
+        "library_ms": None,
         "shape": "8192 x 8192 DNA",
     }, {
         "name": "edge_score", "route": "cuda",

@@ -10,29 +10,32 @@ list for one site block with the pool in shared memory: tips enter as
 packed state bitmasks and only the exported rows (the root edge's CLVs and
 scalers) reach device memory.
 
-The op table `[OPS, 9] int32` is runtime data for the kernels, so one
-compiled kernel serves every topology and op count.  Two forms of the
-kernel exist, picked by `sweep(..., mode=)`:
+The schedule `[OPS, 9] int32` is runtime data for the kernels, so one
+compiled kernel serves every topology and op count.  The kernels read it as
+`mma_device_table` [OPS, 12] and `fma_device_table` [OPS, 8]: the children
+ordered tip before pool slot before handed on, the op's case by the kinds
+of its children, and the columns of `carry_flags`.  Under the Sethi–Ullman
+order most ops consume the parent the op before them wrote; `carry_flags`
+marks those, and the kernels hand such a parent on in registers instead of
+through its pool slot (same values, so the rows are bit-equal with the
+carry on or off).  Two forms of the kernel exist, picked by
+`sweep(..., mode=)`:
 
-  * "fma" (csrc/tree_sweep.cu): one thread per site, the propagation as
-    f32 FMAs.  It replaces the JAX package's static kernels (the unrolled
-    `_tree_kernel_static`, <= 512 ops, and the segmented
-    `_tree_kernel_static_seg`, 513-4096 ops, whose segments exist only to
-    bound Mosaic's compile time) and is the counterpart of the runtime-ops
-    kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs);
+  * "fma" (csrc/tree_sweep.cu): a thread per rate category of two sites
+    (one above 4 states), the propagation as f32 FMAs, each warp's operands
+    staged a few ops ahead in shared memory.  It replaces the JAX package's
+    static kernels (the unrolled `_tree_kernel_static`, <= 512 ops, and the
+    segmented `_tree_kernel_static_seg`, 513-4096 ops, whose segments exist
+    only to bound Mosaic's compile time) and is the counterpart of the
+    runtime-ops kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs);
   * "mma" (csrc/tree_sweep_mma.cu): the propagation as one product with the
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
     split of both operands.  It is the counterpart of the runtime-ops
     kernels' "mxu" and "splitk" modes (`_tree_kernel`, `_tree_kernel_splitk`).
-    Under the Sethi–Ullman order most ops consume the parent the op before
-    them wrote; `carry_flags` marks those, and the small-span kernel hands
-    such a parent on in registers instead of through its pool slot (same
-    values, so the rows are bit-equal with the carry on or off).  Its site
-    block is picked to fill the card (`pick_site_block` with the SM count).
 
-`choose()` picks (site block, mode) the way the JAX package's `choose`
-does: the "fma" form up to FMA_MAX_OPS operations, the runtime-ops family
-("mma" where that kernel takes the case) above.
+Both forms take the site block that fills the card (`pick_site_block` with
+the SM count).  `choose()` picks the form by the times measured on an H100
+(see its docstring), not by the JAX package's op-count limits.
 
 `sweep()` is the kernel wrapper; `sweep_reference()` is the plain PyTorch
 version of both forms, with the same signature and output.
@@ -53,14 +56,31 @@ OP_COLS = 9
 # columns: 0 parent_slot, 1 c1_tip_idx, 2 c1_slot, 3 c1_is_tip,
 #          4 c2_tip_idx, 5 c2_slot, 6 c2_is_tip, 7 pmatrix1, 8 pmatrix2
 
-# Site-block sizes the kernel takes (one thread per site, one CTA per block).
+# Site-block sizes the kernels take (one CTA per block).
 SITE_BLOCKS = (256, 128, 64, 32)
 # Dynamic shared memory one block may opt in to on an H100 (sm_90):
 # 227 KB = 232,448 bytes.  The wrapper also checks the device's own limit.
 SMEM_LIMIT = 232448
 # State counts the "fma" form is instantiated for (bin, nt, gt10, gt16, aa),
-# at any number of rate categories, with per-site or per-rate scalers.
+# at up to FMA_MAX_RATES rate categories, with per-site or per-rate scalers.
+# A site has `rate_lanes(R)` lanes, one per rate, R rounded up to a power
+# of two; a thread holds one lane of `sites_a_thread` sites.  For the rate
+# counts in FMA_RATE_LANES R
+# is a compile-time constant and a CTA has at most FMA_THREADS threads;
+# other counts run the run-time-R instantiation, at most FMA_THREADS_ANY.
 KERNEL_STATES = (2, 4, 10, 16, 20)
+FMA_MAX_RATES = 32
+FMA_RATE_LANES = (1, 4)
+FMA_THREADS, FMA_THREADS_ANY = 256, 1024
+# Up to FMA_SITES_STATES states an "fma" thread holds FMA_SITES_A_THREAD
+# sites of its rate (one above).  Each warp stages its operands in a ring of
+# shared memory, FMA_AHEAD ops ahead: rows, tip masks and, up to
+# FMA_STAGE_P_MAX_STATES states at the compile-time rate counts, the P rows.
+# The names of csrc/tree_sweep.cu (SITES_A_THREAD, AHEAD,
+# STAGE_P_MAX_STATES; `ring_words`), which a test holds equal.
+FMA_SITES_A_THREAD, FMA_SITES_STATES = 2, 4
+FMA_AHEAD = 2
+FMA_STAGE_P_MAX_STATES = 4
 # (states, rate_cats) the "mma" form is instantiated for: its span must fill
 # whole 16-row tensor-core tiles, and it keeps per-site scalers only.
 MMA_CASES = ((4, 4), (20, 4))
@@ -68,8 +88,11 @@ MODES = ("fma", "mma")
 # Columns of the "mma" kernel's device table (`mma_device_table`): the nine
 # above, the op's case by the kinds of its children, whether the parent is
 # stored to its slot, whether it is handed on to the next op in registers.
-# Twelve int32: three 16-byte loads per op.
+# Twelve int32: three 16-byte loads per op.  The "fma" kernel reads the same
+# in eight (`fma_device_table`): two 16-byte halves, what the copies ahead
+# of an op need and what the op needs.
 MMA_OP_COLS = 12
+FMA_TABLE_COLS = 8
 # (states, rate_cats) that run on the "mma" form's small-span kernel, which
 # honours the hand-on columns; at span 80 the general kernel never hands a
 # parent on and always stores (its registers are full).
@@ -85,10 +108,12 @@ MMA_CARRY_CASES = ((4, 4),)
 # 6.0, 6.0 ms).
 SM_FILL = 15 / 16
 MMA_SMALL_BLOCK = 64
-# Up to this many operations `choose` takes the "fma" form, the counterpart
-# of the JAX package's static kernels (its STATIC_SEG_MAX_OPS); above, the
-# runtime-ops family.
-FMA_MAX_OPS = 4096
+# From this many sites on, at the (states, rate_cats) of the small-span
+# "mma" kernel, `choose` takes "mma": there the sites fill the card several
+# times over and the tensor cores' shorter stream of instructions wins;
+# with fewer sites an SM holds one or two CTAs and the "fma" form, whose op
+# waits less, wins (times in `choose`).
+MMA_MIN_SITES = 65536
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -110,15 +135,15 @@ class TreeVmemProgram:
     def device_tables(self, device: torch.device, mode: str = "fma",
                       carry: bool = True):
         """(op table int32, export slots [E] int32) on `device`: for "fma"
-        the schedule's ops [OPS, 9]; for "mma" `mma_device_table` [OPS, 12]
-        (with carry=False: nothing handed on, every parent stored)."""
+        `fma_device_table` [OPS, 8], for "mma" `mma_device_table` [OPS, 12];
+        with carry=False nothing is handed on and every parent is stored."""
         key = (str(device), mode, carry)
         if key not in self._device:
-            table = self.ops if mode == "fma" \
+            table = fma_device_table(self, carry) if mode == "fma" \
                 else mma_device_table(self, carry)
             slots = np.asarray([s for _, s in self.exports], np.int32)
             self._device[key] = (
-                torch.as_tensor(np.ascontiguousarray(table), device=device),
+                torch.as_tensor(table, device=device),
                 torch.as_tensor(slots, device=device).contiguous())
         return self._device[key]
 
@@ -159,18 +184,18 @@ def carry_flags(prog: TreeVmemProgram, enabled: bool = True) -> np.ndarray:
     return flags
 
 
-# The "mma" kernel's cases by the kinds of an op's two children, the first
-# kind never after the second: (tip, tip), (tip, pool), (tip, carried),
+# The kernels' cases by the kinds of an op's two children, the first kind
+# never after the second: (tip, tip), (tip, pool), (tip, carried),
 # (pool, pool), (pool, carried).
-MMA_KINDS = {("tip", "tip"): 0, ("tip", "pool"): 1, ("tip", "carried"): 2,
-             ("pool", "pool"): 3, ("pool", "carried"): 4}
+KINDS = {("tip", "tip"): 0, ("tip", "pool"): 1, ("tip", "carried"): 2,
+         ("pool", "pool"): 3, ("pool", "carried"): 4}
 
 
 def mma_device_table(prog: TreeVmemProgram, carry: bool = True) -> np.ndarray:
     """[OPS, MMA_OP_COLS] int32, the table the "mma" kernel reads: the
     schedule's nine columns with an op's children ordered tip before pool
     slot before carried (left * right commutes exactly, so the rows do not
-    change), then the op's case in MMA_KINDS and the store and hand-on
+    change), then the op's case in KINDS and the store and hand-on
     columns of `carry_flags`."""
     order = {"tip": 0, "pool": 1, "carried": 2}
     table = np.zeros((prog.n_ops, MMA_OP_COLS), dtype=np.int32)
@@ -183,9 +208,25 @@ def mma_device_table(prog: TreeVmemProgram, carry: bool = True) -> np.ndarray:
                  (t2, s2, f2), pm2)]
         kids.sort(key=lambda kid: order[kid[0]])
         (k1, c1, m1), (k2, c2, m2) = kids
-        table[w] = [p_slot, *c1, *c2, m1, m2, MMA_KINDS[(k1, k2)], store,
+        table[w] = [p_slot, *c1, *c2, m1, m2, KINDS[(k1, k2)], store,
                     keep]
     return table
+
+
+def fma_device_table(prog: TreeVmemProgram, carry: bool = True
+                     ) -> np.ndarray:
+    """[OPS, FMA_TABLE_COLS] int32, the table the "fma" kernel reads: the
+    rows of `mma_device_table` in two 16-byte halves.  Columns 0-3, what the
+    copies ahead of the op need: the tip index of child 1 and of child 2
+    (-1 where that child is not a tip), their P-matrices; columns 4-7, what
+    the op needs: the parent's slot, the children's slots, and 2 * case +
+    hand-on (the case in KINDS; a parent not handed on is stored)."""
+    t = mma_device_table(prog, carry)
+    tip1 = np.where(t[:, 3] != 0, t[:, 1], -1)
+    tip2 = np.where(t[:, 6] != 0, t[:, 4], -1)
+    return np.ascontiguousarray(np.stack([
+        tip1, tip2, t[:, 7], t[:, 8], t[:, 0], t[:, 2], t[:, 5],
+        2 * t[:, 9] + t[:, 11]], axis=1).astype(np.int32))
 
 
 def schedule(ops: Sequence, tips: int, export_clvs: Sequence[int]
@@ -315,36 +356,90 @@ def _scaler_rows(cfg: PartitionConfig) -> int:
     return cfg.rate_cats if cfg.per_rate_scalers else 1
 
 
+def rate_lanes(rate_cats: int) -> int:
+    """Threads a site has in the "fma" kernel: one per rate category,
+    rounded up to a power of two (the padding lanes repeat the last rate)."""
+    return 1 << max(rate_cats - 1, 0).bit_length()
+
+
+def max_threads(cfg: PartitionConfig) -> int:
+    """Threads an "fma" CTA may have at this rate count."""
+    return FMA_THREADS if cfg.rate_cats in FMA_RATE_LANES \
+        else FMA_THREADS_ANY
+
+
+def sites_a_thread(cfg: PartitionConfig) -> int:
+    """Sites one "fma" thread holds."""
+    return FMA_SITES_A_THREAD if cfg.states <= FMA_SITES_STATES else 1
+
+
+def fma_threads(cfg: PartitionConfig, tb: int) -> int:
+    """Threads of an "fma" CTA at site block tb: a thread holds one rate
+    lane of `sites_a_thread` sites."""
+    return tb * rate_lanes(cfg.rate_cats) // sites_a_thread(cfg)
+
+
+def ring_words(cfg: PartitionConfig) -> int:
+    """32-bit words of one warp's staging ring in the "fma" kernel: 2 *
+    FMA_AHEAD + 1 op rows of 8, then FMA_AHEAD + 1 slots of both P-matrices
+    (where staged; a rate block padded to 20 floats at S = 4) and of two tip
+    masks for each of the warp's sites; rounded up to a multiple of 4."""
+    S, R = cfg.states, cfg.rate_cats
+    p_floats = 0
+    if R in FMA_RATE_LANES and S <= FMA_STAGE_P_MAX_STATES:
+        p_floats = 2 * R * (20 if S == 4 else S * S)
+    sites = sites_a_thread(cfg) * (32 // rate_lanes(R))
+    words = (2 * FMA_AHEAD + 1) * FMA_TABLE_COLS \
+        + (FMA_AHEAD + 1) * (p_floats + 2 * sites)
+    return (words + 3) & ~3
+
+
 def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
                mode: str = "fma") -> int:
-    """Dynamic shared memory of one CTA at site-block size tb: the CLV
-    pool [pool_size, R*S, tb] f32 and the scaler pool [pool_size, SR, tb]
-    int32.  The "mma" form tiles the CLV pool as [tb/8, R*S, 8] without
-    padding and keeps one scaler row, so its footprint is the "fma" form's
-    under per-site scalers."""
-    sr = 1 if mode == "mma" else _scaler_rows(cfg)
-    return prog.pool_size * (cfg.span + sr) * tb * 4
+    """Dynamic shared memory of one CTA at site-block size tb.  "fma": the
+    CLV pool [pool_size, S, tb * L] f32, the scaler pool [pool_size,
+    tb * L or tb] int32 (per-rate or per-site), L = rate_lanes(R) (at a
+    power-of-two R the pools [pool_size, R*S, tb] and [pool_size, SR, tb]),
+    and one staging ring a warp (`ring_words`).  "mma": the CLV pool tiled
+    as [tb/8, R*S, 8] and one scaler row."""
+    if mode == "mma":
+        return prog.pool_size * (cfg.span + 1) * tb * 4
+    lanes = rate_lanes(cfg.rate_cats)
+    sr = lanes if cfg.per_rate_scalers else 1
+    return (prog.pool_size * (lanes * cfg.states + sr) * tb
+            + fma_threads(cfg, tb) // 32 * ring_words(cfg)) * 4
+
+
+def fitting_blocks(prog: TreeVmemProgram, cfg: PartitionConfig,
+                   smem_limit: int = SMEM_LIMIT, mode: str = "fma") -> list:
+    """The site blocks of SITE_BLOCKS, largest first, that divide
+    sites_padded, whose pools fit `smem_limit` bytes and, for "fma", whose
+    CTA has whole warps and at most `max_threads` threads."""
+    return [tb for tb in SITE_BLOCKS
+            if cfg.sites_padded % tb == 0
+            and smem_bytes(prog, cfg, tb, mode) <= smem_limit
+            and (mode == "mma"
+                 or (fma_threads(cfg, tb) % 32 == 0
+                     and fma_threads(cfg, tb) <= max_threads(cfg)))]
 
 
 def pick_site_block(prog: TreeVmemProgram, cfg: PartitionConfig,
                     smem_limit: int = SMEM_LIMIT, mode: str = "fma",
                     sm_count: Optional[int] = None) -> int:
-    """Largest site block in SITE_BLOCKS that divides sites_padded and
-    whose pools fit `smem_limit` bytes; 0 if none does.
+    """Site block for `mode` among `fitting_blocks`; 0 if none fits.
 
-    With `sm_count` (the device's SMs) the "mma" form, whose warps are
-    independent, fills the card first: the largest such block (at most
-    MMA_SMALL_BLOCK sites on the small-span kernel) that gives at least
-    SM_FILL * sm_count CTAs, or the smallest block where none gives that
-    many.  The "fma" form keeps the largest block."""
-    fits = [tb for tb in SITE_BLOCKS
-            if cfg.sites_padded % tb == 0
-            and smem_bytes(prog, cfg, tb, mode) <= smem_limit]
+    Without `sm_count` the largest such block.  With it (the device's SMs)
+    the card is filled first: the largest block (at most MMA_SMALL_BLOCK
+    sites on the small-span "mma" kernel) that gives at least SM_FILL *
+    sm_count CTAs, or the smallest block where none gives that many.  The
+    warps of both forms share nothing, so small blocks lose nothing, and
+    they pack an SM's shared memory more tightly."""
+    fits = fitting_blocks(prog, cfg, smem_limit, mode)
     if not fits:
         return 0
-    if mode != "mma" or sm_count is None:
+    if sm_count is None:
         return fits[0]
-    if (cfg.states, cfg.rate_cats) in MMA_CARRY_CASES:
+    if mode == "mma" and (cfg.states, cfg.rate_cats) in MMA_CARRY_CASES:
         fits = [tb for tb in fits if tb <= MMA_SMALL_BLOCK] or fits[-1:]
     for tb in fits:
         if cfg.sites_padded // tb >= SM_FILL * sm_count:
@@ -367,6 +462,9 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     if mode == "fma" and cfg.states not in KERNEL_STATES:
         return (f"the 'fma' tree-sweep kernel is built for states "
                 f"{KERNEL_STATES}, got {cfg.states}")
+    if mode == "fma" and cfg.rate_cats > FMA_MAX_RATES:
+        return (f"the 'fma' tree-sweep kernel runs one thread per site and "
+                f"rate, at most {FMA_MAX_RATES} rates, got {cfg.rate_cats}")
     if mode == "mma":
         if (cfg.states, cfg.rate_cats) not in MMA_CASES:
             return (f"the 'mma' tree-sweep kernel is built for (states, "
@@ -381,7 +479,7 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
                 f"{smem_bytes(prog, cfg, small, mode)} bytes of shared "
                 f"memory for a pool of {prog.pool_size} slots, above the "
                 f"{smem_limit}-byte limit, or no block size in {SITE_BLOCKS} "
-                f"divides {cfg.sites_padded} sites")
+                f"divides {cfg.sites_padded} sites within the thread limit")
     return None
 
 
@@ -392,15 +490,26 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     case (`unsupported` gives the reason).  `sm_count` goes to
     `pick_site_block` and does not change the mode.
 
-    Mirrors the JAX package's `choose`: None for an empty schedule or a
-    dtype other than f32; up to FMA_MAX_OPS operations the "fma" form (the
-    counterpart of the static kernels); above, the runtime-ops family:
-    "mma" where the tensor-core kernel takes the case, else "fma".  The JAX
-    runtime-ops kernels refuse per-rate scalers; here the "fma" form keeps
-    them at any op count."""
+    "mma" at four states and four rates (MMA_CARRY_CASES) with per-site
+    scalers from MMA_MIN_SITES sites on, "fma" everywhere else that it
+    takes the case, at any op count; either form where only it takes the
+    case.  The rule rests on both forms' times on an NVIDIA H100 80GB HBM3
+    at 700 W, calls back to back at the blocks `pick_site_block` gives
+    (chip_smoke.phase_sweep_times; PERF.md): at 256 taxa x 65,536 sites
+    "mma" 0.42-0.43 ms, "fma" 0.46-0.55; at 1,024 x 16,384 "fma" 0.61
+    against 0.74; at a random 8,192-taxon tree x 8,192 sites 3.82-3.84
+    against 5.67-5.71; at 128 protein taxa x 16,384 sites 2.08 against
+    2.33-2.34.  Between 16,384 and 65,536 DNA sites no time was taken.
+    The JAX package's rule (the static kernels up to 4,096 ops) follows a
+    limit of Mosaic's compile time that the CUDA kernels, which read the
+    op table at run time, do not have.  None for an empty schedule or a
+    dtype other than f32."""
     if prog is None or prog.n_ops == 0 or cfg.dtype != torch.float32:
         return None
-    modes = ("fma",) if prog.n_ops <= FMA_MAX_OPS else ("mma", "fma")
+    modes = MODES
+    if (cfg.states, cfg.rate_cats) in MMA_CARRY_CASES \
+            and cfg.sites_padded >= MMA_MIN_SITES:
+        modes = ("mma", "fma")
     for mode in modes:
         if unsupported(prog, cfg, smem_limit, mode) is None:
             return pick_site_block(prog, cfg, smem_limit, mode,
@@ -545,7 +654,7 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
 
     A Python loop over the schedule rows, each row one einsum per child
     over all site blocks at once.  carry=True honours `carry_flags` as the
-    "mma" kernel does: a carried child is taken from the value the previous
+    kernels do: a carried child is taken from the value the previous
     op handed on, not from its pool slot, and a parent whose store is
     dropped never reaches the pool.  Returns (clv_rows [E, NT, R, S, TB],
     scaler_rows [E, NT, SR, TB] int32) in prog.exports order."""
@@ -605,11 +714,12 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  package's static kernels and of its runtime-ops "vpu"
                  mode) or "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
                  counterpart of its "mxu" and "splitk" modes); None is
-                 "fma".  `choose` picks one by op count.
-    carry:       "mma" only: hand a parent on to the next op in registers
-                 where `carry_flags` allows (the default), or store every
-                 parent and load every child (the same rows, bit for bit;
-                 the card tests and timings hold the two side by side).
+                 "fma".  `choose` picks one.
+    carry:       hand a parent on to the next op in registers where
+                 `carry_flags` allows (the default), or store every parent
+                 and load every child (the same rows, bit for bit; the card
+                 tests and timings hold the two side by side).  The "mma"
+                 form's general kernel (span 80) stores every parent.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     """
@@ -618,7 +728,7 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
         raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")
     if tip_blocked.device.type == "cpu" and pmatrix.device.type == "cpu":
         return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb,
-                               carry=carry and mode == "mma")
+                               carry=carry)
     if tip_blocked.device.type != "cuda" or pmatrix.device != \
             tip_blocked.device:
         raise ValueError(
@@ -638,6 +748,10 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
         raise ValueError(f"site block {tb} needs "
                          f"{smem_bytes(prog, cfg, tb, mode)} bytes of shared "
                          f"memory in mode {mode!r}")
+    if mode == "fma" and tb not in fitting_blocks(prog, cfg, limit, mode):
+        raise ValueError(f"site block {tb} at {cfg.rate_cats} rates needs "
+                         f"{fma_threads(cfg, tb)} threads in mode 'fma', not "
+                         f"a multiple of 32 up to {max_threads(cfg)}")
     if pmatrix.dtype != torch.float32:
         raise TypeError(f"pmatrix must be f32, got {pmatrix.dtype}")
     if not (tip_blocked.is_contiguous() and pmatrix.is_contiguous()):

@@ -1,16 +1,19 @@
-"""Kernel experiments on the card: where the two redesigned kernels spend
+"""Kernel experiments on the card: where the redesigned kernels spend
 their time, and why their launch parameters are what they are.
 
     python -m libpll2_tpu_torch.probes.variants [blocks] [passes]
                                                 [registers] [clocks]
+                                                [fma_staging] [fma_clocks]
 
-(all four with no argument; run from the repository root, beside
+(all six with no argument; run from the repository root, beside
 chip_smoke.py, whose search inputs and timers it uses).  Each experiment
 prints its times beside the card's name and power limit:
 
-  blocks     the small-span "mma" sweep (csrc/tree_sweep_mma.cu) at three
-             shapes and every site block that fits: what
-             partials_tree.pick_site_block's rule rests on;
+  blocks     both sweep forms (csrc/tree_sweep.cu "fma",
+             csrc/tree_sweep_mma.cu "mma") at chip_smoke.py's four shapes
+             and every site block that fits, carry on and off, 30 launches
+             back to back: what partials_tree.pick_site_block's rule rests
+             on;
   passes     the edge scorer (csrc/edge_score.cu) over one full-width
              search round with 0, 1 and 3 Newton steps, for the re-reading
              form and the resident form on clusters of 2, 4 and 8 CTAs:
@@ -21,7 +24,17 @@ prints its times beside the card's name and power limit:
   clocks     the small-span sweep built with clock reads in its op loop:
              cycles per op, by the kinds of the op's children, split into
              the stretch up to the products of the first tile, the rescue,
-             the store or hand-on, and the loop's tail and head.
+             the store or hand-on, and the loop's tail and head;
+  fma_staging  the "fma" sweep (csrc/tree_sweep.cu) against four variants
+             at the four shapes, all in 64-site blocks: operands copied one
+             op ahead instead of two ("fma_ahead_1"), P rows read from
+             device memory when the op starts instead of staged
+             ("fma_p_direct"), one or four sites a thread instead of two
+             ("fma_sites_1", "fma_sites_4");
+  fma_clocks the "fma" sweep built with clock reads in its op loop: cycles
+             per op of one warp, by the kinds of the op's children, split
+             into the wait for the op's operands (with the start of the
+             copies ahead) and the op.
 
 A variant of a kernel is a copy of csrc/ with a few exact text
 replacements (`PATCHES`), built by `_build.library(build_dir, source_dir)`
@@ -33,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import shutil
 import statistics
 import sys
@@ -47,6 +61,13 @@ VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 BOUND = "__global__ void __launch_bounds__(THREADS, V == 4 ? 2 : 1)"
 CLOCK_SEGMENTS = ("loop top to the first tile's products", "rescue",
                   "store or hand-on, and the second tile", "loop tail and head")
+FMA_CLOCK_SEGMENTS = ("wait for the op's operands, start the copies ahead",
+                      "the op", "loop tail and head")
+FMA_AHEAD = "constexpr int AHEAD = 2;"
+FMA_SITES = "constexpr int SITES_A_THREAD = 2;"
+FMA_STAGE_P = "constexpr int STAGE_P_MAX_STATES = 4;"
+FMA_LOOP = "    wait_copies<AHEAD - 1>();\n"
+FMA_OP = "    const int4 op = rows[ROW_INT4 * (w % ROW_SLOTS) + 1];"
 # name -> (source file, ((old, new), ...)); every `old` occurs exactly once
 PATCHES = {
     "one_cta_an_sm": ("edge_score.cu", (
@@ -79,6 +100,36 @@ PATCHES = {
         ("#undef LIBPLL_OP\n",
          "#undef LIBPLL_OP\n"
          "    if (dbg) dbg_clock[4 * w + 3] = tick(held[0][0][0]);\n"),
+        ("extern \"C\" {\n",
+         "extern \"C\" {\n"
+         "int dbg_read(long long* out, int n) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, dbg_clock, (size_t)n * 8);"
+         "\n}\n"))),
+    "fma_ahead_1": ("tree_sweep.cu", (
+        (FMA_AHEAD, FMA_AHEAD.replace("= 2", "= 1")),)),
+    "fma_sites_1": ("tree_sweep.cu", (
+        (FMA_SITES, FMA_SITES.replace("= 2", "= 1")),)),
+    "fma_sites_4": ("tree_sweep.cu", (
+        (FMA_SITES, FMA_SITES.replace("= 2", "= 4")),)),
+    "fma_p_direct": ("tree_sweep.cu", (
+        (FMA_STAGE_P, FMA_STAGE_P.replace("= 4", "= 0")),)),
+    "fma_clocks": ("tree_sweep.cu", (
+        ("constexpr int ROW_INT4 = 2;",
+         "constexpr int ROW_INT4 = 2;\n"
+         "__device__ long long dbg_clock[8192 * 3];\n"
+         "__device__ __forceinline__ long long tick(float dep) {\n"
+         "  long long t;\n"
+         "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t) : "
+         "\"f\"(dep) : \"memory\");\n  return t;\n}"),
+        (FMA_LOOP,
+         "    const bool dbg = blockIdx.x == 0 && threadIdx.x == 0 && "
+         "w < 8192;\n"
+         "    if (dbg) dbg_clock[3 * w] = clock64();\n" + FMA_LOOP),
+        (FMA_OP,
+         "    if (dbg) dbg_clock[3 * w + 1] = tick((float)w);\n" + FMA_OP),
+        ("#undef LIBPLL_OP\n",
+         "#undef LIBPLL_OP\n"
+         "    if (dbg) dbg_clock[3 * w + 2] = tick(held[0][0]);\n"),
         ("extern \"C\" {\n",
          "extern \"C\" {\n"
          "int dbg_read(long long* out, int n) {\n"
@@ -205,34 +256,50 @@ def round_ms(device, configs, libs=None, reps: int = 3) -> dict:
     return total
 
 
+def sweep_shapes(device):
+    """chip_smoke.py's four sweep shapes: {name: engine.build_case(...)}."""
+    cs = _chip_smoke()
+    from .. import engine
+
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
+    return {
+        "dna_256": engine.build_case(256, 65536, dtype=torch.float32,
+                                     device=device),
+        "dna_1024": engine.build_case(1024, 16384, dtype=torch.float32,
+                                      device=device),
+        "large_8192": engine.build_case(
+            cs.LARGE_TIPS, cs.LARGE_SITES, dtype=torch.float32,
+            device=device, newick=cs.large_newick()),
+        "protein_128": engine.build_case(
+            cs.PROTEIN_TIPS, cs.PROTEIN_SITES, states=20,
+            dtype=torch.float32, device=device)}
+
+
 def run_blocks(device, card, emit=print):
     cs = _chip_smoke()
     from .. import engine
     from ..ops import partials_tree
 
-    cases = {
-        "256 x 65536": engine.build_case(256, 65536, dtype=torch.float32,
-                                         device=device),
-        "1024 x 16384": engine.build_case(1024, 16384, dtype=torch.float32,
-                                          device=device),
-        f"{cs.LARGE_TIPS} x {cs.LARGE_SITES}": engine.build_case(
-            cs.LARGE_TIPS, cs.LARGE_SITES, dtype=torch.float32,
-            device=device, newick=cs.large_newick())}
     limit = _build.max_shared_memory(device)
-    for name, (cfg, program, model, bl, tipchars, *_) in cases.items():
+    for name, (cfg, program, model, bl, tipchars, *_) in \
+            sweep_shapes(device).items():
         pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
         prog = program.vmem_prog
-        for tb in partials_tree.SITE_BLOCKS:
-            if partials_tree.smem_bytes(prog, cfg, tb, "mma") > limit:
+        for mode in partials_tree.MODES:
+            if partials_tree.unsupported(prog, cfg, limit, mode):
                 continue
-            tip_b = engine.block_tips(tipchars, cfg, tb)
-            for carry in (True, False):
-                ms = _median_ms(lambda: partials_tree.sweep(
-                    tip_b, pmatrix, prog, cfg, tb, mode="mma", carry=carry),
-                    12)
-                emit(f"[blocks] mma sweep {name}, pool {prog.pool_size}, "
-                     f"site block {tb} ({cfg.sites_padded // tb} CTAs), "
-                     f"carry {'on' if carry else 'off'}: {ms:.4f} ms ({card})")
+            for tb in partials_tree.fitting_blocks(prog, cfg, limit, mode):
+                tip_b = engine.block_tips(tipchars, cfg, tb)
+                for carry in (True, False):
+                    ms = cs.cuda_ms_back_to_back(lambda: partials_tree.sweep(
+                        tip_b, pmatrix, prog, cfg, tb, mode=mode,
+                        carry=carry), 30)
+                    emit(f"[blocks] {mode} sweep {name}, pool "
+                         f"{prog.pool_size}, site block {tb} "
+                         f"({cfg.sites_padded // tb} CTAs), carry "
+                         f"{'on' if carry else 'off'}: {ms:.4f} ms ({card})")
+        del pmatrix
+        torch.cuda.empty_cache()
 
 
 def run_passes(device, card, emit=print):
@@ -279,7 +346,7 @@ def run_clocks(device, card, emit=print):
     tb = 64
     trees = {"random": cs.large_newick(),
              "caterpillar": cs.caterpillar(cs.LARGE_TIPS)}
-    kinds = {v: k for k, v in partials_tree.MMA_KINDS.items()}
+    kinds = {v: k for k, v in partials_tree.KINDS.items()}
     for name, newick in trees.items():
         cfg, program, model, bl, tipchars, *_ = engine.build_case(
             cs.LARGE_TIPS, cs.LARGE_SITES, dtype=torch.float32,
@@ -317,8 +384,91 @@ def run_clocks(device, card, emit=print):
                                  for i, label in enumerate(CLOCK_SEGMENTS)))
 
 
+def run_fma_staging(device, card, emit=print):
+    cs = _chip_smoke()
+    from .. import engine
+    from ..ops import partials_tree
+
+    names = ("default", "fma_ahead_1", "fma_p_direct", "fma_sites_1",
+             "fma_sites_4")
+    libs = {name: _build.library() if name == "default"
+            else variant_library(name)[0] for name in names}
+    for shape, (cfg, program, model, bl, tipchars, *_) in \
+            sweep_shapes(device).items():
+        pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+        prog = program.vmem_prog
+        tb = 64     # every variant's CTA fits at 64 sites
+        tip_b = engine.block_tips(tipchars, cfg, tb)
+        rows, times = {}, {name: [] for name in names}
+        for name in names + names[::-1]:
+            with launching_from(libs[name]):
+                def call():
+                    return partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                               mode="fma")
+                rows[name] = call()
+                times[name].append(cs.cuda_ms_back_to_back(call, 30))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for name in names[1:]
+                   for a, b in zip(rows["default"], rows[name]))
+        emit(f"[fma_staging] {shape}, site block {tb}: "
+             + ", ".join(f"{name} {min(times[name]):.4f} ms"
+                         for name in names)
+             + f" (best of two turns of 30 launches back to back); rows "
+               f"bit-equal {same} ({card})")
+        del pmatrix
+        torch.cuda.empty_cache()
+
+
+def run_fma_clocks(device, card, emit=print):
+    cs = _chip_smoke()
+    from .. import engine
+    from ..ops import partials_tree
+
+    lib, _info = variant_library("fma_clocks")
+    lib.dbg_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dbg_read.restype = ctypes.c_int
+    kinds = {v: k for k, v in partials_tree.KINDS.items()}
+    shapes = sweep_shapes(device)
+    for name in ("dna_256", "large_8192"):
+        cfg, program, model, bl, tipchars, *_ = shapes[name]
+        pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+        prog = program.vmem_prog
+        tb, _ = engine.kernel_choice(
+            program, dataclasses.replace(cfg, sweep_mode="fma"), device)
+        tip_b = engine.block_tips(tipchars, cfg, tb)
+        n = min(prog.n_ops, 8192)
+        with launching_from(lib):
+            ms = cs.cuda_ms_back_to_back(lambda: partials_tree.sweep(
+                tip_b, pmatrix, prog, cfg, tb, mode="fma"), 8)
+        buf = np.zeros(3 * n, dtype=np.int64)
+        err = lib.dbg_read(buf.ctypes.data, 3 * n)
+        if err != 0:
+            raise RuntimeError(f"reading the clocks failed: CUDA error {err}")
+        buf = buf.reshape(n, 3)
+        seg = np.stack([buf[:-1, 1] - buf[:-1, 0], buf[:-1, 2] - buf[:-1, 1],
+                        buf[1:, 0] - buf[:-1, 2]], axis=1)
+        table = partials_tree.mma_device_table(prog)[:n - 1]
+        emit(f"[fma_clocks] {name}, site block {tb}, with the clock reads "
+             f"{ms:.4f} ms; cycles per op of warp 0 of CTA 0: median "
+             f"{np.median(seg.sum(1)):.0f}, mean {seg.sum(1).mean():.0f} "
+             f"({card})")
+        for kind in sorted(set(table[:, 9].tolist())):
+            for keep in (0, 1):
+                sel = seg[(table[:, 9] == kind) & (table[:, 11] == keep)]
+                if len(sel) < 8:
+                    continue
+                emit(f"[fma_clocks]   children {kinds[kind]}, parent "
+                     f"{'handed on' if keep else 'stored'}, {len(sel)} ops: "
+                     + "; ".join(f"{label} {np.median(sel[:, i]):.0f}"
+                                 for i, label in
+                                 enumerate(FMA_CLOCK_SEGMENTS)))
+        del pmatrix
+        torch.cuda.empty_cache()
+
+
 EXPERIMENTS = {"blocks": run_blocks, "passes": run_passes,
-               "registers": run_registers, "clocks": run_clocks}
+               "registers": run_registers, "clocks": run_clocks,
+               "fma_staging": run_fma_staging, "fma_clocks": run_fma_clocks}
 
 
 def main(argv=None) -> int:

@@ -32,16 +32,19 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("states,per_rate,bl_scale", [
-    (4, False, 1.0), (4, False, 30.0), (4, True, 30.0), (2, False, 1.0),
-    (10, True, 1.0), (16, False, 1.0), (20, False, 1.0)])
-def test_kernel_matches_plain(cuda_device, states, per_rate, bl_scale):
-    """Every state count the kernel is built for.  CLV rows rtol 1e-5
-    (f32 sums in another order), scalers exact."""
+@pytest.mark.parametrize("rates", [4, 1, 3])
+@pytest.mark.parametrize("bl_scale", [1.0, 30.0])
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("states", [2, 4, 10, 16, 20])
+def test_kernel_matches_plain(cuda_device, states, per_rate, bl_scale, rates):
+    """Every state count the "fma" kernel is built for, per-site and
+    per-rate scalers, mild and heavy rescaling; rate counts 1 and 4 (the
+    compile-time instantiations) and 3 (the run-time one, lanes padded to
+    4).  CLV rows rtol 1e-5 (f32 sums in another order), scalers exact."""
     newick = random_newick(40, np.random.default_rng(states))
     cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
         newick, 2048, states, cuda_device, states=states, per_rate=per_rate,
-        bl_scale=bl_scale, random_model=True)
+        bl_scale=bl_scale, random_model=True, rates=rates)
     prog = program.vmem_prog
     before = partials_tree.sweep.launches
     clv, scal = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
@@ -51,10 +54,40 @@ def test_kernel_matches_plain(cuda_device, states, per_rate, bl_scale):
                                                         cfg, tb)
     torch.testing.assert_close(scal, want_scal, rtol=0, atol=0)
     torch.testing.assert_close(clv, want_clv, rtol=1e-5, atol=0)
+    if bl_scale > 1:
+        assert int(want_scal.max()) > 0
+
+
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("shape,tb", [
+    ("random", 64), ("random", 32), ("caterpillar", 64), ("balanced", 32)])
+def test_fma_carry_on_and_off_bit_equal(cuda_device, shape, tb, per_rate):
+    """The "fma" kernel with parents handed on in registers and with every
+    parent stored and reloaded: the same rows and scalers, bit for bit, at
+    two site blocks; and both within 1e-5 of the plain version."""
+    newick = {"random": random_newick(90, np.random.default_rng(3)),
+              "caterpillar": chip_smoke.caterpillar(70),
+              "balanced": balanced_newick(64)}[shape]
+    cfg, program, pmatrix, tip_b, _tb = chip_smoke.sweep_inputs(
+        newick, 4096, 11, cuda_device, bl_scale=20.0, per_rate=per_rate)
+    tip_b = engine.block_tips(
+        tip_b.permute(1, 0, 2).reshape(cfg.tips, -1), cfg, tb)
+    prog = program.vmem_prog
+    assert partials_tree.carry_flags(prog)[:, 2].sum() > 0
+    on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="fma")
+    off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode="fma",
+                              carry=False)
+    torch.cuda.synchronize()
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+    torch.testing.assert_close(on[1], plain[1], rtol=0, atol=0)
+    torch.testing.assert_close(on[0], plain[0], rtol=1e-5, atol=0)
+    assert int(plain[1].max()) > 0
 
 
 def test_loglikelihood_kernel_vs_dense_f64(cuda_device):
-    """The bench's budget, 5e-6 relative, at 128 taxa x 8192 sites."""
+    """The bench's budget, 5e-6 relative, at 128 taxa x 8192 sites, through
+    the form `choose` picks."""
     cfg, program, model, *args = engine.build_case(
         128, 8192, dtype=torch.float32, device=cuda_device)
     before = partials_tree.sweep.launches

@@ -158,7 +158,7 @@ def test_kernel_choice_follows_use_kernel():
         engine.kernel_choice(
             prog, dataclasses.replace(cfg, use_kernel=True), cpu)
     f32 = dataclasses.replace(cfg, dtype=torch.float32, use_kernel=True)
-    assert engine.kernel_choice(prog, f32, cpu) == (256, "fma")
+    assert engine.kernel_choice(prog, f32, cpu) == (128, "fma")
     assert engine.kernel_choice(
         prog, dataclasses.replace(f32, sweep_mode="mma"), cpu) == (256, "mma")
     assert engine.kernel_choice(

@@ -151,7 +151,10 @@ def test_site_block_and_unsupported():
                                   sites=65536)
     prog = engine.compile_tree(pt, pcfg).vmem_prog
     tb = partials_tree.pick_site_block(prog, pcfg)
-    assert tb == 256
+    # one thread per rate of two sites: 128 sites x 4 rates fill a
+    # 256-thread CTA
+    assert tb == 128 and partials_tree.fma_threads(pcfg, tb) == 256
+    assert partials_tree.pick_site_block(prog, pcfg, mode="mma") == 256
     assert partials_tree.smem_bytes(prog, pcfg, tb) <= \
         partials_tree.SMEM_LIMIT
     assert partials_tree.unsupported(prog, pcfg) is None

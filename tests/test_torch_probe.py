@@ -394,7 +394,8 @@ def test_variant_patches_apply_to_the_sources():
     from libpll2_tpu_torch import _build
     from libpll2_tpu_torch.probes import variants
     assert set(variants.EXPERIMENTS) == {"blocks", "passes", "registers",
-                                         "clocks"}
+                                         "clocks", "fma_staging",
+                                         "fma_clocks"}
     for name, (file, patches) in variants.PATCHES.items():
         original = (_build.SOURCE_DIR / file).read_text()
         text = variants.patched_source(name)

@@ -264,37 +264,43 @@ def test_sweep_rejects_unknown_mode():
 
 def test_choose_beside_jax_choose():
     """As test_pallas_tree.test_choose_prefers_static: both packages take
-    the static family (the port's "fma") on a small tree and, with the op
-    limits lowered, move to the runtime-ops family: "splitk" there, "mma"
-    here at S = 4 with per-site scalers.  Under per-rate scalers the JAX
-    runtime-ops kernels refuse; the port's "fma" form keeps them."""
+    the static family (the port's "fma") on a small tree.  With the JAX op
+    limits lowered the JAX package moves to the runtime-ops family
+    ("splitk"); the port's rule does not follow the op count, and keeps
+    "fma" wherever that form takes the case.  Where only the "mma" form's
+    pools fit the shared-memory limit the port takes "mma".  Under per-rate
+    scalers the JAX runtime-ops kernels refuse; the port's "fma" form keeps
+    them."""
     jcfg, jprog, pcfg, pprog, _, _ = build(caterpillar_newick(16), 256, 0)
     slots = int(jprog.pmatrix_indices.max()) + 1
+    prog = pprog.vmem_prog
     assert ppt.choose(jprog.vmem_prog, jcfg, slots)[1] == "static"
-    assert partials_tree.choose(pprog.vmem_prog, pcfg) == (256, "fma")
+    assert partials_tree.choose(prog, pcfg) == (128, "fma")
     jrate = dataclasses.replace(jcfg, per_rate_scalers=True)
     prate = dataclasses.replace(pcfg, per_rate_scalers=True)
-    saved = ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS, \
-        partials_tree.FMA_MAX_OPS
-    assert saved[1] == saved[2] == 4096
+    saved = ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS
     try:
         ppt.STATIC_MAX_OPS = ppt.STATIC_SEG_MAX_OPS = 0
-        partials_tree.FMA_MAX_OPS = 0
         assert ppt.choose(jprog.vmem_prog, jcfg, slots)[1] == "splitk"
-        assert partials_tree.choose(pprog.vmem_prog, pcfg) == (256, "mma")
+        assert partials_tree.choose(prog, pcfg) == (128, "fma")
         assert ppt.choose(jprog.vmem_prog, jrate, slots) is None
-        assert partials_tree.choose(pprog.vmem_prog, prate) == (256, "fma")
+        assert partials_tree.choose(prog, prate) == (128, "fma")
     finally:
-        (ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS,
-         partials_tree.FMA_MAX_OPS) = saved
+        ppt.STATIC_MAX_OPS, ppt.STATIC_SEG_MAX_OPS = saved
+    # a limit between the two forms' footprints at the smallest block
+    smem = partials_tree.smem_bytes
+    between = smem(prog, pcfg, 32, "mma") + 16
+    assert smem(prog, pcfg, 32, "fma") > between
+    assert partials_tree.choose(prog, pcfg, smem_limit=between) \
+        == (32, "mma")
+    assert partials_tree.choose(prog, prate, smem_limit=between) is None
     # no schedule, or a dtype other than f32: neither package has a kernel
     assert ppt.choose(None, jcfg, slots) is None
     assert partials_tree.choose(None, pcfg) is None
-    assert partials_tree.choose(pprog.vmem_prog, dataclasses.replace(
+    assert partials_tree.choose(prog, dataclasses.replace(
         pcfg, dtype=torch.float64)) is None
     # a pool too large for the shared-memory limit
-    assert partials_tree.choose(pprog.vmem_prog, pcfg, smem_limit=1024) \
-        is None
+    assert partials_tree.choose(prog, pcfg, smem_limit=1024) is None
 
 
 def test_unsupported_names_the_mode():
@@ -308,10 +314,15 @@ def test_unsupported_names_the_mode():
     assert "rate_cats" in partials_tree.unsupported(prog, odd, mode="mma")
     assert "mode 'fma'" in partials_tree.unsupported(prog, pcfg, 1024, "fma")
     assert "unknown" in partials_tree.unsupported(prog, pcfg, mode="vpu")
-    # the "mma" form keeps one scaler row whatever the config says
-    assert partials_tree.smem_bytes(prog, prate, 64, "mma") \
-        == partials_tree.smem_bytes(prog, pcfg, 64, "fma") \
-        < partials_tree.smem_bytes(prog, prate, 64, "fma")
+    # the "mma" form keeps one scaler row whatever the config says; the
+    # "fma" form the same pools as "mma" under per-site scalers, R rows
+    # under per-rate ones, and one staging ring a warp
+    smem = partials_tree.smem_bytes
+    ring = partials_tree.fma_threads(pcfg, 64) // 32 \
+        * partials_tree.ring_words(pcfg) * 4
+    assert smem(prog, prate, 64, "mma") == smem(prog, pcfg, 64, "mma") \
+        == smem(prog, pcfg, 64, "fma") - ring \
+        < smem(prog, prate, 64, "fma") - ring
 
 
 def test_split_tf32_is_compensated():
@@ -461,7 +472,7 @@ def test_mma_device_table_runs_the_schedule(shape, carry):
     table = partials_tree.mma_device_table(prog, carry)
     assert table.shape == (prog.n_ops, partials_tree.MMA_OP_COLS)
     assert table.dtype == np.int32 and table.flags["C_CONTIGUOUS"]
-    kinds = {v: k for k, v in partials_tree.MMA_KINDS.items()}
+    kinds = {v: k for k, v in partials_tree.KINDS.items()}
     if not carry:
         assert not table[:, 11].any() and table[:, 10].all()
         assert set(table[:, 9].tolist()) <= {0, 1, 3}
@@ -503,9 +514,11 @@ def test_mma_device_table_runs_the_schedule(shape, carry):
 
 
 def test_pick_site_block_fills_the_card():
-    """With the SM count the "mma" form takes the largest block of at most
-    64 sites that gives a CTA to 15/16 of the SMs, else the smallest; the
-    "fma" form and a call with no SM count keep the largest block."""
+    """With the SM count both forms take the largest block that gives a
+    CTA to 15/16 of the SMs, else the smallest; "mma" at most 64 sites on
+    its small-span kernel, "fma" at most 256 threads (two sites a thread
+    at four rates: 128 sites).  A call with no SM count keeps the largest
+    block that fits."""
     _, _, pcfg, pprog, _, _ = build(caterpillar_newick(16), 256, 0)
     prog = pprog.vmem_prog
     pick = partials_tree.pick_site_block
@@ -518,14 +531,147 @@ def test_pick_site_block_fills_the_card():
     assert pick(prog, at(4096), limit, "mma", 132) == 32      # 128 CTAs
     assert pick(prog, at(2048), limit, "mma", 132) == 32      # none fills
     assert pick(prog, at(8192), limit, "mma", 16) == 64
+    assert pick(prog, at(16384), limit, "fma", 132) == 128    # 128 CTAs
+    assert pick(prog, at(8192), limit, "fma", 132) == 64      # 128 CTAs
+    assert pick(prog, at(2048), limit, "fma", 132) == 32      # none fills
     for sites in (2048, 8192, 65536):
-        assert pick(prog, at(sites), limit, "fma", 132) == 256
+        assert pick(prog, at(sites), limit, "fma", 132) \
+            == min(128, max(32, sites // 128))
         assert pick(prog, at(sites), limit, "mma") == 256
-        assert pick(prog, at(sites), limit, "fma") == 256
+        assert pick(prog, at(sites), limit, "fma") == 128
     assert pick(prog, at(8192), 1024, "mma", 132) == 0
-    # span 80 (the general kernel) follows the fill rule without the cap
+    assert pick(prog, at(8192), 1024, "fma", 132) == 0
+    # span 80 (the general kernel) follows the fill rule without the cap;
+    # an "fma" thread holds one site at 20 states
     aa = dataclasses.replace(at(65536), states=20)
     assert pick(prog, aa, limit, "mma", 132) == 256
     assert pick(prog, dataclasses.replace(aa, sites=8192), limit, "mma",
                 132) == 64
-    assert partials_tree.choose(prog, at(65536), limit, 132) == (256, "fma")
+    assert pick(prog, aa, limit, "fma", 132) == 64
+    assert partials_tree.fma_threads(aa, 64) == 256
+    assert partials_tree.choose(prog, at(65536), limit, 132) == (64, "mma")
+    assert partials_tree.choose(prog, at(32768), limit, 132) == (128, "fma")
+    # one rate: a site has one lane, so a 32-site block is half a warp
+    one = dataclasses.replace(at(8192), rate_cats=1)
+    assert 32 not in partials_tree.fitting_blocks(prog, one, limit, "fma")
+
+
+SHAPES = {  # chip_smoke.py's four sweep shapes
+    "dna_256": dict(n_tips=256, sites=65536),
+    "dna_1024": dict(n_tips=1024, sites=16384),
+    "large_8192": dict(n_tips=8192, sites=8192, random_tree=True),
+    "protein_128": dict(n_tips=128, sites=16384, states=20)}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_fma_site_block_fills_the_card_at_the_four_shapes(shape):
+    """`pick_site_block(..., "fma", sm_count=132)` at chip_smoke.py's four
+    shapes gives at least SM_FILL * 132 CTAs (the pools allow it at all
+    four) and fits an H100's shared memory; `choose` takes it with the
+    "fma" form at three shapes, and "mma" at 256 taxa x 65,536 DNA sites."""
+    spec = SHAPES[shape]
+    n = spec["n_tips"]
+    newick = random_newick(n, np.random.default_rng(8192)) \
+        if spec.get("random_tree") else balanced_newick(n)
+    tree = T.parse_newick_string(newick)
+    cfg = PartitionConfig(
+        tips=n, clv_buffers=tree.inner_count, states=spec.get("states", 4),
+        sites=spec["sites"], rate_matrices=1, prob_matrices=2 * n - 3,
+        rate_cats=4, scale_buffers=tree.inner_count, dtype=torch.float32,
+        use_kernel=True)
+    prog = engine.compile_tree(tree, cfg).vmem_prog
+    tb = partials_tree.pick_site_block(prog, cfg, mode="fma", sm_count=132)
+    assert cfg.sites_padded // tb >= partials_tree.SM_FILL * 132
+    assert partials_tree.smem_bytes(prog, cfg, tb) <= partials_tree.SMEM_LIMIT
+    assert partials_tree.fma_threads(cfg, tb) <= partials_tree.FMA_THREADS
+    want = (partials_tree.pick_site_block(prog, cfg, mode="mma",
+                                          sm_count=132), "mma") \
+        if shape == "dna_256" else (tb, "fma")
+    assert partials_tree.choose(prog, cfg, sm_count=132) == want
+
+
+@pytest.mark.parametrize("carry", [True, False])
+@pytest.mark.parametrize("shape", sorted(CARRY_TREES))
+def test_fma_device_table_runs_the_schedule(shape, carry):
+    """The table the "fma" kernel reads (two 16-byte halves an op: tips and
+    P-matrices for the copies ahead, slots and case for the op) holds the
+    kinds and the hand-on column of `carry_flags`, and interpreted row by
+    row as the kernel does gives the plain version's rows bit for bit."""
+    _, _, pcfg, pprog, tip_b, pmats = build(CARRY_TREES[shape](), 128, 6,
+                                            bl_scale=20.0)
+    prog = pprog.vmem_prog
+    table = partials_tree.fma_device_table(prog, carry)
+    assert table.shape == (prog.n_ops, partials_tree.FMA_TABLE_COLS)
+    assert table.dtype == np.int32 and table.flags["C_CONTIGUOUS"]
+    flags = partials_tree.carry_flags(prog, enabled=carry)
+    wide = partials_tree.mma_device_table(prog, carry)
+    kinds = {v: k for k, v in partials_tree.KINDS.items()}
+    case, keep = table[:, 7] // 2, table[:, 7] % 2
+    np.testing.assert_array_equal(case, wide[:, 9])
+    np.testing.assert_array_equal(keep, flags[:, 2])
+    np.testing.assert_array_equal(1 - keep, flags[:, 1])
+    carried = np.array([kinds[c][1] == "carried" for c in case])
+    np.testing.assert_array_equal(carried, flags[:, 0] > 0)
+    tip_kids = np.array([[k == "tip" for k in kinds[c]] for c in case])
+    np.testing.assert_array_equal(table[:, :2] >= 0, tip_kids)
+    if not carry:
+        assert not keep.any() and not carried.any()
+    tips, pm = torch.as_tensor(tip_b), torch.as_tensor(pmats)
+    nt, R, S = tips.shape[0], pcfg.rate_cats, pcfg.states
+    pool = torch.zeros((prog.pool_size, nt, R, S, TB))
+    spool = torch.zeros((prog.pool_size, nt, 1, TB), dtype=torch.int32)
+    shifts = torch.arange(S, dtype=torch.int32)[:, None]
+    held = None
+    for tip1, tip2, pm1, pm2, p, s1, s2, code in table.tolist():
+        k1, k2 = kinds[code // 2]
+
+        def child(kind_name, tip, slot):
+            if kind_name == "tip":
+                bits = ((tips[:, tip, None, :] >> shifts) & 1).float()
+                return bits[:, None].expand(nt, R, S, TB), 0
+            if kind_name == "carried":
+                return held
+            return pool[slot], spool[slot]
+
+        c1, sc1 = child(k1, tip1, s1)
+        c2, sc2 = child(k2, tip2, s2)
+        par = torch.einsum("rij,nrjt->nrit", pm[pm1], c1) \
+            * torch.einsum("rij,nrjt->nrit", pm[pm2], c2)
+        mask = (par < pcfg.scale_threshold).all(dim=2).all(dim=1,
+                                                           keepdim=True)
+        par = torch.where(mask[:, :, None], par * pcfg.scale_factor, par)
+        scal = mask.to(torch.int32) + sc1 + sc2
+        if code % 2:
+            held = (par, scal)
+        else:
+            held = None
+            pool[p], spool[p] = par, scal
+    slots = [slot for _, slot in prog.exports]
+    want = run_port(pcfg, pprog, tip_b, pmats)
+    assert torch.equal(pool[slots], want[0])
+    assert torch.equal(spool[slots], want[1])
+
+
+def test_fma_constants_match_the_kernel_source():
+    """The host's copies of csrc/tree_sweep.cu's layout constants (sites a
+    thread, ops ahead, the largest staged state count, threads a CTA, the
+    table's width, the rates with a compile-time instantiation) are the
+    kernel's own, so `smem_bytes` and `fitting_blocks` size what the kernel
+    asks for."""
+    import re
+    from libpll2_tpu_torch import _build
+    text = (_build.SOURCE_DIR / "tree_sweep.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    assert const("SITES_A_THREAD") == partials_tree.FMA_SITES_A_THREAD
+    assert const("AHEAD") == partials_tree.FMA_AHEAD
+    assert const("STAGE_P_MAX_STATES") == partials_tree.FMA_STAGE_P_MAX_STATES
+    assert const("MAX_THREADS") == partials_tree.FMA_THREADS
+    assert const("MAX_THREADS_ANY_RATES") == partials_tree.FMA_THREADS_ANY
+    assert 4 * const("ROW_INT4") == partials_tree.FMA_TABLE_COLS
+    assert "S <= 4 ? SITES_A_THREAD : 1" in text
+    assert partials_tree.FMA_SITES_STATES == 4
+    cases = re.findall(r"case (\d+): return launch<S, (\d+)>", text)
+    assert tuple(int(r) for _, r in cases) == partials_tree.FMA_RATE_LANES
+    assert "S == 4 ? 20 : S * S" in text
