@@ -36,7 +36,10 @@ Phases (any failure exits non-zero):
  12. the all-edge entry points: optimize_branch_lengths on the search
      inputs, score_placements on a pruned tip, branch_derivatives against
      central differences;
- 13. the matrix-unit probe (probes/mma.py) at one site block;
+ 13. the matrix-unit probe (probes/mma.py) at one site block: 21 rows
+     (eight variants, P on M through FFMA and mma.sync, sites on M through
+     wgmma), every accumulator slot against its plain version, a line a
+     row with its form, bound and share, and its time before the redesign;
  14. times of both sweep forms at four shapes, as single calls and as
      calls back to back, with the register carry on and off; the plain
      version at a fixed site block; the form `choose` picks beside the
@@ -55,8 +58,9 @@ Phases (any failure exits non-zero):
      gradient against autograd of the dense f64 path;
  18. the build-cache probe (probes/cache.py): cold build, warm reload in a
      process with no nvcc, rebuild after an edit, each with a timeout; the
-     kernel, its plain version and x * 2 + 1 timed as calls back to back,
-     as single calls and as one CUDA graph;
+     host cost of each piece of a launch from Python; the kernel, its plain
+     version and x * 2 + 1 timed as calls back to back, as single calls and
+     as one CUDA graph;
  19. the construct probe (probes/constructs.py): five variants of the
      tensor-core sweep's inner loop, each against its plain version.
 
@@ -126,8 +130,23 @@ PLAIN_MS_BEFORE = {"dna_256": "154.06 and 137.65 ms",
                    "dna_1024": "632.79 and 309.72 ms",
                    "large_8192": "4079.04 and 2447.35 ms",
                    "protein_128": "not timed"}
+# the matrix-unit probe before its redesign (two buffers summed into one
+# accumulator a tile; 15 rows at TB 128): ms of one probes/mma.py call of
+# 512 products over 65,536 sites, its operand packing inside the events as
+# that probe timed it, on an NVIDIA H100 80GB HBM3 at 700.00 W
+PROBE_MS_BEFORE = {
+    ("span16", "fma"): 1.238, ("span16", "tf32"): 0.298,
+    ("span16", "bf16"): 0.146, ("stacked3", "fma"): 3.631,
+    ("stacked3", "tf32"): 0.630, ("stacked3", "bf16"): 0.317,
+    ("span80", "fma"): 30.270, ("span80", "tf32"): 2.442,
+    ("span80", "bf16"): 1.260, ("pack2", "fma"): 13.560,
+    ("pack2", "tf32"): 1.579, ("pack2", "bf16"): 0.668,
+    ("pack4", "fma"): 55.574, ("pack4", "tf32"): 6.972,
+    ("pack4", "bf16"): 2.438}
 PLAIN_BLOCK = 64         # the plain sweep's fixed site block in its timings
 CACHE_REPS = 200         # cache-probe calls back to back in one timing
+CACHE_TURNS = 11         # runs of CACHE_REPS back to back, in turns
+CACHE_HOST_CALLS = 10000  # calls of each launch piece in its host timing
 CHOOSE_SLACK = 1.25      # choose's form against the faster one, same run
 PROTEIN_TIPS, PROTEIN_SITES = 128, 16384
 # published peaks of one H100 SXM (dense): HBM bytes/s, f32 FMA FLOP/s,
@@ -192,6 +211,8 @@ def reset_counts() -> None:
     for form in edge_score.edge_scores.launches_by_form:
         edge_score.edge_scores.launches_by_form[form] = 0
     probe.chain.launches = 0
+    for form in probe.chain.launches_by_form:
+        probe.chain.launches_by_form[form] = 0
     cache.scale_shift.launches = 0
     constructs.constructs.launches = 0
 
@@ -234,6 +255,8 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels; print each entry function's registers and spills
+    as ptxas -v reports them, and any ptxas line about wgmma."""
     from libpll2_tpu_torch import _build
     t0 = time.perf_counter()
     info = _build.build()
@@ -241,9 +264,20 @@ def phase_build():
     log(f"[build] {info.path.name} from {[str(s.name) for s in _build.SOURCES]}"
         f" flags {' '.join(_build.NVCC_FLAGS)}: nvcc {info.seconds:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
+    source, entry, spills = "", "", ""
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        line = line.strip()
+        if line.startswith("[") and line.endswith("]"):
+            source = line[1:-1]
+        elif "(C75" in line or ("wgmma" in line and "warn" in line.lower()):
+            log(f"[build] {source}: {line}")      # ptxas on wgmma
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill" in line:
+            spills = line.split(":", 1)[-1].strip()
+        elif "registers" in line:
+            log(f"[build] {source} {entry}: "
+                f"{line.split(':', 1)[-1].strip()}; {spills}")
 
 
 def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
@@ -1234,25 +1268,60 @@ def phase_all_edge(device, card):
 
 
 def phase_probe(card):
+    """The matrix-unit probe's 21 rows (probes/mma.py) at TB 128, each slot
+    against its plain version; a line a row with its form, time a product,
+    bound, share of the unit's peak and the time before the redesign."""
     from libpll2_tpu_torch.probes import mma as probe
 
     reset_counts()
     rows = probe.run_probe(128, emit=lambda line: log(f"[probe] {line} "
                                                       f"({card})"))
     launches = read_counts()["mma_probe"]
-    check(len(rows) > 0 and launches > 0, "the probe launched nothing")
-    rate = {"fma": F32_RATE, "tf32": TF32_RATE, "bf16": BF16_RATE}
-    grid = probe.SITES // 128
-    ops_s = sum(2 * r["M"] * r["K"] * probe.NREP * probe.SITES
-                / rate[r["unit"]] for r in rows)
-    bytes_s = sum((r["M"] * r["K"] + probe.NBUF * r["K"] * 128
-                   + grid * r["M"] * 128) * 4 for r in rows) / HBM_RATE
-    return dict(launches=launches,
+    by_form = dict(probe.chain.launches_by_form)
+    check(len(rows) == 21 and launches > 0, "the probe launched nothing")
+    for r in rows:
+        name = r["variant"].split()[0]
+        before = PROBE_MS_BEFORE.get((name, r["unit"]))
+        log(f"[probe] {name:10s} {r['unit']:4s} form {r['form']:8s} TB "
+            f"{r['tb']:3d}: {r['us_per_product']:.3f} us a product, "
+            f"{r['ms']:.4f} ms back to back against a bound of "
+            f"{r['bound_ms']:.4f} ms ({r['share']:.3f} of the {r['unit']} "
+            f"peak); a call with its operand packing {r['call_ms']:.4f} ms, "
+            f"before " + (f"{before:.4f} ms (timed so)" if before
+                          else "no such row")
+            + f"; worst slot rel err {r['rel_err']:.2e} ({card})")
+    wgmma_rows = [r for r in rows if r["variant"].startswith("t_")]
+    check(len(wgmma_rows) == 6
+          and all(r["form"] == "wgmma" for r in wgmma_rows)
+          and by_form["wgmma"] >= 6, f"the sites-on-M rows did not all run "
+          f"wgmma: {[(r['variant'], r['form']) for r in wgmma_rows]}, "
+          f"launches by form {by_form}")
+    check(by_form["mma_sync"] >= 10 and by_form["ffma"] >= 5,
+          f"launches by form {by_form}")
+    p_on_m = [r for r in rows if r["form"] != "wgmma"]
+    log(f"[probe] launches by form: {by_form}; all 21 rows "
+        f"{sum(r['ms'] for r in rows):.4f} ms back to back; the 15 P-on-M "
+        f"rows {sum(r['ms'] for r in p_on_m):.4f} ms back to back, "
+        f"{sum(r['call_ms'] for r in p_on_m):.4f} ms as calls with packing "
+        f"(before {sum(PROBE_MS_BEFORE.values()):.4f} ms, timed so) ({card})")
+    bound = 0.0
+    ops_total = bytes_total = 0.0
+    for r in rows:
+        grid = probe.SITES // r["tb"]
+        nbytes = (r["M"] * r["K"] + probe.NBUF * r["K"] * r["tb"]
+                  + grid * probe.NBUF * r["M"] * r["tb"]) * 4
+        ops_s = r["bound_ms"] * 1e-3
+        bytes_s = nbytes / HBM_RATE
+        ops_total += ops_s
+        bytes_total += bytes_s
+        bound += max(ops_s, bytes_s) * 1e3
+    return dict(launches=launches, launches_by_form=by_form,
                 max_abs_err=max(r["abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=max(ops_s, bytes_s) * 1e3,
-                bound_by="bytes" if bytes_s >= ops_s else "operations")
+                bound_ms=bound,
+                bound_by="bytes" if bytes_total >= ops_total
+                else "operations")
 
 
 def phase_sweep_times(cases, card):
@@ -1784,18 +1853,30 @@ def phase_cache_probe(device, card):
     got = cache.scale_shift(x)
     err = (got - cache.scale_shift_reference(x)).abs().max().item()
     check(err == 0.0, f"cache kernel differs from its plain version: {err}")
+    view = x.flatten()[1:4094]      # not 16-byte aligned, n % 4 != 0
+    check(torch.equal(cache.scale_shift(view),
+                      cache.scale_shift_reference(view)),
+          "cache kernel differs on an unaligned view with a tail")
+    costs = cache.host_costs(x, CACHE_HOST_CALLS)
+    for label, us in costs.items():
+        log(f"[cache] host us a call, {CACHE_HOST_CALLS} calls: {label} "
+            f"{us:.3f} ({card})")
     calls = {"kernel": lambda: cache.scale_shift(x),
              "plain": lambda: cache.scale_shift_reference(x),
              "library": lambda: x * 2 + 1}
-    # N calls back to back between one pair of events, three runs each, in
-    # turns; then single calls (the wrapper's host time inside each window)
+    # N calls back to back between one pair of events, CACHE_TURNS runs
+    # each, then single calls (the wrapper's host time inside each window),
+    # both in turns, so that the three meet the same host
     runs = {label: [] for label in calls}
-    for _ in range(3):
+    for _ in range(CACHE_TURNS):
         for label, fn in calls.items():
             runs[label].append(cuda_ms_back_to_back(fn, CACHE_REPS))
     b2b = {label: statistics.median(t) for label, t in runs.items()}
-    single = {label: statistics.median(cuda_ms(fn, 50))
-              for label, fn in calls.items()}
+    singles = {label: [] for label in calls}
+    for _ in range(CACHE_REPS):
+        for label, fn in calls.items():
+            singles[label] += cuda_ms(fn, 1)
+    single = {label: statistics.median(t) for label, t in singles.items()}
     # the device alone: the same N calls captured in one CUDA graph, replayed
     graph_ms = {}
     for label, fn in calls.items():
@@ -1814,20 +1895,37 @@ def phase_cache_probe(device, card):
     nbytes = 2 * x.numel() * 4
     flops = 2 * x.numel()
     log(f"[time] cache_probe, {CACHE_REPS} calls launched back to back "
-        f"between one pair of CUDA events, a call (median of 3 runs): kernel "
-        f"{b2b['kernel']:.4f} ms, plain scale_shift_reference "
-        f"{b2b['plain']:.4f} ms, torch x * 2 + 1 {b2b['library']:.4f} ms "
-        f"at {tuple(x.shape)} f32 (runs: "
+        f"between one pair of CUDA events, a call (median of {CACHE_TURNS} "
+        f"runs in turns): kernel {b2b['kernel']:.4f} ms, plain "
+        f"scale_shift_reference {b2b['plain']:.4f} ms, torch x * 2 + 1 "
+        f"{b2b['library']:.4f} ms at {tuple(x.shape)} f32 (runs: "
         + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
                     for k, v in runs.items()) + f") ({card})")
+    quartiles = {label: statistics.quantiles(t, n=4)
+                 for label, t in singles.items()}
     log(f"[time] cache_probe, single calls (one pair of events around each, "
-        f"the wrapper's host time inside; median of 50): kernel "
-        f"{single['kernel']:.4f} ms, plain {single['plain']:.4f} ms, "
-        f"x * 2 + 1 {single['library']:.4f} ms ({card})")
+        f"the wrapper's host time inside; {CACHE_REPS} each, in turns; "
+        f"median, quartiles): " + ", ".join(
+            f"{name} {single[label]:.4f} ({quartiles[label][0]:.4f}-"
+            f"{quartiles[label][2]:.4f}) ms" for label, name in
+            (("kernel", "kernel"), ("plain", "plain"),
+             ("library", "x * 2 + 1"))) + f" ({card})")
     log(f"[time] cache_probe, the same {CACHE_REPS} calls captured in one "
         f"CUDA graph and replayed (device time, no host launch), a call: "
         f"kernel {graph_ms['kernel']:.4f} ms, plain {graph_ms['plain']:.4f} "
         f"ms, x * 2 + 1 {graph_ms['library']:.4f} ms ({card})")
+    slower = [label for label, t in (("back to back", b2b),
+                                     ("single calls", single))
+              if t["kernel"] > t["library"]]
+    path = ("torch.empty_like", "torch.cuda.current_device()",
+            "current_stream(device).cuda_stream", "two data_ptr()",
+            "ctypes call (the launch)")
+    log(f"[cache] the kernel against x * 2 + 1 (one launch against two): "
+        + ("no slower back to back or in single calls" if not slower else
+           f"slower {' and '.join(slower)}; its launch path, host us: "
+           + ", ".join(f"{k} {costs[k]:.3f}" for k in path)
+           + f"; the largest piece: {max(path, key=costs.get)}")
+        + f" ({card})")
     return dict(launches=launches, max_abs_err=err, ms=b2b["kernel"],
                 plain_ms=b2b["plain"], library_ms=b2b["library"],
                 single_call_ms=single["kernel"],
@@ -1974,8 +2072,9 @@ def main() -> int:
         "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
         "ms": probe["ms"], "plain_ms": probe["plain_ms"],
         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
-        "library_ms": None,
-        "shape": "all variants and units at TB 128, summed",
+        "library_ms": None, "launches_by_form": probe["launches_by_form"],
+        "shape": "21 variant x unit rows at TB 128 (pack4 f32 and TF32 at "
+                 "TB 64), 65536 sites, summed",
     }, {
         "name": "cache_probe", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/cache_probe.cu",

@@ -164,6 +164,8 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         p,             # stream
     ]
     lib.mma_probe_launch.restype = ctypes.c_int
+    lib.mma_probe_smem.argtypes = [i, i, i]      # variant, unit, tb
+    lib.mma_probe_smem.restype = ctypes.c_longlong
     lib.edge_score_launch.argtypes = [
         p, p,          # away, away_scal
         p, p,          # base, base_scal

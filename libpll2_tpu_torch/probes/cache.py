@@ -86,38 +86,114 @@ def digest(x) -> str:
     return hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
 
 
+# the C entry point and its library, looked up once per library (None: the
+# package's own), so that a launch pays for no lookup
+_ENTRIES: dict = {}
+
+
+def _entry(lib):
+    """(cache_probe_launch, the library it came from) for `lib`."""
+    found = _ENTRIES.get(lib)
+    if found is None:
+        from .. import _build
+        library = _build.library() if lib is None else lib
+        found = _ENTRIES[lib] = (library.cache_probe_launch, library)
+    return found
+
+
 def scale_shift(x, lib=None):
     """2 x + 1 of an f32 tensor: the kernel on a CUDA tensor (from `lib`,
     a library of _build.library; default the package's own), the plain
-    version on a CPU tensor."""
+    version on a CPU tensor.
+
+    The launch path does only what the call needs: the entry point is
+    looked up once per library, the device is switched only when `x` is
+    not on the current one, and the output is allocated by torch.empty_like.
+    The stream is torch.cuda.current_stream's (PyTorch's public API has no
+    call that returns the handle without building a Stream)."""
     if x.dtype != torch.float32:
         raise TypeError(f"the probe takes f32, got {x.dtype}")
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return scale_shift_reference(x)
-    if x.device.type != "cuda":
+    if device.type != "cuda":
         raise ValueError(f"the probe needs a CUDA or CPU tensor, got "
-                         f"{x.device}")
+                         f"{device}")
     if not x.is_contiguous():
         raise ValueError("the probe takes a contiguous tensor")
-    from .. import _build
-    if lib is None:
-        lib = _build.library()
+    n = x.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"the probe takes fewer than 2^31 elements, got {n}")
+    launch, library = _entry(lib)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.cache_probe_launch(
-            x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    if n == 0:
+        return out
+    if device.index == torch.cuda.current_device():
+        err = launch(x.data_ptr(), out.data_ptr(), n,
+                     torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = launch(x.data_ptr(), out.data_ptr(), n,
+                         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        # asked of `lib` itself, not through _build.error_string: that one
-        # would load (and perhaps build) the default library, which a
+        # asked of `library` itself, not through _build.error_string: that
+        # one would load (and perhaps build) the default library, which a
         # stage of the probe must not touch
-        raise RuntimeError(f"cache_probe kernel launch failed: CUDA error "
-                           f"{err} ({lib.tree_sweep_error_string(err).decode()})")
+        raise RuntimeError(
+            f"cache_probe kernel launch failed: CUDA error {err} "
+            f"({library.tree_sweep_error_string(err).decode()})")
     scale_shift.launches += 1
     return out
 
 
 scale_shift.launches = 0   # kernel launches by this wrapper
+
+
+def host_costs(x, calls: int = 10000) -> dict:
+    """Host microseconds a call of each piece of a kernel launch from
+    Python, `calls` calls each (time.perf_counter_ns), on CUDA tensor `x`:
+    the pieces scale_shift's launch path was built from and the ones it
+    drops, the whole wrapper, and x * 2 + 1.  The launches enqueue kernels
+    (a few microseconds of host time each, and 1-2 of device time)."""
+    import time
+
+    from .. import _build
+    lib = _build.library()
+    device = x.device
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launch = lib.cache_probe_launch
+    xp, op, n = x.data_ptr(), out.data_ptr(), x.numel()
+
+    def device_context():
+        with torch.cuda.device(device):
+            pass
+
+    pieces = {
+        "_build.library()": _build.library,
+        "CDLL attribute lookup": lambda: lib.cache_probe_launch,
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "torch.cuda.device enter and exit": device_context,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(device).cuda_stream,
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "two data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+        "ctypes call (the launch)": lambda: launch(xp, op, n, stream),
+        "scale_shift (whole call)": lambda: scale_shift(x),
+        "x * 2 + 1": lambda: x * 2 + 1,
+    }
+    costs = {}
+    for label, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        costs[label] = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+    return costs
 
 
 def _without_nvcc(env: dict, empty_dir: str) -> dict:

@@ -291,26 +291,42 @@ def test_loglikelihood_mma_vs_dense_f64(cuda_device, states):
     assert abs(got - want) / abs(want) < 5e-6
 
 
-@pytest.mark.parametrize("unit", mma_probe.UNITS)
-@pytest.mark.parametrize("variant", range(len(mma_probe.VARIANTS)))
+@pytest.mark.parametrize("variant,unit", [
+    (v, u) for v in range(len(mma_probe.VARIANTS))
+    for u in mma_probe.units_of(v)])
 def test_probe_kernel_matches_plain(cuda_device, variant, unit):
-    """Every variant on every unit against the plain chain, within
-    CHAIN_TOL of the largest entry; all CTAs equal."""
+    """Every variant on every unit against the plain products, every slot
+    within CHAIN_TOL of the slot's largest entry; all CTAs equal; the
+    launch counted under the form that ran; the shared memory the C side
+    asks for is what the wrapper checked."""
+    from libpll2_tpu_torch import _build
     tb = 64
+    sites_on_m = mma_probe.VARIANTS[variant].sites_on_m
     a, b = mma_probe.probe_inputs(variant, tb, seed=variant,
                                   device=cuda_device)
-    before = mma_probe.chain.launches
+    form = mma_probe.form(variant, unit)
+    before = mma_probe.chain.launches, dict(mma_probe.chain.launches_by_form)
     got = mma_probe.chain(variant, unit, a, b, grid=5, nrep=64)
     torch.cuda.synchronize()
-    assert mma_probe.chain.launches == before + 1
-    want = mma_probe.chain_reference(a, b, 64, unit)
-    err = (got - want).abs().max().item() / want.abs().max().item()
-    assert err <= mma_probe.CHAIN_TOL
+    assert mma_probe.chain.launches == before[0] + 1
+    assert mma_probe.chain.launches_by_form == {
+        f: n + (f == form) for f, n in before[1].items()}
+    want = mma_probe.chain_reference(a, b, 64, unit, sites_on_m)
+    assert got.shape == (5,) + tuple(want.shape)
+    for s in range(mma_probe.NBUF):
+        err = ((got[:, s] - want[s]).abs().max()
+               / want[s].abs().max()).item()
+        assert err <= mma_probe.CHAIN_TOL, (s, err)
     assert bool((got == got[0]).all())
+    assert _build.library().mma_probe_smem(
+        variant, mma_probe.UNITS.index(unit), tb) == \
+        mma_probe.smem_bytes(variant, unit, tb)
 
 
 def test_cache_probe_kernel_matches_plain(cuda_device):
-    """One exact doubling and one rounded addition in both: equal bits."""
+    """One exact doubling and one rounded addition in both: equal bits, on
+    the 16-byte path, on an offset view (not 16-byte aligned: one element
+    a thread) and on a length that is not a multiple of 4 (a tail)."""
     x = cache_probe.probe_input(seed=5, device=cuda_device)
     before = cache_probe.scale_shift.launches
     got = cache_probe.scale_shift(x)
@@ -319,6 +335,14 @@ def test_cache_probe_kernel_matches_plain(cuda_device):
     assert torch.equal(got, cache_probe.scale_shift_reference(x))
     with pytest.raises(ValueError, match="contiguous"):
         cache_probe.scale_shift(x.t())
+    flat = x.flatten()
+    for view in (flat[1:4094], flat[4:4099], flat[:7], flat[3:4]):
+        assert view.is_contiguous()
+        got = cache_probe.scale_shift(view)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cache_probe.scale_shift_reference(view))
+    assert flat[1:].data_ptr() % 16 != 0
+    assert cache_probe.scale_shift.launches == before + 5
 
 
 @pytest.mark.parametrize("tb", [32, 256])

@@ -1,18 +1,23 @@
 """The probes (probes/mma.py, probes/cache.py, probes/constructs.py) on
-the CPU: each plain version against the same sums in numpy f64 and, for
-the two probes that have a Pallas kernel that runs there, against that
-kernel in interpret mode; the operand layouts the CUDA kernels read; the
-wrappers' CPU paths; and the naming of _build's libraries.  The kernels
-themselves run only on the card (chip_smoke.py, tests/test_torch_cuda.py).
+the CPU: each plain version against the same sums in numpy f64 and against
+the JAX package's Pallas kernel in interpret mode (all three probes); the
+operand layouts the CUDA kernels read; the wrappers' CPU paths; and the
+naming of _build's libraries.  The kernels themselves run only on the card
+(chip_smoke.py, tests/test_torch_cuda.py).
 
 Tolerances: the build-cache probe's plain version equals the Pallas kernel
 bit for bit (one exact doubling and one rounded addition in both); the
-construct probe's plain version is within 1e-5 of the largest entry of the
-same sums in numpy f64 and in the Pallas kernel (f32 products summed in
-another order)."""
+matrix-unit probe's slot 0 is within 1e-5 of the largest entry of
+tools/mxu_probe.py's kernel (bf16 products, exact in f32, summed in another
+order); the construct probe's plain version is within 1e-5 of the largest
+entry of the same sums in numpy f64 and in the Pallas kernel (f32 products
+summed in another order)."""
+import functools
 import hashlib
 import importlib.util
 import pathlib
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,30 +33,82 @@ from libpll2_tpu_torch.probes import cache, constructs, mma
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+def _mxu_probe(monkeypatch, nrep):
+    """tools/mxu_probe.py loaded as a module, with NREP = `nrep` and its
+    pallas_call in interpret mode.  It reads sys.argv[1] as TB when it is
+    imported, and under pytest that is a path."""
+    monkeypatch.setattr(sys, "argv", ["mxu_probe.py"])
+    spec = importlib.util.spec_from_file_location(
+        "mxu_probe", REPO / "tools" / "mxu_probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert probe.NBUF == mma.NBUF
+    probe.NREP = nrep
+    probe.pl = types.SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True),
+        BlockSpec=pl.BlockSpec)
+    return probe
+
+
+@pytest.mark.parametrize("variant", [0, 1, 5, 6, 7])
+def test_chain_reference_slot0_is_the_jax_kernel(variant, monkeypatch):
+    """tools/mxu_probe.py's kernel (acc[j % NBUF] += one product, out =
+    acc[0]) in interpret mode on bf16 inputs, in both orientations, is slot
+    0 of chain_reference(unit="bf16"), within 1e-5 of the largest entry;
+    the other slots hold other sums."""
+    probe = _mxu_probe(monkeypatch, 64)
+    var, tb = mma.VARIANTS[variant], 64
+    if var.sites_on_m:
+        run, _, _ = probe.make_probe(tb, var.k, var.m, True)
+    else:
+        run, _, _ = probe.make_probe(var.m, var.k, tb, False)
+    a, b = mma.probe_inputs(variant, tb, seed=10 + variant, device="cpu")
+    c = b.transpose(1, 2) if var.sites_on_m else b
+    got = np.asarray(run(jnp.asarray(a.numpy(), jnp.bfloat16),
+                         jnp.asarray(c.numpy(), jnp.bfloat16)))
+    want = mma.chain_reference(a, b, 64, "bf16", var.sites_on_m).numpy()
+    assert got.shape == want.shape[1:]
+    scale = np.abs(want[0]).max()
+    np.testing.assert_allclose(got, want[0], rtol=0, atol=1e-5 * scale)
+    for s in range(1, mma.NBUF):
+        assert np.abs(got - want[s]).max() > 0.1 * scale
+
+
 @pytest.mark.parametrize("variant", range(len(mma.VARIANTS)))
 def test_chain_reference_matches_numpy(variant):
-    """rtol 1e-5 of the largest entry: 32 f32 products summed in another
-    order than numpy's f64."""
+    """Every slot, rtol 1e-5 of the slot's largest entry: 8 f32 products
+    summed in another order than numpy's f64."""
+    var = mma.VARIANTS[variant]
     a, b = mma.probe_inputs(variant, 64, seed=variant, device="cpu")
-    got = mma.chain_reference(a, b, nrep=32)
+    got = mma.chain_reference(a, b, nrep=32, sites_on_m=var.sites_on_m)
     a64, b64 = a.double().numpy(), b.double().numpy()
-    want = sum(a64 @ b64[j % mma.NBUF] for j in range(32))
-    assert got.shape == (mma.VARIANTS[variant][1], 64)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                               atol=1e-5 * np.abs(want).max())
+    assert got.shape == ((mma.NBUF, 64, var.m) if var.sites_on_m
+                         else (mma.NBUF, var.m, 64))
+    for s in range(mma.NBUF):
+        one = b64[s].T @ a64 if var.sites_on_m else a64 @ b64[s]
+        want = sum(one for j in range(32) if j % mma.NBUF == s)
+        np.testing.assert_allclose(got[s].numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("unit", mma.UNITS)
 def test_wrapper_on_cpu_takes_plain_version(unit):
-    a, b = mma.probe_inputs(1, 32, device="cpu")
-    before = mma.chain.launches
-    got = mma.chain(1, unit, a, b, grid=3, nrep=8)
-    assert mma.chain.launches == before and got.shape == (3, 16, 32)
-    want = mma.chain_reference(a, b, 8, unit)
-    for blk in got:
-        np.testing.assert_array_equal(blk.numpy(), want.numpy())
-    if unit != "fma":       # rounded inputs give another result than f32
-        assert not torch.equal(want, mma.chain_reference(a, b, 8, "fma"))
+    for variant in (1, 6):
+        if unit not in mma.units_of(variant):
+            continue
+        var = mma.VARIANTS[variant]
+        a, b = mma.probe_inputs(variant, 64, device="cpu")
+        before = mma.chain.launches, dict(mma.chain.launches_by_form)
+        got = mma.chain(variant, unit, a, b, grid=3, nrep=8)
+        assert (mma.chain.launches, mma.chain.launches_by_form) == before
+        assert got.shape == (3, mma.NBUF) + ((64, 16) if var.sites_on_m
+                                             else (16, 64))
+        want = mma.chain_reference(a, b, 8, unit, var.sites_on_m)
+        for blk in got:
+            np.testing.assert_array_equal(blk.numpy(), want.numpy())
+        if unit != "fma":       # rounded inputs give another result than f32
+            assert not torch.equal(want, mma.chain_reference(
+                a, b, 8, "fma", var.sites_on_m))
 
 
 def test_wrapper_rejects_wrong_inputs():
@@ -64,6 +121,53 @@ def test_wrapper_rejects_wrong_inputs():
         mma.chain(0, "tf32", a.double(), b.double())
     with pytest.raises(ValueError, match="CUDA device"):
         mma.chain(0, "tf32", a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mma.chain(0, "tf32", a, b, nrep=6)
+    # sites on M: P [K, N], no FFMA form
+    a, b = mma.probe_inputs(6, 64, device="cpu")
+    assert tuple(a.shape) == (48, 16) and tuple(b.shape) == (4, 48, 64)
+    with pytest.raises(ValueError, match="no fma form"):
+        mma.chain(6, "fma", a, b)
+    with pytest.raises(ValueError, match="takes A"):
+        mma.chain(6, "bf16", a.t().contiguous(), b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mma.chain(6, "bf16", a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="no fma form"):
+        mma.pack_operands(a, b, "fma", sites_on_m=True)
+
+
+def test_forms_configs_and_bounds():
+    """21 rows: FFMA, mma.sync and wgmma where the table of
+    csrc/mma_probe.cu's dispatch says, a configuration for each, and the
+    bound 2 M K NREP SITES over the unit's peak."""
+    rows = [(v, u) for v in range(len(mma.VARIANTS)) for u in mma.units_of(v)]
+    assert len(rows) == 21 and set(rows) == set(mma.CONFIGS)
+    forms = [mma.form(v, u) for v, u in rows]
+    assert forms.count("ffma") == 5 and forms.count("mma_sync") == 10
+    assert [r for r, f in zip(rows, forms) if f == "wgmma"] == [
+        (5, "tf32"), (5, "bf16"), (6, "tf32"), (6, "bf16"), (7, "tf32"),
+        (7, "bf16")]
+    assert [v.name.split()[0] for v in mma.VARIANTS] == [
+        "span16", "stacked3", "span80", "pack2", "pack4", "t_span16",
+        "t_stacked3", "t_span80"]
+    assert set(mma.chain.launches_by_form) == set(mma.FORMS)
+    # mma.sync fragments held in registers only where a lane holds <= 48
+    for (v, u), c in mma.CONFIGS.items():
+        var = mma.VARIANTS[v]
+        assert mma.NBUF % c.slots == 0
+        tb = mma.site_block(v, u, 128, 232448)
+        assert mma.threads(v, u, tb) <= mma.MAX_THREADS, (v, u)
+        if mma.form(v, u) == "mma_sync":
+            assert var.m // 16 % c.groups == 0 and c.warp_tiles in (2, 4)
+            words = (var.m // 16 // c.groups * var.k
+                     // (16 if u == "bf16" else 8) * 4)
+            assert (c.a_source == "regs") == (words <= 48), (v, u)
+        if mma.form(v, u) == "ffma":
+            assert var.m // c.groups % 4 == 0
+    assert mma.bound_ms(2, "fma") == pytest.approx(
+        2 * 80 * 80 * 512 * 65536 / 67e12 * 1e3)
+    assert mma.bound_ms(7, "bf16") == pytest.approx(
+        2 * 80 * 80 * 512 * 65536 / 989e12 * 1e3)
 
 
 def test_round_unit():
@@ -88,7 +192,7 @@ def _unpack_bf16(words):
 def test_operand_layouts(variant):
     """Reading the packed operands back by the mma fragment layouts gives
     A and B (rounded to the unit's precision)."""
-    _, M, K, _ = mma.VARIANTS[variant]
+    M, K = mma.VARIANTS[variant].m, mma.VARIANTS[variant].k
     tb = 32
     a, b = mma.probe_inputs(variant, tb, device="cpu")
     lane = np.arange(32)
@@ -129,8 +233,71 @@ def test_operand_layouts(variant):
 
 
 def test_smem_bytes():
-    assert mma.smem_bytes(4, "tf32", 128) == mma.NBUF * 192 * 128 * 4
-    assert mma.smem_bytes(4, "bf16", 128) == mma.NBUF * 96 * 128 * 4
+    """The site buffers, plus A (P) where it is staged: what the C entry
+    mma_probe_smem returns (held equal on the card)."""
+    nb = mma.NBUF
+    assert mma.smem_bytes(4, "tf32", 128) == nb * 192 * 128 * 4
+    assert mma.smem_bytes(4, "bf16", 128) == nb * 96 * 128 * 4 + 64 * 192 * 2
+    assert mma.smem_bytes(0, "tf32", 128) == nb * 16 * 128 * 4
+    assert mma.smem_bytes(2, "fma", 128) == nb * 80 * 128 * 4 + 80 * 80 * 4
+    assert mma.smem_bytes(7, "tf32", 128) == nb * 80 * 128 * 4 + 80 * 80 * 4
+    assert mma.smem_bytes(6, "bf16", 64) == nb * 48 * 64 * 2 + 48 * 16 * 2
+    with pytest.raises(ValueError, match="no fma form"):
+        mma.smem_bytes(5, "fma", 128)
+    # the H100's 232,448-byte limit: pack4 runs at TB 64 in f32 and TF32
+    # (196,608 bytes), every other row at TB 128
+    limit = 232448
+    blocks = {(v, u): mma.site_block(v, u, 128, limit)
+              for v, u in mma.CONFIGS}
+    assert {k for k, tb in blocks.items() if tb != 128} == {
+        (4, "fma"), (4, "tf32")}
+    assert blocks[(4, "fma")] == 64
+    assert mma.smem_bytes(4, "fma", 64) == 196608
+    assert all(mma.smem_bytes(v, u, tb) <= limit
+               for (v, u), tb in blocks.items())
+    assert mma.threads(2, "fma", 128) == 256
+    assert mma.threads(7, "bf16", 128) == 256
+    assert mma.threads(1, "tf32", 128) == 128
+    assert mma.threads(2, "tf32", 128) == 256       # 2 tiles a warp
+    assert mma.threads(4, "tf32", 64) == 256        # 4 warps share sites
+
+
+@pytest.mark.parametrize("unit", ["tf32", "bf16"])
+@pytest.mark.parametrize("variant", [5, 6, 7])
+def test_wgmma_core_matrix_packing(variant, unit):
+    """The wgmma operands against a numpy re-index: site (row) r and k of
+    B[j]^T at core matrix (r / 8, k / E), row r % 8, element k % E (E = 16
+    bytes: 4 TF32, 8 bf16), and P^T the same with n for r; values rounded
+    to the unit."""
+    var, tb = mma.VARIANTS[variant], 128
+    a, b = mma.probe_inputs(variant, tb, seed=3, device="cpu")
+    p_cm, s_cm = mma.pack_operands(a, b, unit, sites_on_m=True)
+    e = 8 if unit == "bf16" else 4
+    assert s_cm.shape == (mma.NBUF, tb // 8, var.k // e, 8, e)
+    assert p_cm.shape == (var.m // 8, var.k // e, 8, e)
+    assert s_cm.element_size() * e == 16 and s_cm.is_contiguous()
+    flat_s = s_cm.float().flatten().numpy()
+    flat_p = p_cm.float().flatten().numpy()
+    br = mma.round_unit(b, unit).numpy()
+    ar = mma.round_unit(a, unit).numpy()
+    buf, site, k = np.meshgrid(np.arange(mma.NBUF), np.arange(tb),
+                               np.arange(var.k), indexing="ij")
+    kc = var.k // e
+    off = (((buf * (tb // 8) + site // 8) * kc + k // e) * 8
+           + site % 8) * e + k % e
+    np.testing.assert_array_equal(flat_s[off], br[buf, k, site])
+    n, k = np.meshgrid(np.arange(var.m), np.arange(var.k), indexing="ij")
+    off = ((n // 8 * kc + k // e) * 8 + n % 8) * e + k % e
+    np.testing.assert_array_equal(flat_p[off], ar[k, n])
+    # the bytes of one 32-byte k-step of a row: two core-matrix columns
+    # 128 bytes apart (the descriptors' leading byte offset)
+    row = s_cm[0].reshape(-1).view(torch.uint8).numpy()
+    step = row[: 2 * 128].reshape(2, 8, 16)[:, 0].reshape(-1)
+    first = torch.as_tensor(np.ascontiguousarray(
+        br[0, : 32 // s_cm.element_size(), 0]))
+    if unit == "bf16":
+        first = first.to(torch.bfloat16)
+    np.testing.assert_array_equal(step, first.view(torch.uint8).numpy())
 
 
 # ---- the build-cache probe (probes/cache.py) -----------------------------
