@@ -61,8 +61,14 @@ Phases (any failure exits non-zero):
      host cost of each piece of a launch from Python; the kernel, its plain
      version and x * 2 + 1 timed as calls back to back, as single calls and
      as one CUDA graph;
- 19. the construct probe (probes/constructs.py): five variants of the
-     tensor-core sweep's inner loop, each against its plain version.
+ 19. the construct probe (probes/constructs.py): tools/static2probe.py's
+     k0-k3 over 65,536 distinct sites and 128 ops on wgmma with the site
+     tile in registers, each against its plain version, timed back to back
+     and in one CUDA graph, per op and against one torch.mm at equal work;
+     the same kernel with the tile in shared memory (probes/variants.py's
+     static2_smem_a, built beside the package's library in phase 2) in
+     turns with it; then the five variants c0-c4 of the tensor-core
+     sweep's inner loop, each against its plain version.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -148,6 +154,7 @@ CACHE_REPS = 200         # cache-probe calls back to back in one timing
 CACHE_TURNS = 11         # runs of CACHE_REPS back to back, in turns
 CACHE_HOST_CALLS = 10000  # calls of each launch piece in its host timing
 CHOOSE_SLACK = 1.25      # choose's form against the faster one, same run
+STATIC2_REPS = 50        # k0-k3 launches back to back and in one CUDA graph
 PROTEIN_TIPS, PROTEIN_SITES = 128, 16384
 # published peaks of one H100 SXM (dense): HBM bytes/s, f32 FMA FLOP/s,
 # TF32 and bf16 tensor FLOP/s; shared memory at 128 B/clk/SM x 132 SMs x
@@ -215,6 +222,7 @@ def reset_counts() -> None:
         probe.chain.launches_by_form[form] = 0
     cache.scale_shift.launches = 0
     constructs.constructs.launches = 0
+    constructs.static2.launches = 0
 
 
 def read_counts() -> dict:
@@ -227,7 +235,8 @@ def read_counts() -> dict:
             "edge_score": edge_score.edge_scores.launches,
             "mma_probe": probe.chain.launches,
             "cache_probe": cache.scale_shift.launches,
-            "construct_probe": constructs.constructs.launches}
+            "construct_probe": constructs.static2.launches,
+            "construct_probe_c0_c4": constructs.constructs.launches}
 
 
 def phase_device():
@@ -255,28 +264,48 @@ def phase_device():
 
 
 def phase_build():
-    """Build the kernels; print each entry function's registers and spills
-    as ptxas -v reports them, and any ptxas line about wgmma."""
+    """Build the kernels, and beside them the construct probe's
+    static2_smem_a variant (a patched copy of csrc/, probes/variants.py)
+    for phase 19, both at once; print each entry function's registers and
+    spills as ptxas -v reports them, and any ptxas line about wgmma.
+    Returns the variant's library."""
+    import concurrent.futures
+
     from libpll2_tpu_torch import _build
+    from libpll2_tpu_torch.probes import variants
     t0 = time.perf_counter()
-    info = _build.build()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        smem_a = pool.submit(variants.variant_library, "static2_smem_a")
+        info = _build.build()
+        _build.library()
+        smem_a_lib, smem_a_info = smem_a.result()
     log(f"[build] {info.path.name} from {[str(s.name) for s in _build.SOURCES]}"
         f" flags {' '.join(_build.NVCC_FLAGS)}: nvcc {info.seconds:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
+        f"(load {time.perf_counter() - t0:.2f} s); static2_smem_a variant "
+        f"nvcc {smem_a_info.seconds:.2f} s alongside")
+    log_ptxas(info.log)
+    log_ptxas(smem_a_info.log, only="static2_kernel", tag="static2_smem_a ")
+    return smem_a_lib
+
+
+def log_ptxas(text: str, only: str = "", tag: str = "") -> None:
+    """[build] lines of an nvcc log: each entry function's registers and
+    spills (of the entries whose name holds `only`), and ptxas's lines
+    about wgmma."""
     source, entry, spills = "", "", ""
-    for line in info.log.splitlines():
+    for line in text.splitlines():
         line = line.strip()
         if line.startswith("[") and line.endswith("]"):
             source = line[1:-1]
         elif "(C75" in line or ("wgmma" in line and "warn" in line.lower()):
-            log(f"[build] {source}: {line}")      # ptxas on wgmma
+            if only in line or not only:
+                log(f"[build] {tag}{source}: {line}")    # ptxas on wgmma
         elif "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
         elif "spill" in line:
             spills = line.split(":", 1)[-1].strip()
-        elif "registers" in line:
-            log(f"[build] {source} {entry}: "
+        elif "registers" in line and only in entry:
+            log(f"[build] {tag}{source} {entry}: "
                 f"{line.split(':', 1)[-1].strip()}; {spills}")
 
 
@@ -1935,61 +1964,132 @@ def phase_cache_probe(device, card):
                 else "operations")
 
 
-def phase_construct_probe(card):
+def static2_operands(variant, pcm, pool, n_ops):
+    """The operands of one torch.mm that computes `variant` at equal work:
+    [16, sum K] and [sum K, sites] bf16, pcm's column groups and the pool's
+    prefixes of every op side by side in w order (K = 16, 48, 96, 96 an op
+    for k0-k3)."""
+    import torch
+
     from libpll2_tpu_torch.probes import constructs
+    w = torch.arange(n_ops, device=pool.device)
+    pm = (w * 7) % constructs.P_ROWS
+    x = pool[w % constructs.N_SLOTS]                    # [n_ops, 48, sites]
+    if variant in ("k0", "k1"):
+        depth = 16 if variant == "k0" else 48
+        p, x = pcm[pm][:, :, :depth], x[:, :depth]
+    else:
+        # the groups' columns lie side by side in a row: 0-15, 16-47, 48-95
+        p = pcm[torch.zeros_like(pm) if variant == "k2" else pm]
+        x = torch.cat([x[:, :16], x[:, :32], x[:, :48]], dim=1)
+    return (p.permute(1, 0, 2).reshape(constructs.SPAN, -1).contiguous(),
+            x.reshape(-1, x.shape[-1]).contiguous())
+
+
+def static2_library_ms(pcm, pool, n_ops, card):
+    """One PyTorch call per variant at the kernel's work: torch.mm of the
+    gathered operands (static2_operands, built before the events) with an
+    f32 output from the bf16 operands (torch.mm(..., out_dtype=
+    torch.float32)), held against static2_reference.  Returns {variant: ms
+    back to back}."""
+    import torch
+
+    from libpll2_tpu_torch.probes import constructs
+    times = {}
+    for variant in constructs.K_VARIANTS:
+        a, b = static2_operands(variant, pcm, pool, n_ops)
+
+        def call():
+            return torch.mm(a, b, out_dtype=torch.float32)
+        want = constructs.static2_reference(variant, pcm, pool, n_ops)
+        err = constructs.static2_error(call(), want)
+        check(err <= constructs.static2_tolerance(n_ops),
+              f"torch.mm differs from the plain {variant}: {err}")
+        times[variant] = cuda_ms_back_to_back(call, 10)
+        log(f"[time] construct_probe {variant}, one torch.mm(bf16 "
+            f"{list(a.shape)}, bf16 {list(b.shape)}, out_dtype=f32) at the "
+            f"kernel's work: {times[variant]:.4f} ms back to back (the "
+            f"gathered pool {b.numel() * 2 / 1e9:.3f} GB, against "
+            f"{pool[:, :16 if variant == 'k0' else 48].numel() * 2 / 1e9:.3f}"
+            f" GB the kernel reads once), rel err {err:.2e} ({card})")
+        del a, b, want
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_construct_probe(device, card, smem_a_lib):
+    """tools/static2probe.py's k0-k3 (the row's kernel): each against its
+    plain version, timed back to back and in one CUDA graph; one torch.mm
+    a variant at equal work; the register tile against static2_smem_a in
+    turns.  Then c0-c4, the tensor-core sweep's constructs, against their
+    plain versions (outside the row)."""
+    import torch
+
+    from libpll2_tpu_torch.probes import constructs, variants
 
     n_ops, tb = 128, 128
     reset_counts()
-    rows = constructs.run_probe(n_ops, tb, emit=lambda line: log(
-        f"[constructs] {line} ({card})"))
+    rows = constructs.run_static2(
+        n_ops, constructs.STATIC2_SITES, STATIC2_REPS, device=device,
+        emit=lambda line: log(f"[static2] {line} ({card})"))
     launches = read_counts()["construct_probe"]
-    check(len(rows) == 5 and launches > 0, "the probe launched nothing")
-    products = {"c0": 1, "c1": 3, "c2": 3, "c3": 3, "c4": 3}
-    ops_s = sum(products[r["variant"]] for r in rows) * n_ops * 2 \
-        * constructs.SPAN ** 2 * constructs.SITES / TF32_RATE
-    bytes_s = len(rows) * (
-        (constructs.P_ROWS * 2 * constructs.SPAN ** 2
-         + constructs.N_SLOTS * constructs.SPAN * tb
-         + constructs.SITES * (constructs.SPAN + 1)) * 4) / HBM_RATE
-    # c0-c2 are plain sums of products, which one einsum over gathered
-    # operands computes; the chain of c3 and c4, with a rescue between its
-    # products, has no single call, so the row of all five has none either
-    import torch
-    p, pool = constructs.probe_inputs(tb, device=torch.device("cuda", 0))
-    w = torch.arange(n_ops, device=p.device)
-    slot, pm = w % constructs.N_SLOTS, (w * 7) % constructs.P_ROWS
-    library = {"c3": None, "c4": None}
-    for r in rows[:3]:
-        rows_p = pm if r["variant"] == "c2" else torch.zeros_like(pm)
+    check(len(rows) == 4 and launches > 0, "the probe launched nothing")
+    pcm, pool = constructs.static2_inputs(constructs.STATIC2_SITES,
+                                          device=device)
+    library = static2_library_ms(pcm, pool, n_ops, card)
+    del pcm, pool
+    forms = variants.static2_forms(device, card, emit=log, lib=smem_a_lib,
+                                   n_ops=n_ops, reps=STATIC2_REPS)
+    bound = sum(r["bound_ms"] for r in rows)
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    graph = sum(r["graph_ms"] for r in rows)
+    log(f"[time] construct_probe k0-k3, {n_ops} ops, "
+        f"{constructs.STATIC2_SITES} sites, a launch of each summed: "
+        f"{sum(r['ms'] for r in rows):.4f} ms back to back, {graph:.4f} ms "
+        f"in CUDA graphs (device time, no host launch); bound {bound:.4f} "
+        f"ms ({by_ops:.4f} of it by operations): {bound / graph:.4f} of it "
+        f"in the graphs; per op in the graphs "
+        + ", ".join(f"{r['variant']} {r['graph_us_per_op']:.4f}"
+                    for r in rows)
+        + " us; increments k1-k0, k2-k1, k3-k2 "
+        + ", ".join(f"{b['graph_us_per_op'] - a['graph_us_per_op']:+.4f}"
+                    for a, b in zip(rows, rows[1:]))
+        + f" us/op; plain static2_reference "
+        f"{sum(r['plain_ms'] for r in rows):.3f} ms; torch.mm at equal work "
+        f"{sum(library.values()):.4f} ms; register tile against "
+        f"static2_smem_a in graphs: "
+        + ", ".join(f"{v} {f['registers']:.4f}/"
+                    + (f"{f['shared memory']:.4f}" if "shared memory" in f
+                       else "does not fit")
+                    for v, f in forms.items()) + f" ms ({card})")
 
-        def one_call():
-            return torch.einsum("wij,wjt->it", p[rows_p], pool[slot])
-        want = constructs.constructs_reference(r["variant"], p, pool,
-                                               n_ops)[0]
-        gap = ((one_call() - want).abs().max() / want.abs().max()).item()
-        check(gap < 1e-5, f"einsum differs from the plain {r['variant']}: "
-                          f"{gap}")
-        library[r["variant"]] = statistics.median(cuda_ms(one_call, 20))
-    log(f"[time] construct_probe, one torch.einsum over gathered operands "
-        f"for the same [16, {tb}] result: c0 {library['c0']:.4f} ms, c1 "
-        f"{library['c1']:.4f} ms, c2 {library['c2']:.4f} ms; c3 and c4 (a "
-        f"dependent chain with a rescue between products) have no single "
-        f"call ({card})")
+    # c0-c4: this port's study of its own tensor-core sweep
+    reset_counts()
+    c_rows = constructs.run_probe(n_ops, tb, emit=lambda line: log(
+        f"[constructs] {line} ({card})"))
+    check(len(c_rows) == 5 and read_counts()["construct_probe_c0_c4"] > 0,
+          "the c0-c4 probe launched nothing")
     return dict(launches=launches,
-                max_abs_err=max(r["abs_err"] for r in rows
-                                if r["abs_err"] == r["abs_err"]),
-                ms=sum(r["ms"] for r in rows),
+                max_abs_err=max(r["abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows), graph_ms=graph,
                 plain_ms=sum(r["plain_ms"] for r in rows),
-                library_ms=None, library_ms_by_variant=library,
-                bound_ms=max(ops_s, bytes_s) * 1e3,
-                bound_by="bytes" if bytes_s >= ops_s else "operations")
+                library_ms=sum(library.values()),
+                library_ms_by_variant=library,
+                ms_by_variant={r["variant"]: r["ms"] for r in rows},
+                graph_ms_by_variant={r["variant"]: r["graph_ms"]
+                                     for r in rows},
+                us_per_op={r["variant"]: r["graph_us_per_op"] for r in rows},
+                smem_a_graph_ms={v: f.get("shared memory")
+                                 for v, f in forms.items()},
+                bound_ms=bound,
+                bound_by="operations" if 2 * by_ops >= bound else "bytes")
 
 
 def main() -> int:
     import torch
     card = phase_device()
     device = torch.device("cuda", 0)
-    phase_build()
+    smem_a_lib = phase_build()
     phase_kernel_vs_plain(device)
     cases, cold_ms, main_counts = phase_main_path(device, card)
     full_case = cases[(256, 65536)]
@@ -2026,7 +2126,7 @@ def main() -> int:
     probe = phase_probe(card)
     launches["mma_probe"] = probe["launches"]
     cache_probe = phase_cache_probe(device, card)
-    construct_probe = phase_construct_probe(card)
+    construct_probe = phase_construct_probe(device, card, smem_a_lib)
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
@@ -2085,7 +2185,7 @@ def main() -> int:
         "source": "libpll2_tpu_torch/csrc/construct_probe.cu",
         "replaces": "tools/static2probe.py:41 (kernel)",
         **construct_probe,
-        "shape": "c0-c4, 128 ops, TB 128, 65536 sites, summed",
+        "shape": "k0-k3, 128 ops, 65536 sites, summed",
     }]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "

@@ -195,6 +195,13 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         p,             # stream
     ]
     lib.construct_probe_launch.restype = ctypes.c_int
+    lib.static2_probe_launch.argtypes = [
+        i,             # variant
+        p, p, p,       # a_frag, b_cm, out
+        i, i,          # sites, n_ops
+        p,             # stream
+    ]
+    lib.static2_probe_launch.restype = ctypes.c_int
     lib.tree_sweep_max_smem.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.tree_sweep_max_smem.restype = ctypes.c_int

@@ -4,8 +4,9 @@ their time, and why their launch parameters are what they are.
     python -m libpll2_tpu_torch.probes.variants [blocks] [passes]
                                                 [registers] [clocks]
                                                 [fma_staging] [fma_clocks]
+                                                [static2_smem_a]
 
-(all six with no argument; run from the repository root, beside
+(all seven with no argument; run from the repository root, beside
 chip_smoke.py, whose search inputs and timers it uses).  Each experiment
 prints its times beside the card's name and power limit:
 
@@ -34,7 +35,14 @@ prints its times beside the card's name and power limit:
   fma_clocks the "fma" sweep built with clock reads in its op loop: cycles
              per op of one warp, by the kinds of the op's children, split
              into the wait for the op's operands (with the start of the
-             copies ahead) and the op.
+             copies ahead) and the op;
+  static2_smem_a  the construct probe's k0-k3 (csrc/construct_probe.cu)
+             with the pool's site tile in shared memory, read by wgmma
+             through descriptors, against the register tile, both in one
+             CUDA graph of 50 launches each, in turns (registers, shared
+             memory, shared memory, registers): what the register tile
+             buys.  k3's 196,608 bytes of pcm leave no room for the A
+             tiles, so it runs only in registers.
 
 A variant of a kernel is a copy of csrc/ with a few exact text
 replacements (`PATCHES`), built by `_build.library(build_dir, source_dir)`
@@ -68,6 +76,7 @@ FMA_SITES = "constexpr int SITES_A_THREAD = 2;"
 FMA_STAGE_P = "constexpr int STAGE_P_MAX_STATES = 4;"
 FMA_LOOP = "    wait_copies<AHEAD - 1>();\n"
 FMA_OP = "    const int4 op = rows[ROW_INT4 * (w % ROW_SLOTS) + 1];"
+STATIC2_A = "constexpr bool A_IN_REGISTERS = true;"
 # name -> (source file, ((old, new), ...)); every `old` occurs exactly once
 PATCHES = {
     "one_cta_an_sm": ("edge_score.cu", (
@@ -105,6 +114,8 @@ PATCHES = {
          "int dbg_read(long long* out, int n) {\n"
          "  return (int)cudaMemcpyFromSymbol(out, dbg_clock, (size_t)n * 8);"
          "\n}\n"))),
+    "static2_smem_a": ("construct_probe.cu", (
+        (STATIC2_A, STATIC2_A.replace("true", "false")),)),
     "fma_ahead_1": ("tree_sweep.cu", (
         (FMA_AHEAD, FMA_AHEAD.replace("= 2", "= 1")),)),
     "fma_sites_1": ("tree_sweep.cu", (
@@ -466,9 +477,77 @@ def run_fma_clocks(device, card, emit=print):
         torch.cuda.empty_cache()
 
 
+def static2_forms(device, card, emit=print, lib=None, n_ops: int = 128,
+                  reps: int = 50):
+    """k0-k3 with the site tile in registers (the package's kernel) and in
+    shared memory (`lib`, default: variant static2_smem_a built here), each
+    first held against static2_reference, then timed as one CUDA graph of
+    `reps` launches, in turns.  Returns
+    {variant: {"registers": ms, "shared memory": ms}}, the fastest turn of
+    each; no "shared memory" where the A tiles do not fit beside pcm."""
+    from . import constructs
+
+    if lib is None:
+        lib = variant_library("static2_smem_a")[0]
+    limit = _build.max_shared_memory(device)
+    pcm, pool = constructs.static2_inputs(constructs.STATIC2_SITES,
+                                          device=device)
+    bound = constructs.static2_tolerance(n_ops)
+    found = {}
+    for variant in constructs.K_VARIANTS:
+        smem = constructs.static2_smem_bytes(variant, a_in_registers=False)
+        want = constructs.static2_reference(variant, pcm, pool, n_ops)
+        b_cm, a_frag = constructs.pack_static2(variant, pcm, pool)
+        out = torch.empty_like(want)
+        forms = {"registers": None}
+        if smem <= limit:
+            forms["shared memory"] = lib
+            got = constructs.static2(variant, pcm, pool, n_ops, lib)
+            err = constructs.static2_error(got, want)
+            if not err <= bound:
+                raise RuntimeError(f"static2_smem_a {variant}: error {err} "
+                                   f"> {bound} against the plain version")
+        times = {form: [] for form in forms}
+        for form in ("registers", "shared memory", "shared memory",
+                     "registers"):
+            if form not in forms:
+                continue
+            times[form].append(constructs.graph_ms(
+                lambda: constructs.launch_static2(variant, b_cm, a_frag, out,
+                                                  n_ops, forms[form]), reps))
+        best = found[variant] = {form: min(t) for form, t in times.items()}
+        emit(f"[static2_smem_a] {variant}, {n_ops} ops, "
+             f"{constructs.STATIC2_SITES} sites, one CUDA graph of {reps} "
+             f"launches, a launch: A in registers {best['registers']:.4f} ms"
+             f" (turns {', '.join(f'{t:.4f}' for t in times['registers'])});"
+             f" " + (f"A in shared memory {best['shared memory']:.4f} ms "
+                     f"(turns "
+                     f"{', '.join(f'{t:.4f}' for t in times['shared memory'])}"
+                     f"), registers "
+                     f"{best['shared memory'] / best['registers']:.3f}x "
+                     f"faster" if "shared memory" in best else
+                     f"A in shared memory does not fit ({smem} bytes, above "
+                     f"the {limit}-byte limit)")
+             + f" ({card})")
+    return found
+
+
+def run_static2_smem_a(device, card, emit=print):
+    lib, info = variant_library("static2_smem_a")
+    entry = ""
+    for line in info.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "static2_kernel" in entry and ("registers" in line
+                                            or "spill" in line):
+            emit(f"[static2_smem_a] {entry}: {line.strip()}")
+    static2_forms(device, card, emit, lib)
+
+
 EXPERIMENTS = {"blocks": run_blocks, "passes": run_passes,
                "registers": run_registers, "clocks": run_clocks,
-               "fma_staging": run_fma_staging, "fma_clocks": run_fma_clocks}
+               "fma_staging": run_fma_staging, "fma_clocks": run_fma_clocks,
+               "static2_smem_a": run_static2_smem_a}
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,7 @@
 """The CUDA kernels (both tree-sweep forms, edge scorer, matrix-unit
-probe, build-cache probe, construct probe) against their plain PyTorch
-versions, on the card; one multi-partition round and one fit step on the
-kernel paths.
+probe, build-cache probe, construct probe: k0-k3 and c0-c4) against their
+plain PyTorch versions, on the card; one multi-partition round and one fit
+step on the kernel paths.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
@@ -364,6 +364,49 @@ def test_construct_probe_kernel_matches_plain(cuda_device, variant, tb):
     assert mismatches <= 2
     if variant == "c3":
         assert int(want[1].max()) >= 2            # the rescue fired
+
+
+@pytest.mark.parametrize("n_ops", [0, 1, 37, 128])
+@pytest.mark.parametrize("sites", [64, 4096])
+@pytest.mark.parametrize("variant", construct_probe.K_VARIANTS)
+def test_static2_kernel_matches_plain(cuda_device, variant, sites, n_ops):
+    """tools/static2probe.py's k0-k3 on wgmma (one tile; 64 tiles over
+    fewer CTAs than the card holds) against static2_reference, relative to
+    each site's largest entry, within 2e-5 + 4e-7 per op (bf16 products
+    exact in f32, one truncating accumulator); one launch a call."""
+    pcm, pool = construct_probe.static2_inputs(sites, seed=sites + n_ops,
+                                               device=cuda_device)
+    before = construct_probe.static2.launches
+    got = construct_probe.static2(variant, pcm, pool, n_ops)
+    torch.cuda.synchronize()
+    assert construct_probe.static2.launches == before + 1
+    assert got.shape == (16, sites) and got.dtype == torch.float32
+    want = construct_probe.static2_reference(variant, pcm, pool, n_ops)
+    assert construct_probe.static2_error(got, want) <= \
+        construct_probe.static2_tolerance(n_ops)
+
+
+def test_static2_smem_a_matches_plain(cuda_device):
+    """probes/variants.py's static2_smem_a (the site tile in shared memory,
+    read by descriptors) against the plain version within the register
+    form's bound, for every variant whose A tiles fit beside pcm."""
+    from libpll2_tpu_torch import _build
+    from libpll2_tpu_torch.probes import variants
+    lib, _info = variants.variant_library("static2_smem_a")
+    limit = _build.max_shared_memory(cuda_device)
+    n_ops, sites = 37, 4096
+    pcm, pool = construct_probe.static2_inputs(sites, seed=9,
+                                               device=cuda_device)
+    ran = []
+    for variant in construct_probe.K_VARIANTS:
+        if construct_probe.static2_smem_bytes(variant, False) > limit:
+            continue
+        got = construct_probe.static2(variant, pcm, pool, n_ops, lib=lib)
+        want = construct_probe.static2_reference(variant, pcm, pool, n_ops)
+        assert construct_probe.static2_error(got, want) <= \
+            construct_probe.static2_tolerance(n_ops)
+        ran.append(variant)
+    assert ran == ["k0", "k1", "k2"]
 
 
 def test_spr_round_multi_on_the_kernel_path(cuda_device):

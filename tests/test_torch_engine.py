@@ -125,6 +125,30 @@ def test_loglikelihood_f32(case, use_kernel):
     np.testing.assert_allclose(got.item(), want, rtol=DTYPES["f32"][2])
 
 
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_site_repeats_flag_changes_no_likelihood(dt):
+    """PartitionConfig.site_repeats is read by nothing on the engine path,
+    in the JAX package (only its mutable Partition reads it) as in the
+    port, and site repeats do not change a likelihood: with the flag on,
+    the port's call equals the same call with it off, and the JAX engine's
+    result for the same config."""
+    spec = dict(CASES["random24"])
+    newick = spec.pop("newick")()
+    (jprog, jcfg, *jrest), (pprog, pcfg, *prest) = both(newick, 384, 0, dt,
+                                                        **spec)
+    assert not pcfg.site_repeats and not jcfg.site_repeats
+    jon = dataclasses.replace(jcfg, site_repeats=True)
+    pon = dataclasses.replace(pcfg, site_repeats=True)
+    want = float(jengine.loglikelihood(jengine.compile_tree(
+        jtree.parse_newick_string(newick), jon), jon, *jrest))
+    off = engine.loglikelihood(pprog, pcfg, *prest)
+    on = engine.loglikelihood(engine.compile_tree(
+        T.parse_newick_string(newick), pon), pon, *prest)
+    assert torch.equal(on, off)
+    assert want == float(jengine.loglikelihood(jprog, jcfg, *jrest))
+    np.testing.assert_allclose(on.item(), want, rtol=DTYPES[dt][2])
+
+
 def test_tree_path_equals_dense_path_f32():
     """The two sweeps of the port price the same tree alike."""
     spec = dict(CASES["per_rate_scaled"])

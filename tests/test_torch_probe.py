@@ -1,7 +1,7 @@
 """The probes (probes/mma.py, probes/cache.py, probes/constructs.py) on
 the CPU: each plain version against the same sums in numpy f64 and against
-the JAX package's Pallas kernel in interpret mode (all three probes); the
-operand layouts the CUDA kernels read; the wrappers' CPU paths; and the
+the JAX package's Pallas kernel in interpret mode (all three probes, the
+construct probe's k0-k3 each); the operand layouts the CUDA kernels read; the wrappers' CPU paths; and the
 naming of _build's libraries.  The kernels themselves run only on the card
 (chip_smoke.py, tests/test_torch_cuda.py).
 
@@ -9,9 +9,9 @@ Tolerances: the build-cache probe's plain version equals the Pallas kernel
 bit for bit (one exact doubling and one rounded addition in both); the
 matrix-unit probe's slot 0 is within 1e-5 of the largest entry of
 tools/mxu_probe.py's kernel (bf16 products, exact in f32, summed in another
-order); the construct probe's plain version is within 1e-5 of the largest
-entry of the same sums in numpy f64 and in the Pallas kernel (f32 products
-summed in another order)."""
+order); the construct probe's plain versions are within 1e-5 of the
+largest entry of the same sums in numpy f64 and in the Pallas kernel (bf16
+or f32 products, exact in f32, summed in another order)."""
 import functools
 import hashlib
 import importlib.util
@@ -554,6 +554,200 @@ def test_constructs_operand_layouts():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
 
 
+# ---- k0-k3: tools/static2probe.py's function ------------------------------
+
+
+def _static2probe():
+    spec = importlib.util.spec_from_file_location(
+        "static2probe", REPO / "tools" / "static2probe.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe
+
+
+@pytest.mark.parametrize("variant", constructs.K_VARIANTS)
+def test_static2_reference_matches_static2probe(variant):
+    """tools/static2probe.py's kernel `variant` in interpret mode and
+    static2_reference on the same bf16 inputs (tb = 64, 24 ops): within
+    1e-5 of the largest entry (bf16 products are exact in f32; the sums
+    differ in order only)."""
+    probe = _static2probe()
+    assert (probe.SPAN, probe.P_ROWS) == (constructs.SPAN, constructs.P_ROWS)
+    n_ops, tb = 24, 64
+    pcm, pool = constructs.static2_inputs(tb, seed=4, device="cpu")
+    want = np.asarray(pl.pallas_call(
+        probe.make_kernel(variant, n_ops),
+        out_shape=jax.ShapeDtypeStruct((16, tb), jnp.float32),
+        interpret=True)(jnp.asarray(pcm.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(pool.float().numpy(), jnp.bfloat16)))
+    got = constructs.static2_reference(variant, pcm, pool, n_ops)
+    assert got.dtype == torch.float32 and got.shape == (16, tb)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_static2_inputs_are_the_jax_probes():
+    """Uniform in [0, 1) and bf16, at the JAX probe's shapes."""
+    probe = _static2probe()
+    pcm, pool = constructs.static2_inputs(128, seed=0, device="cpu")
+    assert pcm.dtype == pool.dtype == torch.bfloat16
+    assert pcm.shape == (probe.P_ROWS, probe.SPAN, constructs.PCM_COLS)
+    assert pool.shape == (8, 3 * probe.SPAN, 128)
+    assert float(pool.min()) >= 0.0 and float(pool.max()) <= 1.0
+    again = constructs.static2_inputs(128, seed=0, device="cpu")
+    assert torch.equal(pcm, again[0]) and torch.equal(pool, again[1])
+
+
+def _wgmma_b(b_cm, row_bytes, kc, row, col):
+    """The 16 x 16 B operand ([k, n]) a K-major descriptor without swizzle
+    reads at pcm row `row`, column `col`, from the staged bytes: core
+    matrix (n / 8, k / 8) at start + (n / 8) SBO + (k / 8) LBO, LBO 128,
+    SBO kc x 128, element (n % 8, k % 8) 16 (n % 8) + 2 (k % 8) into it."""
+    raw = b_cm.contiguous().view(torch.int16).numpy().reshape(-1).view(
+        np.uint8)
+    start = row * row_bytes + 16 * col
+    k, n = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    off = (start + (n // 8) * kc * 128 + (k // 8) * 128 + (n % 8) * 16
+           + (k % 8) * 2)
+    lo, hi = raw[off].astype(np.uint32), raw[off + 1].astype(np.uint32)
+    return ((hi << 8 | lo) << 16).view(np.float32)
+
+
+def _wgmma_a(a_frag, tile, slot, ks):
+    """The 64 x 16 A operand ([site, k]) of k-step `ks` that the
+    warpgroup's registers hold, read back by the wgmma A layout: warp w,
+    lane (g, q), register r: site 16 w + g + 8 (r & 1), k = 2 q + 8 (r >> 1)
+    and k + 1, the lower k in the low half of the word."""
+    words = a_frag[tile, slot, ks].numpy().view(np.uint32)   # [4, 32, 4]
+    a = np.zeros((64, 16), np.float32)
+    for w in range(4):
+        for lane in range(32):
+            g, q = lane // 4, lane % 4
+            for r in range(4):
+                word = words[w, lane, r]
+                site, k = 16 * w + g + 8 * (r & 1), 2 * q + 8 * (r >> 1)
+                a[site, k] = np.array(word << 16, np.uint32).view(np.float32)
+                a[site, k + 1] = np.array(word & 0xFFFF0000,
+                                          np.uint32).view(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("variant", constructs.K_VARIANTS)
+def test_static2_operand_layouts(variant):
+    """pack_static2's operands read back as the kernel reads them (A from
+    each thread's fragment registers, B through the descriptors at the
+    column and row offsets csrc/construct_probe.cu:static2_op gives each
+    product), and the kernel's products redone from them in its order:
+    the plain version's sum, within 1e-5 of the largest entry."""
+    sites, n_ops = 128, 19
+    pcm, pool = constructs.static2_inputs(sites, seed=5, device="cpu")
+    b_cm, a_frag = constructs.pack_static2(variant, pcm, pool)
+    k, rows, cols = constructs.static2_shape(variant)
+    assert b_cm.dtype == torch.bfloat16 and a_frag.dtype == torch.int32
+    assert b_cm.shape == (rows, 2, cols // 8, 8, 8) and b_cm.is_contiguous()
+    assert a_frag.shape == (sites // 64, 8, k // 16, 4, 32, 4)
+    assert a_frag.is_contiguous()
+    kc, row_bytes = cols // 8, 2 * (cols // 8) * 128
+    assert b_cm.numel() * 2 + 16 * cols * 2 == \
+        constructs.static2_smem_bytes(variant)
+    # A of every tile, slot and k-step is the pool's tile
+    pool32 = pool.float().numpy()
+    for tile in range(sites // 64):
+        for slot in range(8):
+            for ks in range(k // 16):
+                np.testing.assert_array_equal(
+                    _wgmma_a(a_frag, tile, slot, ks),
+                    pool32[slot, 16 * ks:16 * ks + 16,
+                           64 * tile:64 * tile + 64].T)
+    # the products in the kernel's order: (k-step of A, column of B)
+    steps = ([(0, 0)] if variant == "k0" else
+             [(0, 0), (1, 16), (2, 32)] if variant == "k1" else
+             [(0, 0), (0, 16), (1, 32), (0, 48), (1, 64), (2, 80)])
+    acc = np.zeros((sites, 16), np.float64)
+    for w in range(n_ops):
+        pm = 0 if variant == "k2" else (7 * w) % 64
+        for ks, col in steps:
+            b = _wgmma_b(b_cm, row_bytes, kc, pm, col)
+            for tile in range(sites // 64):
+                acc[64 * tile:64 * tile + 64] += \
+                    _wgmma_a(a_frag, tile, w % 8, ks).astype(np.float64) @ b
+    want = constructs.static2_reference(variant, pcm, pool, n_ops).numpy()
+    np.testing.assert_allclose(acc.T, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("variant", constructs.K_VARIANTS)
+def test_static2_on_cpu_takes_plain_version(variant):
+    pcm, pool = constructs.static2_inputs(64, seed=6, device="cpu")
+    before = constructs.static2.launches
+    got = constructs.static2(variant, pcm, pool, n_ops=11)
+    assert constructs.static2.launches == before
+    assert torch.equal(got, constructs.static2_reference(variant, pcm, pool,
+                                                         11))
+    assert torch.equal(constructs.static2(variant, pcm, pool, n_ops=0),
+                       torch.zeros(16, 64))
+
+
+def test_static2_rejects_wrong_inputs():
+    pcm, pool = constructs.static2_inputs(128, seed=7, device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        constructs.static2("k4", pcm, pool)
+    with pytest.raises(ValueError, match="unknown variant"):
+        constructs.static2_reference("c0", pcm, pool)
+    for dtype in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match="bf16"):
+            constructs.static2("k0", pcm.to(dtype), pool.to(dtype))
+    with pytest.raises(TypeError, match="bf16"):
+        constructs.static2("k0", pcm, pool.float())
+    with pytest.raises(ValueError, match="takes pcm"):
+        constructs.static2("k0", pcm[:, :, :48], pool)
+    with pytest.raises(ValueError, match="takes pcm"):
+        constructs.static2("k1", pcm, pool[:, :16])
+    with pytest.raises(ValueError, match="takes pcm"):
+        constructs.static2("k1", pcm, pool[0])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        constructs.static2("k2", pcm, pool[:, :, :96])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        constructs.static2("k2", pcm, pool[:, :, :0])
+    with pytest.raises(ValueError, match="negative"):
+        constructs.static2("k3", pcm, pool, n_ops=-1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        constructs.static2("k3", pcm, pool.to("meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        constructs.static2("k3", pcm.to("meta"), pool.to("meta"))
+
+
+def test_static2_work_bounds_and_tolerance():
+    """Bytes and FLOP at 65,536 sites and 128 ops (the pool rows read, the
+    pcm part staged, [16, sites] f32 out; 2 x 16 x K x sites a product),
+    and the shared memory of both forms: k3's pcm leaves no room for the
+    A tiles in a CTA's 232,448 bytes."""
+    work = {v: constructs.static2_work(v, 65536, 128)
+            for v in constructs.K_VARIANTS}
+    assert work["k0"] == (8 * 16 * 65536 * 2 + 64 * 16 * 16 * 2
+                          + 16 * 65536 * 4, 2 * 16 * 16 * 65536 * 128)
+    assert work["k1"][1] == 3 * work["k0"][1] == 12884901888
+    assert work["k2"][1] == work["k3"][1] == 2 * 16 * 96 * 65536 * 128
+    assert work["k2"][0] == work["k1"][0] - 64 * 16 * 48 * 2 + 16 * 96 * 2
+    assert round(work["k0"][0] / 1e6, 1) == 21.0
+    assert round(work["k1"][0] / 1e6, 1) == 54.6
+    assert round(work["k3"][0] / 1e6, 1) == 54.7
+    smem = {v: constructs.static2_smem_bytes(v)
+            for v in constructs.K_VARIANTS}
+    assert smem == {"k0": 32768 + 512, "k1": 98304 + 1536,
+                    "k2": 3072 + 3072, "k3": 196608 + 3072}
+    limit = 232448
+    assert constructs.WARPGROUPS == 2
+    assert constructs.static2_smem_bytes("k1", False) == 198144 <= limit
+    assert constructs.static2_smem_bytes("k0", False) == 33280 + 32768
+    assert constructs.static2_smem_bytes("k3", False) > limit
+    assert constructs.static2_tolerance(128) == pytest.approx(
+        2e-5 + 128 * 4e-7)
+    got = torch.tensor([[1.0, 2.0], [0.5, -4.0]])
+    want = torch.tensor([[1.0, 2.0], [0.0, -4.0]])
+    assert constructs.static2_error(got, want) == 0.5
+
+
 def test_variant_patches_apply_to_the_sources():
     """probes/variants.py builds its kernel variants by exact text
     replacements on csrc/: every one still occurs exactly once, changes the
@@ -562,7 +756,7 @@ def test_variant_patches_apply_to_the_sources():
     from libpll2_tpu_torch.probes import variants
     assert set(variants.EXPERIMENTS) == {"blocks", "passes", "registers",
                                          "clocks", "fma_staging",
-                                         "fma_clocks"}
+                                         "fma_clocks", "static2_smem_a"}
     for name, (file, patches) in variants.PATCHES.items():
         original = (_build.SOURCE_DIR / file).read_text()
         text = variants.patched_source(name)
@@ -572,6 +766,8 @@ def test_variant_patches_apply_to_the_sources():
     assert "clock64" in variants.patched_source("clocks")
     assert "(THREADS, V == 4 ? 3 : 1)" in variants.patched_source(
         "three_ctas_an_sm")
+    assert "constexpr bool A_IN_REGISTERS = false;" in \
+        variants.patched_source("static2_smem_a")
     assert variants.main(["no_such_experiment"]) == 2
     if not torch.cuda.is_available():
         assert variants.main(["blocks"]) == 1
