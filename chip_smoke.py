@@ -69,6 +69,19 @@ Phases (any failure exits non-zero):
      static2_smem_a, built beside the package's library in phase 2) in
      turns with it; then the five variants c0-c4 of the tensor-core
      sweep's inner loop, each against its plain version.
+ 20. the one-call journey (infer.infer_ml_tree) on the search inputs
+     (256 taxa x 4,096 sites, GTR+Gamma(0.9)) written as FASTA and read
+     back by io.load_fasta_msa through the native binding, at the JAX
+     package's defaults (radius 5, 30 rounds, 4 of them warm-up, 150 fit
+     steps, seed 42): first call of a new process (cold, a subprocess),
+     then a call here (warm); infer.parsimony_start on the card against
+     the same call on the host CPU (cost and splits, both timed), the
+     tree sweep and the edge scorer launched inside the warm call, the
+     final logL against the dense f64 path under the fitted model, a
+     monotone trace, alpha, RF and delta logL against the truth tree, the
+     phase times; then the fit's function on the final tree through the
+     sweep kernels the fit ran: its logL against dense f64 and its
+     gradient against dense f64 autograd.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -84,6 +97,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -100,12 +114,18 @@ T3_RTOL, T3_ATOL = 2e-3, 2e-5   # its refined branch (the JAX test's bounds)
 SEARCH_SEED = 20260820   # bench.py measure_search_round
 SEARCH_TIPS, SEARCH_SITES, SEARCH_RADIUS = 256, 4096, 5
 SEARCH_ROUNDS = 30       # the JAX bench's climb depth
+INFER_ROUNDS, INFER_WARMUP, INFER_STEPS = 30, 4, 150   # infer_ml_tree's
+INFER_SEED = 42          # defaults (libpll2_tpu/infer.py:80-88)
+INFER_RF = 0.15          # normalised RF to the truth: tests/test_infer.py
 MULTI_ROUNDS = 12        # depth of the two-partition climb (cut: 30 at most
 #                          in the single-partition climb above)
 MULTI_TIPS = 256         # the linked / scaled three-partition case:
 MULTI_SITES = (16384, 8192, 4096)   # GTR DNA, another GTR DNA, LG protein
 MULTI_SCALERS = (1.0, 0.7, 1.6)
 FIT_STEPS, FIT_LR = 30, 0.02
+FIT_START_SUBST = [1.5, 1.5, 0.8, 1.2, 2.5, 1.0]   # a model away from the
+FIT_START_FREQS = [0.3, 0.2, 0.3, 0.2]             # optimum and from the
+FIT_START_ALPHA = 0.7                              # degenerate unit rates
 GRAD_RTOL = 1e-4         # analytic f32 gradient vs dense f64 autograd, of
 #                          each leaf's largest entry
 D1_RTOL = 2e-3           # f32 branch derivatives vs f64 central differences
@@ -907,9 +927,12 @@ def placement_inputs(newick, raw, cfg, device):
             halved)
 
 
-def dense_f64_logl(tree, chars, sites, device):
+def dense_f64_logl(tree, chars, sites, device,
+                   subst=(1.2, 2.7, 0.8, 1.1, 3.0, 1.0),
+                   freqs=(0.28, 0.24, 0.22, 0.26), alpha=0.9):
     """logL of `tree` (its own branch lengths) by the dense f64 forward
-    path, model and data of search_inputs."""
+    path on the data of search_inputs, under its model unless another is
+    given."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -923,9 +946,9 @@ def dense_f64_logl(tree, chars, sites, device):
         scale_buffers=tree.inner_count, dtype=torch.float64,
         use_kernel=False)
     program = engine.compile_tree(tree, cfg)
-    model = engine.make_model(
-        [[1.2, 2.7, 0.8, 1.1, 3.0, 1.0]], [[0.28, 0.24, 0.22, 0.26]],
-        compute_gamma_cats(0.9, 4), dtype=torch.float64, device=device)
+    model = engine.make_model([list(subst)], [list(freqs)],
+                              compute_gamma_cats(alpha, 4),
+                              dtype=torch.float64, device=device)
     raw = np.zeros((n, sites), dtype=np.uint64)
     for node in tree.nodes[:n]:
         raw[node.clv_index] = chars[node.label][:sites]
@@ -1717,6 +1740,222 @@ def phase_multi_search(device, card):
     return counts
 
 
+INFER_COLD_SRC = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from libpll2_tpu_torch import infer_ml_tree
+from libpll2_tpu_torch.io import load_fasta_msa
+t1 = time.perf_counter()
+radius, rounds, warmup, steps, seed = map(int, sys.argv[2:])
+res = infer_ml_tree(load_fasta_msa(sys.argv[1]), radius=radius,
+                    max_rounds=rounds, warmup_rounds=warmup,
+                    fit_steps=steps, smooth_every=2, seed=seed,
+                    device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+print(json.dumps(dict(
+    import_s=t1 - t0, call_s=t2 - t1, logl=res.logl,
+    parsimony_cost=res.stats["parsimony_cost"],
+    **{k: res.stats[k] for k in ("parsimony_secs", "warmup_secs",
+                                 "fit_secs", "search_secs")})))
+"""
+
+
+def infer_cold_call(path, timeout=600):
+    """The first infer_ml_tree call of a new process (its kernels already
+    built, as after phase_build): the file read and the call, apart from
+    the imports, as a user's script pays them.  A dict of seconds and the
+    result's logL and parsimony cost."""
+    proc = subprocess.run(
+        [sys.executable, "-c", INFER_COLD_SRC, path, str(SEARCH_RADIUS),
+         str(INFER_ROUNDS), str(INFER_WARMUP), str(INFER_STEPS),
+         str(INFER_SEED)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=timeout)
+    check(proc.returncode == 0, f"the cold infer_ml_tree call failed "
+                                f"(rc {proc.returncode}): "
+                                f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_infer(device, card, tips=SEARCH_TIPS, sites=SEARCH_SITES):
+    """infer_ml_tree, the one-call journey, on the search inputs written
+    as FASTA and read back through the native binding, at the JAX
+    package's defaults: first in a new process (cold), then here (warm).
+    The fit's function is then held against dense f64 on the final tree
+    through the sweep kernels the fit ran.  Returns the launches of the
+    warm call."""
+    import tempfile
+
+    import torch
+
+    from libpll2_tpu_torch import (convert, engine, fit, infer, infer_ml_tree,
+                                   native)
+    from libpll2_tpu_torch import search_fast as sf
+    from libpll2_tpu_torch.io import load_fasta_msa
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll2_tpu_torch.tree.compare import rf_distance_normalized, splits
+
+    truth, _start, chars, cfg, _model = search_inputs(device, tips, sites)
+    nt = np.array(list("?ACMGRSVTWYHKDBN"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "search.fa")
+        with open(path, "w") as f:
+            for label in sorted(chars):
+                seq = "".join(nt[chars[label].astype(np.int64)])
+                f.write(f">{label}\n" + "\n".join(
+                    seq[i:i + 80] for i in range(0, len(seq), 80)) + "\n")
+        native._lib, native._tried = None, False
+        check(native.available(), "the native library did not build")
+        t0 = time.perf_counter()
+        msa = load_fasta_msa(path)
+        load_s = time.perf_counter() - t0
+        check(native.fasta_load(path) == (msa.labels, msa.sequences),
+              "load_fasta_msa did not return what the native reader read")
+        torch.cuda.empty_cache()
+        cold = infer_cold_call(path)
+    check(msa.labels == sorted(chars) and msa.length == sites,
+          "the FASTA round trip changed the alignment")
+
+    # infer_ml_tree's own start, on the card and on the host
+    labels, pchars, weights, _ = infer.site_patterns(msa)
+    start = {}
+    for where in (torch.device("cpu"), device):
+        t0 = time.perf_counter()
+        tree, cost = infer.parsimony_start(labels, pchars, 4, INFER_SEED,
+                                           where)
+        torch.cuda.synchronize()
+        start[where.type] = (tree, cost, time.perf_counter() - t0)
+    (cpu_tree, cpu_cost, cpu_s), (dev_tree, dev_cost, dev_s) = \
+        start["cpu"], start[device.type]
+    log(f"[infer] stepwise start ({tips} taxa): cost {dev_cost} on "
+        f"{device.type}, {dev_s:.3f} s; cost {cpu_cost} on the host CPU, "
+        f"{cpu_s:.3f} s ({card})")
+    check(dev_cost == cpu_cost and splits(dev_tree) == splits(cpu_tree),
+          "the stepwise start on the card differs from the host's")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = infer_ml_tree(msa, radius=SEARCH_RADIUS, max_rounds=INFER_ROUNDS,
+                        warmup_rounds=INFER_WARMUP, fit_steps=INFER_STEPS,
+                        smooth_every=2, seed=INFER_SEED, device=device)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    st = res.stats
+    log(f"[infer] launches during infer_ml_tree: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}, "
+        f"edge_score {counts['edge_score']}")
+    log(f"[infer] {tips} taxa x {sites} sites -> {st['sites_patterns']} "
+        f"patterns; FASTA load {load_s:.3f} s (native); parsimony cost "
+        f"{st['parsimony_cost']}; warm-up {st['warmup']}, search "
+        f"{st['search']}; alpha {res.alpha!r} (truth 0.9); rates "
+        f"{res.subst_params.tolist()} freqs {res.frequencies.tolist()}")
+    log(f"[infer] logL trace {st['logl_trace']!r}; fit trace "
+        f"{st['fit_logl_trace']!r}")
+    log(f"[time] infer_ml_tree, first call of a new process (cold): "
+        f"imports {cold['import_s']:.3f} s, then FASTA load and call "
+        f"{cold['call_s']:.3f} s: parsimony {cold['parsimony_secs']:.3f} s, "
+        f"warm-up {cold['warmup_secs']:.3f} s, fit {cold['fit_secs']:.3f} s, "
+        f"search {cold['search_secs']:.3f} s; logL {cold['logl']!r} "
+        f"({card})")
+    log(f"[time] infer_ml_tree, a later call in this process (warm): "
+        f"parsimony {st['parsimony_secs']:.3f} s, warm-up "
+        f"{st['warmup_secs']:.3f} s, fit {st['fit_secs']:.3f} s "
+        f"({INFER_STEPS} steps), search {st['search_secs']:.3f} s, total "
+        f"{total_s:.3f} s ({card})")
+    check(counts["tree_sweep"] > 0, "infer_ml_tree launched no tree sweep")
+    check(counts["edge_score"] > 0, "infer_ml_tree launched no edge scorer")
+    check(st["parsimony_cost"] == cpu_cost == cold["parsimony_cost"],
+          "infer_ml_tree's start cost differs from the host's stepwise")
+    check(np.isfinite(cold["logl"]), "the cold call's logL is not finite")
+    trace = st["logl_trace"]
+    check(all(np.isfinite(trace)) and all(
+        b >= a for a, b in zip(trace, trace[1:])),
+        "the logL trace decreased or is not finite")
+    check(0.3 < res.alpha < 2.5, f"fitted alpha {res.alpha}")
+
+    fitted = dict(subst=res.subst_params.tolist(),
+                  freqs=res.frequencies.tolist(), alpha=res.alpha)
+    logl64 = dense_f64_logl(res.tree, chars, sites, device, **fitted)
+    gap = abs(res.logl - logl64) / abs(logl64)
+    model = engine.make_model([fitted["subst"]], [fitted["freqs"]],
+                              compute_gamma_cats(res.alpha, 4),
+                              dtype=torch.float32, device=device)
+    logl_true, _ = sf.evaluate_tree(truth, cfg, model, chars)
+    rf = rf_distance_normalized(res.tree, truth)
+    log(f"[infer] quality: RF to the truth {rf:.4f}; logL {res.logl!r}, "
+        f"truth tree under the fitted model (smoothed) {logl_true!r}, delta "
+        f"{res.logl - logl_true!r}; final tree by dense f64 {logl64!r} (rel "
+        f"gap {gap:.3e})")
+    check(gap < LOGL_RTOL, f"final logL gap {gap} >= {LOGL_RTOL}")
+    check(rf <= INFER_RF, f"RF to the truth {rf} > {INFER_RF}")
+
+    # the fit's function (fit.loglikelihood_fn with the FullTreeProgram, as
+    # infer_ml_tree's step 4 builds it) on the final tree: its logL at the
+    # fitted model against dense f64, and its logL and gradient at
+    # phase_fit's starting model against dense f64 autograd (at unit rates,
+    # infer's own start, the f32 eigensystem's derivative is degenerate)
+    fcfg = infer.likelihood_config(res.tree, 4, len(weights), 4,
+                                   torch.float32)
+    program, full, tipchars = infer.fit_inputs(res.tree, fcfg, pchars,
+                                               device)
+    pw = torch.zeros(fcfg.sites_padded, device=device)
+    pw[:len(weights)] = torch.as_tensor(weights, device=device)
+    inv = torch.full((fcfg.sites_padded,), -1, dtype=torch.int32,
+                     device=device)
+    bl = np.asarray(program.default_branch_lengths)
+    at_fit = fit.pack([fitted["subst"]], [fitted["freqs"]], bl,
+                      alpha=res.alpha, dtype=torch.float32, device=device)
+    at_start = fit.pack([FIT_START_SUBST], [FIT_START_FREQS], bl,
+                        alpha=FIT_START_ALPHA, dtype=torch.float32,
+                        device=device)
+    rates = compute_gamma_cats(1.0, 4)
+    reset_counts()
+    fit_logl = fit.loglikelihood_fn(
+        program, fcfg, at_fit, rates, tipchars, pw, inv, fit_alpha=True,
+        full_program=full).item()
+    leaves = fit.FitParams(*(x.clone().requires_grad_() for x in at_start))
+    start_logl = fit.loglikelihood_fn(
+        program, fcfg, leaves, rates, tipchars, pw, inv, fit_alpha=True,
+        full_program=full)
+    start_logl.backward()
+    torch.cuda.synchronize()
+    held = read_counts()
+    ref_logl, ref_grads = dense_f64_gradient(
+        (fcfg, program, None, None, tipchars, pw, inv), at_start, rates,
+        device)
+    fit_gap = abs(fit_logl - logl64) / abs(logl64)
+    start_gap = abs(start_logl.item() - ref_logl) / abs(ref_logl)
+    worst = 0.0
+    for name, leaf, ref in zip(convert.FIT_FIELDS, leaves, ref_grads):
+        err = ((leaf.grad.double() - ref).abs().max()
+               / ref.abs().max()).item()
+        worst = max(worst, err)
+        log(f"[infer] the fit's gradient on the final tree at phase_fit's "
+            f"starting model, {name} {tuple(ref.shape)}: f32 kernel path against "
+            f"dense f64 autograd, max gap {err:.3e} of the largest entry "
+            f"{ref.abs().max().item():.4e}")
+    log(f"[infer] the fit's logL on the final tree ({len(weights)} patterns, "
+        f"launches: tree_sweep {held['tree_sweep']}, tree_sweep_mma "
+        f"{held['tree_sweep_mma']}): fitted model {fit_logl!r} against dense "
+        f"f64 {logl64!r} (rel gap {fit_gap:.3e}); phase_fit's starting model "
+        f"{start_logl.item()!r} against {ref_logl!r} (rel gap "
+        f"{start_gap:.3e})")
+    log(f"[infer] card {card}")
+    for form in ("tree_sweep", "tree_sweep_mma"):
+        check((held[form] > 0) == (counts[form] > 0),
+              f"the check of the fit's function launched {form} "
+              f"{held[form]} times, the fit {counts[form]}")
+    check(fit_gap < LOGL_RTOL, f"the fit's logL gap {fit_gap}")
+    check(start_gap < LOGL_RTOL, f"the fit's starting logL gap {start_gap}")
+    check(worst < GRAD_RTOL, f"the fit's gradient off the dense f64 "
+                             f"gradient by {worst} >= {GRAD_RTOL}")
+    return counts
+
+
 def dense_f64_gradient(case32, params, rates, device, slice_sites=1024):
     """(logL, gradient per FitParams field) of fit.loglikelihood_fn by
     autograd of the dense f64 plain path, summed over site slices."""
@@ -1781,9 +2020,9 @@ def phase_fit(full_case, device, card):
     full = engine.compile_tree_full(
         T.parse_newick_string(balanced_newick(cfg.tips)), cfg)
     rates = compute_gamma_cats(1.0, cfg.rate_cats)
-    params0 = fit.pack([[1.5, 1.5, 0.8, 1.2, 2.5, 1.0]],
-                       [[0.3, 0.2, 0.3, 0.2]], bl, alpha=0.7,
-                       dtype=torch.float32, device=device)
+    params0 = fit.pack([FIT_START_SUBST], [FIT_START_FREQS], bl,
+                       alpha=FIT_START_ALPHA, dtype=torch.float32,
+                       device=device)
     site = (tipchars, pw, inv)
 
     # the first gradient against the dense f64 path
@@ -2123,6 +2362,7 @@ def main() -> int:
     edge = phase_edge_scorer(device, card)
     launches["edge_score"] += phase_search(device, card)
     add(phase_multi_search(device, card))
+    add(phase_infer(device, card))
     probe = phase_probe(card)
     launches["mma_probe"] = probe["launches"]
     cache_probe = phase_cache_probe(device, card)

@@ -174,6 +174,21 @@ def create_operations(trav_buffer: Sequence[UNode]
     return ops, branches, pmatrix_indices
 
 
+def create_pars_buildops(trav_buffer: Sequence[UNode]) -> List["ParsBuildOp"]:
+    """Compile a post-order traversal into parsimony build operations
+    (pll_utree_create_pars_buildops, utree.c:762-785): score indices are
+    node_index-based — each inner half-node direction has its own vector."""
+    from ..parsimony.sankoff import ParsBuildOp
+    ops: List[ParsBuildOp] = []
+    for node in trav_buffer:
+        if node.next is not None:
+            ops.append(ParsBuildOp(
+                parent_score_index=node.node_index,
+                child1_score_index=node.next.back.node_index,
+                child2_score_index=node.next.next.back.node_index))
+    return ops
+
+
 # --------------------------------------------------------------------------
 # template indices (parse_utree.y:269-345)
 # --------------------------------------------------------------------------

@@ -179,8 +179,9 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "libpll2_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    assert {"multipartition.py", "fit.py", "cache.py", "constructs.py"} <= \
-        {f.name for f in files}
+    assert {"multipartition.py", "fit.py", "cache.py", "constructs.py",
+            "infer.py", "native.py", "fitch.py", "stepwise.py",
+            "checkpoint.py", "compress.py"} <= {f.name for f in files}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -193,7 +194,10 @@ def test_port_import_loads_no_jax():
             " libpll2_tpu_torch.search_fast, libpll2_tpu_torch.tree.moves,"
             " libpll2_tpu_torch.multipartition, libpll2_tpu_torch.fit,"
             " libpll2_tpu_torch.probes.mma, libpll2_tpu_torch.probes.cache,"
-            " libpll2_tpu_torch.probes.constructs, chip_smoke;"
+            " libpll2_tpu_torch.probes.constructs, libpll2_tpu_torch.infer,"
+            " libpll2_tpu_torch.io, libpll2_tpu_torch.native,"
+            " libpll2_tpu_torch.parsimony, libpll2_tpu_torch.utils.checkpoint,"
+            " chip_smoke;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libpll2_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -203,8 +207,8 @@ def test_port_import_loads_no_jax():
 
 
 def _public_functions():
-    """Every public function of the port's modules (and of chip_smoke)
-    that takes a `device` parameter."""
+    """Every public function or class of the port's modules (and of
+    chip_smoke) that takes a `device` parameter."""
     import importlib
     import inspect
     names = ["chip_smoke"] + [
@@ -215,10 +219,15 @@ def _public_functions():
     for name in names:
         module = importlib.import_module(name)
         for attr, fn in vars(module).items():
-            if attr.startswith("_") or not inspect.isfunction(fn) \
+            if attr.startswith("_") or not (
+                    inspect.isfunction(fn) or inspect.isclass(fn)) \
                     or fn.__module__ != name:
                 continue
-            param = inspect.signature(fn).parameters.get("device")
+            try:
+                params = inspect.signature(fn).parameters
+            except ValueError:          # a class with no signature (errors)
+                continue
+            param = params.get("device")
             if param is not None:
                 yield f"{name}.{attr}", param
 
@@ -235,7 +244,12 @@ def test_no_public_function_defaults_to_the_cpu():
             "libpll2_tpu_torch.fit.pack",
             "libpll2_tpu_torch.probes.mma.probe_inputs",
             "libpll2_tpu_torch.probes.cache.probe_input",
-            "libpll2_tpu_torch.probes.constructs.probe_inputs"} <= set(found)
+            "libpll2_tpu_torch.probes.constructs.probe_inputs",
+            "libpll2_tpu_torch.infer.infer_ml_tree",
+            "libpll2_tpu_torch.infer.parsimony_start",
+            "libpll2_tpu_torch.infer.fit_inputs",
+            "libpll2_tpu_torch.parsimony.fitch.FastParsimony",
+            "libpll2_tpu_torch.parsimony.sankoff.Parsimony"} <= set(found)
     for name, param in found.items():
         default = param.default
         assert default is param.empty or default is None \
@@ -255,3 +269,16 @@ def test_default_device_raises_without_a_card():
         engine.build_case(8, 64)
     with pytest.raises((AssertionError, RuntimeError)):
         mma.probe_inputs(0, 32)
+    from libpll2_tpu_torch import FastParsimony, Parsimony, infer_ml_tree
+    with pytest.raises((AssertionError, RuntimeError)):
+        infer_ml_tree({f"t{i}": "ACGTACGT"[i:] + "ACGTACGT"[:i]
+                       for i in range(5)})
+    from libpll2_tpu_torch.infer import parsimony_start
+    with pytest.raises((AssertionError, RuntimeError)):
+        parsimony_start([f"t{i}" for i in range(4)],
+                        {f"t{i}": np.ones(8, np.uint64) for i in range(4)})
+    with pytest.raises((AssertionError, RuntimeError)):
+        FastParsimony(tipchars=np.ones((4, 8), np.uint64),
+                      weights=np.ones(8), tips=4, states=4, sites=8)
+    with pytest.raises((AssertionError, RuntimeError)):
+        Parsimony(4, 4, 8, 1.0 - np.eye(4), 3, 3)
