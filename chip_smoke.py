@@ -81,7 +81,20 @@ Phases (any failure exits non-zero):
      monotone trace, alpha, RF and delta logL against the truth tree, the
      phase times; then the fit's function on the final tree through the
      sweep kernels the fit ran: its logL against dense f64 and its
-     gradient against dense f64 autograd.
+     gradient against dense f64 autograd;
+ 21. the partition API at full width: Partition(256, 254, 4, 65536, ...)
+     in f64 on the search inputs' truth tree with 65,536 sites simulated
+     down it, site repeats on and off: tip states, P-matrices,
+     update_partials (timed, with its peak memory against
+     memory.dense_clv_bytes), the root edge's logL and per-site values,
+     sumtable and (d1, d2), ancestral rows; repeats against dense (bit for
+     bit, else within 1e-12), the logL against the dense f64 engine and
+     against engine.loglikelihood at f32 through tree_sweep.cu, (d1, d2)
+     against central differences, the tree rooted on its root edge
+     (pulley principle); a 1,024-taxon caterpillar x 4,096 sites that
+     rescues, per-site and per-rate scalers, repeats on and off, against
+     the dense f64 engine; hardware_probe and the max-sites table of the
+     card's memory.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -927,12 +940,13 @@ def placement_inputs(newick, raw, cfg, device):
             halved)
 
 
-def dense_f64_logl(tree, chars, sites, device,
-                   subst=(1.2, 2.7, 0.8, 1.1, 3.0, 1.0),
-                   freqs=(0.28, 0.24, 0.22, 0.26), alpha=0.9):
-    """logL of `tree` (its own branch lengths) by the dense f64 forward
-    path on the data of search_inputs, under its model unless another is
-    given."""
+def engine_logl(tree, chars, sites, device, dtype, use_kernel, sweep_mode=None,
+                subst=(1.2, 2.7, 0.8, 1.1, 3.0, 1.0),
+                freqs=(0.28, 0.24, 0.22, 0.26), alpha=0.9):
+    """logL of `tree` (its own branch lengths) by engine.loglikelihood on
+    the data of search_inputs, under its model unless another is given:
+    the dense path (use_kernel False) or the tree-sweep kernel (True, f32;
+    `sweep_mode` forces a form)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -943,12 +957,12 @@ def dense_f64_logl(tree, chars, sites, device,
     cfg = PartitionConfig(
         tips=n, clv_buffers=tree.inner_count, states=4, sites=sites,
         rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=4,
-        scale_buffers=tree.inner_count, dtype=torch.float64,
-        use_kernel=False)
+        scale_buffers=tree.inner_count, dtype=dtype,
+        use_kernel=use_kernel, sweep_mode=sweep_mode)
     program = engine.compile_tree(tree, cfg)
     model = engine.make_model([list(subst)], [list(freqs)],
                               compute_gamma_cats(alpha, 4),
-                              dtype=torch.float64, device=device)
+                              dtype=dtype, device=device)
     raw = np.zeros((n, sites), dtype=np.uint64)
     for node in tree.nodes[:n]:
         raw[node.clv_index] = chars[node.label][:sites]
@@ -958,10 +972,16 @@ def dense_f64_logl(tree, chars, sites, device,
     def t(x, dt=None):
         return torch.as_tensor(x, dtype=dt, device=device)
     return engine.loglikelihood(
-        program, cfg, model, t(program.default_branch_lengths,
-                               torch.float64),
-        t(engine.pad_tipchars(raw, cfg)), t(pw, torch.float64),
+        program, cfg, model, t(program.default_branch_lengths, dtype),
+        t(engine.pad_tipchars(raw, cfg)), t(pw, dtype),
         t(np.full(cfg.sites_padded, -1, np.int32))).item()
+
+
+def dense_f64_logl(tree, chars, sites, device, **model):
+    """logL of `tree` by the dense f64 forward path (engine_logl)."""
+    import torch
+    return engine_logl(tree, chars, sites, device, torch.float64, False,
+                       **model)
 
 
 def phase_search(device, card):
@@ -2324,6 +2344,335 @@ def phase_construct_probe(device, card, smem_a_lib):
                 bound_by="operations" if 2 * by_ops >= bound else "bytes")
 
 
+PART_TIPS, PART_SITES = 256, 65536      # the JAX bench's primary width
+PART_SCALED = (1024, 4096, 10.0)        # caterpillar taxa, sites, bl x
+PART_RTOL = 1e-10        # Partition f64 vs dense f64 engine; pulley
+REPEATS_RTOL = 1e-12     # repeats vs dense where the card breaks bit-equality
+DERIV_RTOL = 1e-5        # (d1, d2) vs central differences of the edge logL
+ANC_ATOL = 1e-12         # ancestral rows sum to 1
+PART_TIMING_CALLS = 3
+NT_CHARS = np.array(list("?ACMGRSVTWYHKDBN"))  # MAP_NT's code -> character
+
+
+def partition_sequences(chars, sites):
+    """{label: ASCII sequence} of bitmask codes (MAP_NT's characters)."""
+    return {label: "".join(NT_CHARS[np.asarray(codes[:sites], np.int64)])
+            for label, codes in chars.items()}
+
+
+def rooted_newick(tree):
+    """The unrooted `tree` rooted on its root edge (vroot, vroot.back),
+    the edge split in halves; lengths at full precision."""
+    def sub(node, length):
+        if node.next is None:
+            return f"{node.label}:{length!r}"
+        return (f"({sub(node.next.back, node.next.back.length)},"
+                f"{sub(node.next.next.back, node.next.next.back.length)})"
+                f":{length!r}")
+    r = tree.vroot
+    half = r.length / 2
+    return f"({sub(r, half)},{sub(r.back, half)});"
+
+
+def make_partition(tree, seqs, device, rooted=False, **kw):
+    """A port Partition for `tree` (unrooted, or an RTree when `rooted`)
+    under search_inputs' model, f64, tips set from `seqs` with MAP_NT and
+    P-matrices of the tree's branch lengths.  Returns (partition, ops,
+    the bytes the constructor allocated on the card)."""
+    import torch
+
+    from libpll2_tpu_torch import MAP_NT, Partition
+    from libpll2_tpu_torch import tree as T
+
+    if rooted:
+        ops, branches, pmat_idx = T.rtree_create_operations(
+            T.rtree_traverse(tree.root))
+        n_pmat = max(pmat_idx) + 1
+    else:
+        ops, branches, pmat_idx = T.create_operations(T.traverse(tree.vroot))
+        n_pmat = 2 * tree.tip_count - 3
+    n = tree.tip_count
+    before = torch.cuda.memory_allocated(device)
+    p = Partition(n, tree.inner_count, 4, len(next(iter(seqs.values()))), 1,
+                  n_pmat, 4, tree.inner_count, device=device, **kw)
+    held = torch.cuda.memory_allocated(device) - before
+    p.set_frequencies(0, [0.28, 0.24, 0.22, 0.26])
+    p.set_subst_params(0, [1.2, 2.7, 0.8, 1.1, 3.0, 1.0])
+    p.set_gamma_rates(0.9)
+    for node in tree.nodes[:n]:
+        p.set_tip_states(node.clv_index, MAP_NT, seqs[node.label])
+    p.update_prob_matrices([0] * 4, pmat_idx, branches)
+    return p, ops, held
+
+
+def root_edge(tree):
+    r = tree.vroot
+    return (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+
+
+def partition_results(p, tree, fd: bool):
+    """Edge logL with per-site values, (d1, d2) at twice the root edge's
+    length (off the optimum, so d1 is not near 0), ancestral rows at the
+    root pair and at a tip pair; with `fd`, (d1, d2) by central
+    differences of compute_edge_loglikelihood."""
+    from libpll2_tpu_torch import SCALE_BUFFER_NONE
+    cp, sp, cc, sc, pm = root_edge(tree)
+    logl, persite = p.compute_edge_loglikelihood(cp, sp, cc, sc, pm,
+                                                 [0] * 4,
+                                                 return_persite=True)
+    t1 = 2.0 * tree.vroot.length
+    sumtable = p.update_sumtable(cp, cc, sp, sc, [0] * 4)
+    derivs = p.compute_likelihood_derivatives(sumtable, t1, [0] * 4)
+    del sumtable
+    tip = tree.nodes[0]
+    anc = [p.compute_node_ancestral(cp, sp, cc, sc, pm, [0] * 4),
+           p.compute_node_ancestral(tip.back.clv_index,
+                                    tip.back.scaler_index, tip.clv_index,
+                                    SCALE_BUFFER_NONE, tip.pmatrix_index,
+                                    [0] * 4)]
+    out = {"logl": logl, "persite": persite, "derivs": derivs, "anc": anc}
+    if fd:
+        h = 1e-3 * t1
+        vals = []
+        for t in (t1 - h, t1, t1 + h):
+            p.update_prob_matrices([0] * 4, [pm], [t])
+            vals.append(p.compute_edge_loglikelihood(cp, sp, cc, sc, pm,
+                                                     [0] * 4))
+        p.update_prob_matrices([0] * 4, [pm], [tree.vroot.length])
+        out["fd"] = (-(vals[2] - vals[0]) / (2 * h),
+                     -(vals[2] - 2 * vals[1] + vals[0]) / h ** 2)
+    return out
+
+
+def profile_kernels(fn, top=5):
+    """One call of `fn` under torch.profiler: (wall ms, kernel ms, the
+    `top` kernels by summed device time as (name, ms, count)), or None
+    where the trace holds no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        return None
+    rows = sorted(((k,) + v for k, v in by_name.items()),
+                  key=lambda r: -r[1])
+    return wall, sum(r[1] for r in rows), rows[:top]
+
+
+def log_profile(label, prof, card):
+    if prof is None:
+        log(f"[partition] profile of {label}: the trace holds no kernel "
+            f"(device time not measured)")
+        return
+    wall, kernel_ms, rows = prof
+    log(f"[partition] profile of {label}: wall {wall:.4f} ms, kernels "
+        f"{kernel_ms:.4f} ms (idle share {1 - kernel_ms / wall:.4f}); "
+        f"top kernels: " + "; ".join(
+            f"{name[:60]} {ms:.4f} ms x {n}" for name, ms, n in rows)
+        + f" ({card})")
+
+
+def time_update_partials(p, ops, card, label):
+    """Device time of Partition.update_partials (CUDA events, median of
+    PART_TIMING_CALLS calls after the first); with repeats also the host
+    seconds of levelize_operations_repeats and the device time of the
+    update on its prebuilt gathers.  Returns the peak of
+    max_memory_allocated over the first call above what was allocated
+    before it."""
+    import torch
+
+    from libpll2_tpu_torch import partition
+    from libpll2_tpu_torch.ops import partials as partials_ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    p.update_partials(ops)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = statistics.median(cuda_ms(lambda: p.update_partials(ops),
+                                   PART_TIMING_CALLS))
+    prof = profile_kernels(lambda: p.update_partials(ops))
+    line = (f"[partition] update_partials ({label}, {p.cfg.tips} taxa x "
+            f"{p.cfg.sites} sites, f64): {ms:.4f} ms (median of "
+            f"{PART_TIMING_CALLS} calls, CUDA events)")
+    if p.repeats is not None:
+        t0 = time.perf_counter()
+        level_ops, level_gathers = partition.levelize_operations_repeats(
+            ops, p.cfg, p.repeats)
+        host_s = time.perf_counter() - t0
+        def prebuilt():
+            partials_ops.update_partials_repeats(
+                p.clv, p.scalers, p.pmatrix, level_ops, level_gathers, p.cfg)
+        dev_ms = statistics.median(cuda_ms(prebuilt, PART_TIMING_CALLS))
+        log_profile("the repeats update on prebuilt gathers",
+                    profile_kernels(prebuilt), card)
+        line += (f"; levelize_operations_repeats {host_s:.4f} s on the host "
+                 f"({level_ops.shape[0]} levels x {level_ops.shape[1]}); "
+                 f"the update on prebuilt gathers {dev_ms:.4f} ms")
+    log(line + f" ({card})")
+    log_profile(f"update_partials ({label})", prof, card)
+    return peak
+
+
+def compare_repeats(rep, den):
+    """'bit-equal' or the largest relative difference of repeats against
+    dense over logL, per-site values, (d1, d2) and ancestral rows."""
+    pairs = [(np.array([rep["logl"]]), np.array([den["logl"]])),
+             (rep["persite"], den["persite"]),
+             (np.array(rep["derivs"]), np.array(den["derivs"]))] + \
+        list(zip(rep["anc"], den["anc"]))
+    if all(np.array_equal(a, b) for a, b in pairs):
+        return "bit-equal", 0.0
+    worst = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+                for a, b in pairs)
+    return "not bit-equal", worst
+
+
+def phase_partition(device, card, tips=PART_TIPS, sites=PART_SITES,
+                    scaled=PART_SCALED):
+    """Phase 21: the partition API at full width.  Returns the launches
+    of the phase's path (one tree sweep through tree_sweep.cu)."""
+    import torch
+
+    from libpll2_tpu_torch import compute_gamma_cats
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.tree.generate import simulate_alignment
+    from libpll2_tpu_torch.utils import memory, output
+
+    t_phase = time.perf_counter()
+    truth, _, chars, _, _ = search_inputs(device, tips, sites)
+    seqs = partition_sequences(chars, sites)
+    reset_counts()
+    res, stats = {}, {}
+    for repeats in (False, True):
+        label = "repeats" if repeats else "dense"
+        p, ops, held = make_partition(truth, seqs, device,
+                                      site_repeats=repeats)
+        peak = time_update_partials(p, ops, card, label)
+        res[label] = partition_results(p, truth, fd=not repeats)
+        clv_bytes = memory.dense_clv_bytes(p.cfg)
+        log(f"[partition] {label}: CLVs + scalers {clv_bytes:,} B "
+            f"(memory.dense_clv_bytes), the partition holds {held:,} B on "
+            f"the card (P-matrices {p.pmatrix.nbytes:,} B); peak of "
+            f"max_memory_allocated over update_partials {peak:,} B above "
+            f"it ({peak / clv_bytes:.4f} of dense_clv_bytes) ({card})")
+        check(held == clv_bytes + p.pmatrix.nbytes,
+              f"{label} partition holds {held} B, not dense_clv_bytes "
+              f"{clv_bytes} + P-matrices {p.pmatrix.nbytes}")
+        if repeats:
+            ids = p.repeats.pernode_ids[tips:p.cfg.num_clvs]
+            indexed = ids[ids > 0]
+            stats = {"class_indexed": int(indexed.size),
+                     "inner": int(ids.size),
+                     "tips_indexed": int(np.count_nonzero(
+                         p.repeats.pernode_ids[:tips])),
+                     "mean_ratio": float(np.mean(indexed / sites))
+                     if indexed.size else 0.0}
+        del p
+        torch.cuda.empty_cache()
+    rep, den = res["repeats"], res["dense"]
+    verdict, worst = compare_repeats(rep, den)
+    log(f"[partition] repeats against dense: {verdict} (largest relative "
+        f"difference {worst:.3e}; logL, {sites} per-site values, (d1, d2), "
+        f"ancestral rows at the root and a tip pair); class-indexed inner "
+        f"nodes {stats['class_indexed']} of {stats['inner']}, tips "
+        f"{stats['tips_indexed']} of {tips}, mean classes / sites "
+        f"{stats['mean_ratio']:.4f}")
+    check(verdict == "bit-equal" or worst < REPEATS_RTOL,
+          f"repeats against dense {worst} >= {REPEATS_RTOL}")
+    check(stats["class_indexed"] > 0, "no inner node was class-indexed")
+
+    logl = den["logl"]
+    logl64 = dense_f64_logl(truth, chars, sites, device)
+    gap64 = abs(logl - logl64) / abs(logl64)
+    logl32 = engine_logl(truth, chars, sites, device, torch.float32, True,
+                         sweep_mode="fma")
+    gap32 = abs(logl32 - logl) / abs(logl)
+    (d1, d2), (f1, f2) = den["derivs"], den["fd"]
+    g1, g2 = abs(d1 - f1) / abs(f1), abs(d2 - f2) / abs(f2)
+    sums = max(float(np.max(np.abs(a.sum(axis=1) - 1.0))) for a in den["anc"])
+    log(f"[partition] edge logL {logl!r}: dense f64 engine {logl64!r} (rel "
+        f"{gap64:.3e}); engine.loglikelihood f32 through tree_sweep.cu "
+        f"{logl32!r} (rel {gap32:.3e}); (d1, d2) at 2x the root edge "
+        f"({d1!r}, {d2!r}) against central differences ({f1!r}, {f2!r}): "
+        f"rel {g1:.3e}, {g2:.3e}; ancestral rows sum to 1 within "
+        f"{sums:.3e}")
+    check(np.isfinite(logl) and gap64 < PART_RTOL,
+          f"partition logL against dense f64 {gap64} >= {PART_RTOL}")
+    check(np.isfinite(logl32) and gap32 < LOGL_RTOL,
+          f"partition logL against the tree sweep {gap32} >= {LOGL_RTOL}")
+    check(g1 < DERIV_RTOL and g2 < DERIV_RTOL,
+          f"(d1, d2) against central differences {g1}, {g2} >= "
+          f"{DERIV_RTOL}")
+    check(sums < ANC_ATOL, f"ancestral rows sum to 1 within {sums}")
+
+    rt = T.parse_rtree_string(rooted_newick(truth))
+    p, ops, _ = make_partition(rt, seqs, device, rooted=True)
+    p.update_partials(ops)
+    rooted = p.compute_root_loglikelihood(rt.root.clv_index,
+                                          rt.root.scaler_index, [0] * 4)
+    del p
+    torch.cuda.empty_cache()
+    gap_r = abs(rooted - logl) / abs(logl)
+    log(f"[partition] pulley principle: rooted on the root edge "
+        f"(rtree_create_operations, compute_root_loglikelihood) {rooted!r} "
+        f"against the unrooted edge logL: rel {gap_r:.3e}")
+    check(gap_r < PART_RTOL, f"pulley principle {gap_r} >= {PART_RTOL}")
+    counts = read_counts()
+
+    n, s, scale = scaled
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
+    cat = T.parse_newick_string(caterpillar(n))
+    for node in cat.nodes:
+        node.length *= scale
+    rng = np.random.default_rng(SEARCH_SEED)
+    cchars = simulate_alignment(cat, s, rng, [1.2, 2.7, 0.8, 1.1, 3.0, 1.0],
+                                [0.28, 0.24, 0.22, 0.26],
+                                compute_gamma_cats(0.9, 4))
+    cseqs = partition_sequences(cchars, s)
+    want = dense_f64_logl(cat, cchars, s, device)
+    for per_rate in (False, True):
+        for repeats in (False, True):
+            p, ops, _ = make_partition(cat, cseqs, device,
+                                    per_rate_scalers=per_rate,
+                                    site_repeats=repeats)
+            p.update_partials(ops)
+            got = p.compute_edge_loglikelihood(*root_edge(cat), [0] * 4)
+            top = int(p.scalers[:p.cfg.scale_buffers].max())
+            del p
+            torch.cuda.empty_cache()
+            gap = abs(got - want) / abs(want)
+            log(f"[partition] scaled caterpillar {n} x {s} (branches x "
+                f"{scale}), {'per-rate' if per_rate else 'per-site'} "
+                f"scalers, repeats {'on' if repeats else 'off'}: logL "
+                f"{got!r} against dense f64 {want!r} (rel {gap:.3e}); "
+                f"largest scaler {top}")
+            check(gap < PART_RTOL, f"scaled case {gap} >= {PART_RTOL}")
+            check(top > 0, "no scaler entry was set in the scaled case")
+    log(f"[partition] hardware_probe {output.hardware_probe()}")
+    hbm = memory.device_memory_bytes(device)
+    log(f"[partition] max sites on this card ({hbm:,} B, "
+        f"memory.max_sites_table) ({card}):")
+    for row in memory.max_sites_table(hbm).splitlines():
+        log(f"[partition]   {row}")
+    log(f"[time] phase 21 (the partition API) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -2367,6 +2716,8 @@ def main() -> int:
     launches["mma_probe"] = probe["launches"]
     cache_probe = phase_cache_probe(device, card)
     construct_probe = phase_construct_probe(device, card, smem_a_lib)
+    torch.cuda.empty_cache()
+    add(phase_partition(device, card))
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]

@@ -1,4 +1,5 @@
-"""Carry state across from libpll2_tpu without importing it.
+"""Carry state across from libpll2_tpu without importing it: models, fit
+parameters and partitions, and the comparison of compiled programs.
 
 The JAX package's objects are read by attribute (duck-typed) and their
 arrays are passed as numpy arrays, so this module needs neither jax nor
@@ -196,3 +197,76 @@ def fit_params_from_jax(arrays: Mapping[str, np.ndarray], device="cuda"):
     from .fit import FitParams
     return FitParams(*(torch.as_tensor(np.array(arrays[f]), device=device)
                        for f in FIT_FIELDS))
+
+
+PARTITION_FIELDS = ("clv", "scalers", "pmatrix", "frequencies",
+                    "subst_params", "rates", "rate_weights", "prop_invar",
+                    "pattern_weights", "eigenvals", "eigenvecs",
+                    "inv_eigenvecs", "eigen_decomp_valid", "tipchars",
+                    "tipchars_valid")
+REPEATS_FIELDS = ("pernode_site_id", "pernode_id_site", "pernode_ids",
+                  "perscale_ids")
+
+
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def partition_arrays(p) -> dict[str, np.ndarray]:
+    """The state of a JAX `Partition` (or of a port one) as numpy arrays:
+    PARTITION_FIELDS, `invariant` where it was computed, and the `Repeats`
+    tables as `repeats_<field>` with `repeats_perscale_node` [scale
+    buffers] (-1 where a scaler has no node)."""
+    out = {name: _numpy(getattr(p, name)) for name in PARTITION_FIELDS}
+    if p.invariant is not None:
+        out["invariant"] = _numpy(p.invariant)
+    if p.repeats is not None:
+        for name in REPEATS_FIELDS:
+            out[f"repeats_{name}"] = _numpy(getattr(p.repeats, name))
+        node = np.full(len(p.repeats.perscale_ids), -1, dtype=np.int64)
+        for scaler, n in p.repeats.perscale_node.items():
+            node[scaler] = n
+        out["repeats_perscale_node"] = node
+    return out
+
+
+def _tensor(a: np.ndarray, dtype, device):
+    """A float array (f64, f32 or the JAX package's bf16) as a tensor of
+    `dtype` (a copy); the widening to f64 is exact."""
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float64)
+    return torch.tensor(a, device=device).to(dtype)
+
+
+def partition_from_jax(arrays: Mapping[str, np.ndarray], cfg,
+                       device="cuda"):
+    """The port's `Partition` in the state of a JAX one: `arrays` from
+    partition_arrays, `cfg` the JAX partition's PartitionConfig (or the
+    port's).  Nothing is recomputed: CLVs, scalers and P-matrices are
+    taken as they are, and the eigenvectors too."""
+    from .partition import Partition
+    dtype = cfg.dtype if isinstance(cfg.dtype, torch.dtype) \
+        else getattr(torch, np.dtype(cfg.dtype).name)
+    p = Partition(cfg.tips, cfg.clv_buffers, cfg.states, cfg.sites,
+                  cfg.rate_matrices, cfg.prob_matrices, cfg.rate_cats,
+                  cfg.scale_buffers, per_rate_scalers=cfg.per_rate_scalers,
+                  pattern_tip=cfg.pattern_tip,
+                  site_repeats=cfg.site_repeats, asc_bias=cfg.asc_bias,
+                  dtype=dtype, site_block=cfg.site_block, device=device)
+    p.clv = _tensor(arrays["clv"], dtype, p.device)
+    p.pmatrix = _tensor(arrays["pmatrix"], dtype, p.device)
+    p.scalers = torch.tensor(arrays["scalers"], dtype=torch.int32,
+                             device=p.device)
+    for name in PARTITION_FIELDS[3:]:
+        setattr(p, name, np.array(arrays[name]))
+    if "invariant" in arrays:
+        p.invariant = np.array(arrays["invariant"])
+    if p.repeats is not None:
+        for name in REPEATS_FIELDS:
+            setattr(p.repeats, name, np.array(arrays[f"repeats_{name}"]))
+        node = arrays["repeats_perscale_node"]
+        p.repeats.perscale_node = {int(s): int(n) for s, n in
+                                   enumerate(node) if n >= 0}
+    return p

@@ -1,6 +1,7 @@
 """Root and edge log-likelihood reductions (plain PyTorch).
 
-Counterpart of libpll2_tpu/ops/likelihood.py.  Reference semantics:
+Counterpart of libpll2_tpu/ops/likelihood.py, with the marginal ancestral
+states of a node (`node_ancestral`).  Reference semantics:
 pll_core_root_loglikelihood and pll_core_edge_loglikelihood_ii (libpll-2
 src/core_likelihood.c:25-209, 1191-1496), including:
 
@@ -65,6 +66,11 @@ def asc_bias_correction(term, site_scalings, pattern_weights,
     raise ValueError(f"illegal asc bias type {cfg.asc_bias}")
 
 
+def _acc_dtype(clv):
+    """The dtype a reduction over `clv` accumulates in."""
+    return torch.float32 if clv.dtype == torch.bfloat16 else clv.dtype
+
+
 def _per_rate_undo(scaler_p, scaler_c, cfg: PartitionConfig, dtype):
     """Combine per-rate scalers of two nodes into (site_min, undo_factor).
 
@@ -105,8 +111,10 @@ def root_loglikelihood(clv,              # [..., R, S, T]
     (pll_core_root_loglikelihood, core_likelihood.c:25-209).  Per-rate
     scalers use the edge kernel's min+cap protocol.  Leading axes of clv
     and scaler are batch axes (one logL each), e.g. candidate edges."""
-    dtype = clv.dtype
-    term_r = torch.einsum("...rst,rs->...rt", clv, freqs.to(dtype))
+    # bf16 is a CLV storage format: the reduction runs in f32 (a bf16 sum
+    # would quantize the total logL itself)
+    dtype = _acc_dtype(clv)
+    term_r = torch.einsum("...rst,rs->...rt", clv.to(dtype), freqs.to(dtype))
 
     if cfg.per_rate_scalers:
         site_scalings, undo = _per_rate_undo(
@@ -155,10 +163,10 @@ def edge_loglikelihood(clvp,             # [R, S, T] parent CLV
                        with_persite: bool = False):
     """Log-likelihood across an edge: parent CLV . P(t) . child CLV
     (pll_core_edge_loglikelihood_ii, core_likelihood.c:1191-1496)."""
-    dtype = clvp.dtype
-    termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype), clvc)
-    terma_r = torch.einsum("rjt,rj,rjt->rt", clvp, freqs.to(dtype),
-                           termb)                                 # [R, T]
+    dtype = _acc_dtype(clvp)                    # bf16 CLVs: f32 sums
+    termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype), clvc.to(dtype))
+    terma_r = torch.einsum("rjt,rj,rjt->rt", clvp.to(dtype),
+                           freqs.to(dtype), termb)                # [R, T]
     return edge_reduce(terma_r, scaler_p, scaler_c, freqs, rate_weights,
                        prop_invar, invariant, pattern_weights, cfg,
                        with_persite=with_persite)
@@ -234,3 +242,37 @@ def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
     if with_persite:
         return logl, site_lk
     return logl
+
+
+def node_ancestral(clv_node,         # [R, S, T] CLV toward the edge
+                   scaler_node,      # [T] / [R, T] int32
+                   clv_other,        # [R, S, T] CLV of the other direction
+                   scaler_other,     # [T] / [R, T] int32
+                   pmat,             # [R, S, S] P-matrix across the edge
+                   freqs,            # [R, S]
+                   rate_weights,     # [R]
+                   cfg: PartitionConfig):
+    """Marginal ancestral state probabilities at a node, [T, S].
+
+    pll_compute_node_ancestral (likelihood.c:639-823): the node's own CLV
+    passes through an identity P-matrix, the other direction through
+    `pmat`; then anc[t, j] is proportional to
+    sum_r rw_r * pi_{r,j} * combined[r, j, t], normalized over states.
+    Per-site scalers cancel in the normalization; per-rate scalers are
+    undone (capped at SCALE_RATE_MAXDIFF) before the rate sum.  Padding
+    sites, normalized against a sum of 0, are clamped to 0.
+    """
+    dtype = cfg.dtype
+    combined = clv_node * torch.einsum("rij,rjt->rit", pmat.to(dtype),
+                                       clv_other)
+    if cfg.per_rate_scalers:
+        _, undo = _per_rate_undo(scaler_node, scaler_other, cfg, dtype)
+        combined = combined * undo[:, None, :]
+    weighted = torch.einsum("r,rs,rst->ts", rate_weights.to(dtype),
+                            freqs.to(dtype), combined)
+    total = torch.sum(weighted, dim=1, keepdim=True)
+    positive = total > 0
+    return torch.where(positive,
+                       weighted / torch.where(positive, total,
+                                              torch.ones_like(total)),
+                       torch.zeros_like(weighted))

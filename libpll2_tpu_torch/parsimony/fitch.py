@@ -33,7 +33,7 @@ arithmetic and its sums would overflow).
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -128,13 +128,26 @@ class FastParsimony:
     (pll_fastparsimony_{init,update_vectors,edge_score,root_score},
     fast_parsimony.c:523-781).
 
-    Takes the tip characters directly: ``tipchars`` [tips, >= sites] state
-    bit-masks (as a partition's set_tip_states encodes them) and
-    ``weights`` [>= sites] pattern weights.  device: where the vectors
-    live (the card unless the caller asks for the CPU)."""
+    Takes the tip characters and pattern weights of a `Partition`
+    (``partition``, whose tips were set by set_tip_states), or directly:
+    ``tipchars`` [tips, >= sites] state bit-masks (as set_tip_states
+    encodes them) and ``weights`` [>= sites] pattern weights.  device:
+    where the vectors live; None is the partition's device, or the card
+    without a partition."""
 
-    def __init__(self, *, tipchars, weights, tips: int, states: int,
-                 sites: int, word_pad: int = 128, device="cuda"):
+    def __init__(self, partition=None, *, tipchars=None, weights=None,
+                 tips: Optional[int] = None, states: Optional[int] = None,
+                 sites: Optional[int] = None,
+                 word_pad: int = 128, device=None):
+        if partition is not None:
+            cfg = partition.cfg
+            tips, states, sites = cfg.tips, cfg.states, cfg.sites
+            tipchars = partition.tipchars
+            weights = partition.pattern_weights
+            if device is None:
+                device = partition.device
+        if device is None:
+            device = "cuda"
         tipchars = np.asarray(tipchars, dtype=np.uint64)
         weights = np.asarray(weights[:sites], dtype=np.int64)
         self.tips = tips

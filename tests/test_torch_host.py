@@ -249,7 +249,11 @@ def test_no_public_function_defaults_to_the_cpu():
             "libpll2_tpu_torch.infer.parsimony_start",
             "libpll2_tpu_torch.infer.fit_inputs",
             "libpll2_tpu_torch.parsimony.fitch.FastParsimony",
-            "libpll2_tpu_torch.parsimony.sankoff.Parsimony"} <= set(found)
+            "libpll2_tpu_torch.parsimony.sankoff.Parsimony",
+            "libpll2_tpu_torch.partition.Partition",
+            "libpll2_tpu_torch.convert.partition_from_jax",
+            "libpll2_tpu_torch.utils.memory.device_memory_bytes"} \
+        <= set(found)
     for name, param in found.items():
         default = param.default
         assert default is param.empty or default is None \
@@ -282,3 +286,9 @@ def test_default_device_raises_without_a_card():
                       weights=np.ones(8), tips=4, states=4, sites=8)
     with pytest.raises((AssertionError, RuntimeError)):
         Parsimony(4, 4, 8, 1.0 - np.eye(4), 3, 3)
+    from libpll2_tpu_torch import Partition
+    with pytest.raises((AssertionError, RuntimeError)):
+        Partition(4, 2, 4, 8, 1, 5, 4, 2)
+    from libpll2_tpu_torch.utils import memory
+    with pytest.raises((AssertionError, RuntimeError)):
+        memory.device_memory_bytes()
