@@ -94,7 +94,16 @@ Phases (any failure exits non-zero):
      (pulley principle); a 1,024-taxon caterpillar x 4,096 sites that
      rescues, per-site and per-rate scalers, repeats on and off, against
      the dense f64 engine; hardware_probe and the max-sites table of the
-     card's memory.
+     card's memory;
+ 22. the sharded training step (parallel/, engine.dryrun_multichip): the
+     256 x 65,536 forward case on 2 ranks of 32,768 sites that share the
+     card over gloo, launched by parallel.launcher.launch: loglikelihood
+     and optimize_root_branch through the tree sweep on each slice, the
+     dense f64 logL and all-branch (d1, d2), and one SPR round on the
+     search inputs (radius 5, the plain scorer), each against the same
+     work alone in this process and bit-identical across the ranks; the
+     forward's CUDA-event and wall times sharded and alone; then
+     engine.dryrun_multichip(2).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -2673,6 +2682,212 @@ def phase_partition(device, card, tips=PART_TIPS, sites=PART_SITES,
     return counts
 
 
+SHARD_RANKS = 2          # ranks of phase 22, both on the one card (gloo)
+SHARD_LOGL_RTOL = 1e-6   # sharded kernel logL vs single-process kernel logL
+SHARD_DERIV_RTOL = 1e-9  # sharded f64 (d1, d2) vs single-process f64
+SHARD_SCORE_RTOL = 1e-5  # sharded f32 SPR scores vs single-process f32
+SHARD_TIMED_CALLS = 20   # forward calls timed in each rank and alone
+
+
+def sharded_step(mesh, tips, sites, search_tips, search_sites, reps):
+    """Phase 22's work on one rank of `mesh` (or alone, on a one-process
+    mesh): the forward case of build_case at tips x sites, f32, through
+    the tree sweep on this rank's site slice (loglikelihood, then
+    optimize_root_branch), the launches of both read just after them;
+    the forward timed (CUDA events where the mesh is on a card, and the
+    host clock); the dense f64 logL and all-branch (d1, d2); one SPR round
+    (search_fast._spr_round_device, the plain scorer) on search_inputs
+    at search_tips x search_sites, radius SEARCH_RADIUS."""
+    import torch
+    import torch.distributed as dist
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import search_fast as sf
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.parallel import sharding, shard_engine_inputs
+    from libpll2_tpu_torch.tree.generate import balanced_newick
+
+    dev, g = mesh.device, mesh.group
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg, program, model, bl, *site = engine.build_case(
+        tips, sites, dtype=torch.float32, device=dev)
+    site = shard_engine_inputs(mesh, *site)
+    sync()
+    reset_counts()
+    logl = engine.loglikelihood(program, cfg, model, bl, *site, group=g)
+    new_bl, logl_before = engine.optimize_root_branch(
+        program, cfg, model, bl, *site, group=g)
+    sync()
+    root_pos = int(np.nonzero(
+        program.pmatrix_indices == program.root_pmatrix)[0][0])
+    out = {"counts": read_counts(), "logl": logl, "new_bl": new_bl,
+           "root_t": new_bl[root_pos], "logl_before": logl_before,
+           "mode": engine.kernel_choice(
+               program, sharding.local_config(cfg, g), dev),
+           "device": str(dev),
+           "backend": None if g is None else dist.get_backend(g)}
+
+    def forward():
+        return engine.loglikelihood(program, cfg, model, bl, *site, group=g)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        forward()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["wall_ms"] = statistics.median(walls)
+    out["event_ms"] = (statistics.median(cuda_ms(forward, reps))
+                       if on_card else None)
+    del site
+
+    cfg64, program64, model64, bl64, *site64 = engine.build_case(
+        tips, sites, dtype=torch.float64, device=dev, use_kernel=False)
+    site64 = shard_engine_inputs(mesh, *site64)
+    out["logl64"] = engine.loglikelihood(program64, cfg64, model64, bl64,
+                                         *site64, group=g)
+    full = engine.compile_tree_full(
+        T.parse_newick_string(balanced_newick(tips)), cfg64)
+    out["d1"], out["d2"] = engine.branch_derivatives(
+        full, cfg64, model64, torch.as_tensor(
+            full.default_branch_lengths, dtype=torch.float64, device=dev),
+        *site64, group=g)
+    del site64
+
+    _, start, chars, scfg, smodel = search_inputs(
+        dev, tips=search_tips, sites=search_sites)
+    prog = sf.compile_spr(start, scfg, radius=SEARCH_RADIUS)
+    ssite = shard_engine_inputs(mesh, sf._tipchars_for(prog, chars, dev),
+                                *sf._aux_arrays(prog, dev))
+    lops, pslots, sbl, rows, slot, gdev = sf._round_args(prog, dev)
+    out["spr_logl"], outs = sf._spr_round_device(
+        prog.cfg_ext, smodel, lops, pslots, sbl, *ssite, rows, slot, gdev,
+        ball_slots=prog.ball_slots, newton_iters=3, use_kernel=False,
+        group=g)
+    out["spr_scores"] = torch.cat([s.flatten() for s, _ in outs])
+    sync()
+    return out
+
+
+def phase_sharded(device, card, tips=PART_TIPS, sites=PART_SITES,
+                  search_tips=SEARCH_TIPS, search_sites=SEARCH_SITES,
+                  reps=SHARD_TIMED_CALLS):
+    """Phase 22, the sharded training step: sharded_step on SHARD_RANKS
+    ranks sharing the card over gloo (parallel.launcher.launch), against
+    the same work alone in this process, then engine.dryrun_multichip.
+    Every result must be bit-identical across the ranks.  Returns the
+    ranks' summed launches of the path's kernels."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.parallel import launcher, make_mesh
+
+    t_phase = time.perf_counter()
+    kwargs = dict(tips=tips, sites=sites, search_tips=search_tips,
+                  search_sites=search_sites, reps=reps)
+    alone = sharded_step(make_mesh([device]), **kwargs)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launcher.launch("chip_smoke:sharded_step", SHARD_RANKS, kwargs,
+                            device=device.type)
+    log(f"[shard] {SHARD_RANKS} ranks launched, ran and joined in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    alone = {k: host(v) for k, v in alone.items()}
+    timed = ("counts", "wall_ms", "event_ms", "device")
+    for key, value in ranks[0].items():
+        if key not in timed:
+            for r, other in enumerate(ranks[1:], 1):
+                same = (torch.equal(value, other[key])
+                        if isinstance(value, torch.Tensor)
+                        else value == other[key])
+                check(same, f"sharded {key}: rank {r} differs from rank 0")
+    got = ranks[0]
+    counts = {k: sum(r["counts"][k] for r in ranks)
+              for k in ("tree_sweep", "tree_sweep_mma", "edge_score")}
+    log(f"[shard] launches in the ranks' forward and training step: "
+        f"{[r['counts']['tree_sweep'] for r in ranks]} tree_sweep, "
+        f"{[r['counts']['tree_sweep_mma'] for r in ranks]} tree_sweep_mma; "
+        f"(site block, form) {got['mode']} a rank, {alone['mode']} alone")
+    check(counts["tree_sweep"] + counts["tree_sweep_mma"]
+          >= 2 * SHARD_RANKS, "the ranks did not launch the tree sweep")
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+    gaps = {"logl vs alone": rel(got["logl"], alone["logl"]),
+            "logl vs dense f64": rel(got["logl"], alone["logl64"]),
+            "dense f64 logl vs alone": rel(got["logl64"], alone["logl64"]),
+            "logl_before vs alone": rel(got["logl_before"],
+                                        alone["logl_before"])}
+    t_gap = rel(got["root_t"], alone["root_t"])
+    d_gaps = [float(((got[k] - alone[k]).abs()
+                     / alone[k].abs().clamp_min(1e-300)).max())
+              for k in ("d1", "d2")]
+    a, b = got["spr_scores"], alone["spr_scores"]
+    finite = torch.isfinite(b)
+    s_gap = float(((a[finite] - b[finite]).abs()
+                   / b[finite].abs().clamp_min(1.0)).max())
+    log(f"[shard] {tips} taxa x {sites} sites over {SHARD_RANKS} ranks of "
+        f"{sites // SHARD_RANKS}: logL {float(got['logl'])!r} (alone "
+        f"{float(alone['logl'])!r}, dense f64 {float(alone['logl64'])!r}); "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; root branch {float(got['root_t'])!r} (alone "
+        f"{float(alone['root_t'])!r}), rel gap {t_gap:.3e}; f64 (d1, d2) over {got['d1'].numel()} branches, max "
+        f"rel gap {d_gaps[0]:.3e}, {d_gaps[1]:.3e}; bit-identical across "
+        f"the ranks")
+    log(f"[shard] SPR round {search_tips} x {search_sites}, radius "
+        f"{SEARCH_RADIUS}, plain scorer: logL {float(got['spr_logl'])!r} "
+        f"(alone {float(alone['spr_logl'])!r}); {int(finite.sum())} finite "
+        f"of {b.numel()} slots, max rel gap {s_gap:.3e} on max(1, |s|)")
+    check(all(np.isfinite(float(got[k])) for k in ("logl", "logl64",
+                                                   "spr_logl")),
+          "non-finite sharded logL")
+    check(gaps["logl vs alone"] < SHARD_LOGL_RTOL,
+          f"sharded logL gap {gaps['logl vs alone']}")
+    check(gaps["logl vs dense f64"] < LOGL_RTOL,
+          f"sharded logL vs dense f64 {gaps['logl vs dense f64']}")
+    check(gaps["dense f64 logl vs alone"] < 1e-12,
+          f"sharded f64 logL gap {gaps['dense f64 logl vs alone']}")
+    check(gaps["logl_before vs alone"] < SHARD_LOGL_RTOL,
+          f"sharded training-step logL gap {gaps['logl_before vs alone']}")
+    check(t_gap < BL_RTOL, f"sharded root branch gap {t_gap}")
+    check(max(d_gaps) < SHARD_DERIV_RTOL, f"sharded (d1, d2) gap {d_gaps}")
+    check(bool((torch.isfinite(a) == finite).all()),
+          "sharded SPR scores: another finite mask")
+    check(s_gap < SHARD_SCORE_RTOL, f"sharded SPR score gap {s_gap}")
+    check(rel(got["spr_logl"], alone["spr_logl"]) < SHARD_LOGL_RTOL,
+          "sharded SPR round logL")
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+    cards = len({r["device"] for r in ranks})
+    log(f"[time] sharded forward {tips}x{sites}, {SHARD_RANKS} ranks on "
+        f"{cards} card(s) over {got['backend']} (each rank's sweep on its "
+        f"slice, then the logL all-reduced): CUDA events "
+        f"{[fmt(r['event_ms']) for r in ranks]}, wall "
+        f"{[fmt(r['wall_ms']) for r in ranks]}; alone in one process: "
+        f"CUDA events {fmt(alone['event_ms'])}, wall "
+        f"{fmt(alone['wall_ms'])}; medians of {reps} calls"
+        + (".  The ranks share a card, so this is no speed-up"
+           if cards < SHARD_RANKS else ", one card a rank")
+        + f" ({card})")
+
+    t0 = time.perf_counter()
+    results = engine.dryrun_multichip(SHARD_RANKS, device=device.type)
+    log(f"[shard] engine.dryrun_multichip({SHARD_RANKS}): logL "
+        f"{float(results[0]['logl'])!r} -> {float(results[0]['logl2'])!r}, "
+        f"SPR round logL {float(results[0]['spr_logl'])!r}, equal on every "
+        f"rank, {time.perf_counter() - t0:.3f} s; phase 22 "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return counts
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -2718,6 +2933,8 @@ def main() -> int:
     construct_probe = phase_construct_probe(device, card, smem_a_lib)
     torch.cuda.empty_cache()
     add(phase_partition(device, card))
+    torch.cuda.empty_cache()
+    add(phase_sharded(device, card))
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]

@@ -11,7 +11,9 @@ engine.make_model -> engine.loglikelihood), the training step
 (search_fast.hill_climb) run here.  Two hand-written CUDA kernels carry
 their hot paths on CUDA tensors: the CLV tree sweep (csrc/tree_sweep.cu)
 and the SPR edge scorer (csrc/edge_score.cu); on CPU tensors their plain
-PyTorch versions run.  Module names follow libpll2_tpu so that each
+PyTorch versions run.  The sites of a partition shard over the ranks of
+a torch.distributed process group (parallel/), each rank running this
+engine on its slice.  Module names follow libpll2_tpu so that each
 function's counterpart is easy to find.  This package imports torch and
 never jax.
 """

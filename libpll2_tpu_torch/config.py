@@ -16,6 +16,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .constants import AB_NONE
@@ -123,3 +124,36 @@ class PartitionConfig:
     @property
     def log_scale_threshold(self) -> float:
         return math.log(self.scale_threshold)
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteSlice(PartitionConfig):
+    """One rank's slice of a partition whose site axis is sharded
+    (parallel/): the padded columns [slice_start, slice_start +
+    slice_width).  `sites` and `sites_alloc` stay the whole partition's;
+    `sites_padded` is the slice's width, so every tensor the engine makes
+    has the slice's shape, and `site_columns` gives the masks each local
+    column's global index (the asc-bias phantom columns [sites, sites +
+    states) may lie in any slice, or straddle two).
+    parallel.sharding.local_config builds one."""
+    slice_start: int = 0
+    slice_width: int = 0
+
+    @property
+    def sites_padded(self) -> int:
+        return self.slice_width
+
+
+def site_columns(cfg: PartitionConfig) -> np.ndarray:
+    """Global index of each site column `cfg` holds: [sites_padded]."""
+    start = cfg.slice_start if isinstance(cfg, SiteSlice) else 0
+    return np.arange(start, start + cfg.sites_padded)
+
+
+def phantom_columns(cfg: PartitionConfig) -> slice:
+    """The local columns of the asc-bias phantom sites [sites, sites +
+    states) that `cfg` holds (empty where its slice has none)."""
+    start = cfg.slice_start if isinstance(cfg, SiteSlice) else 0
+    lo, hi = cfg.sites - start, cfg.sites + cfg.states - start
+    return slice(min(max(lo, 0), cfg.sites_padded),
+                 min(max(hi, 0), cfg.sites_padded))

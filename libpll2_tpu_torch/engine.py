@@ -7,7 +7,12 @@ Counterpart of libpll2_tpu/engine.py: the forward step (`compile_tree`,
 message sweep (`compile_tree_full`, `_sweep_all`,
 `all_edge_loglikelihoods`, `optimize_branch_lengths`, `score_placements`,
 `branch_derivatives`) with the analytic reverse pass built on it
-(`loglikelihood_analytic`).  The forward CLV sweep runs in a hand-written CUDA
+(`loglikelihood_analytic`), and the sharded training step
+(`dryrun_multichip`).  `loglikelihood`, `optimize_root_branch`,
+`branch_derivatives` and `all_edge_loglikelihoods` take `group=`: the
+process group whose ranks hold the site slices (parallel/); each rank
+passes the whole partition's `cfg` and its slices of the site-indexed
+inputs, and gets the whole partition's results.  The forward CLV sweep runs in a hand-written CUDA
 tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
 tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
 level-batched path (ops/partials.py) on CPU tensors or when
@@ -29,6 +34,7 @@ from .ops import likelihood as likelihood_ops
 from .ops import partials as partials_ops
 from .ops import partials_tree
 from .ops import pmatrix as pmatrix_ops
+from .parallel import sharding
 from .partition import Operation, levelize_operations
 from .tree import create_operations, traverse
 from .tree.utree import UTree
@@ -317,13 +323,26 @@ class _TreeView:
                            device=self._tipchars.device)
 
 
+def _local(cfg: PartitionConfig, group, tipchars) -> PartitionConfig:
+    """The configuration of this rank's site slice (cfg without a
+    group), checked against the width of its inputs."""
+    if group is None:
+        return cfg
+    cfg = sharding.local_config(cfg, group)
+    sharding.check_slice(cfg, tipchars)
+    return cfg
+
+
 def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
-                  branch_lengths, tipchars, pattern_weights, invariant):
+                  branch_lengths, tipchars, pattern_weights, invariant,
+                  group=None):
     """Full-tree log-likelihood across the root edge.
 
     tipchars: [tips, T] int32 packed state bitmasks; pattern_weights: [T];
-    invariant: [T] int32 (-1 = variant).
+    invariant: [T] int32 (-1 = variant).  With `group`, T is this rank's
+    slice and the sum runs over every rank's.
     """
+    cfg = _local(cfg, group, tipchars)
     view, pmatrix = _sweep(program, cfg, model, branch_lengths,
                            tipchars, pattern_weights)
     return likelihood_ops.edge_loglikelihood(
@@ -336,17 +355,21 @@ def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
                         else cfg.scaler_zero),
         pmatrix[program.root_pmatrix],
         model.cat_freqs, model.rate_weights, model.cat_pinv,
-        invariant, pattern_weights, cfg)
+        invariant, pattern_weights, cfg, group=group)
 
 
 def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,
                          model: Model, branch_lengths, tipchars,
-                         pattern_weights, invariant, newton_iters: int = 10):
+                         pattern_weights, invariant, newton_iters: int = 10,
+                         group=None):
     """One 'training step': CLV sweep, then Newton optimization of the
     root branch length from analytic (d1, d2) (newton.c:31-100).
 
     The sweep is the same as loglikelihood's (the tree-sweep kernel on
-    CUDA tensors).  Returns (new_branch_lengths, logl_before)."""
+    CUDA tensors).  With `group`, (d1, d2) are summed over the ranks in
+    every Newton iteration, so every rank takes the same steps.  Returns
+    (new_branch_lengths, logl_before)."""
+    cfg = _local(cfg, group, tipchars)
     view, pmatrix = _sweep(program, cfg, model, branch_lengths,
                            tipchars, pattern_weights)
     rs = view.scaler_row(program.root_scaler if program.root_scaler >= 0
@@ -360,7 +383,7 @@ def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,
     logl = likelihood_ops.edge_loglikelihood(
         root_clv, rs, root_back_clv, rbs,
         pmatrix[program.root_pmatrix], model.cat_freqs, model.rate_weights,
-        model.cat_pinv, invariant, pattern_weights, cfg)
+        model.cat_pinv, invariant, pattern_weights, cfg, group=group)
 
     idx = model.params_indices.long()
     sumtable = derivatives_ops.update_sumtable(
@@ -376,7 +399,7 @@ def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,
         d1, d2 = derivatives_ops.likelihood_derivatives(
             sumtable, t, model.rates, model.eigenvals[idx], model.cat_pinv,
             model.rate_weights, model.cat_freqs, invariant, pattern_weights,
-            cfg)
+            cfg, group=group)
         # the JAX step has no non-finite guard here; keep its semantics
         t = derivatives_ops.newton_update(t, d1, d2, hold_nonfinite=False)
     new_bl = branch_lengths.clone()
@@ -565,16 +588,18 @@ def _sweep_all(program: FullTreeProgram, cfg: PartitionConfig, model: Model,
 
 def all_edge_loglikelihoods(program: FullTreeProgram, cfg: PartitionConfig,
                             model: Model, branch_lengths, tipchars,
-                            pattern_weights, invariant):
+                            pattern_weights, invariant, group=None):
     """Edge logL evaluated across EVERY branch ([E]).  All entries must be
     equal (the likelihood is invariant to the evaluation edge) — the
-    strongest whole-sweep self-check the message structure admits."""
+    strongest whole-sweep self-check the message structure admits.
+    `group`: as in loglikelihood."""
+    cfg = _local(cfg, group, tipchars)
     clv, scalers, pmatrix = _sweep_all(program, cfg, model, branch_lengths,
                                        tipchars)
     out = [likelihood_ops.edge_loglikelihood(
         clv[a], scalers[sa], clv[b], scalers[sb], pmatrix[slot],
         model.cat_freqs, model.rate_weights, model.cat_pinv, invariant,
-        pattern_weights, cfg)
+        pattern_weights, cfg, group=group)
         for (a, sa, b, sb), slot in zip(program.edge_rows.tolist(),
                                         program.pmatrix_indices.tolist())]
     return torch.stack(out)
@@ -711,10 +736,12 @@ def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
 
 def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
                        model: Model, branch_lengths, tipchars,
-                       pattern_weights, invariant):
+                       pattern_weights, invariant, group=None):
     """(d1, d2) of -lnL w.r.t. EVERY branch length from one message sweep
     ([E], [E]).  The reference computes these one branch at a time
-    (pll_update_sumtable + pll_compute_likelihood_derivatives)."""
+    (pll_update_sumtable + pll_compute_likelihood_derivatives).
+    `group`: as in loglikelihood."""
+    cfg = _local(cfg, group, tipchars)
     device = tipchars.device
     edge_rows = _edge_rows(program, device)
     idx = model.params_indices.long()
@@ -728,7 +755,7 @@ def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
         d1, d2 = derivatives_ops.likelihood_derivatives(
             st, branch_lengths[chunk], model.rates, model.eigenvals[idx],
             model.cat_pinv, model.rate_weights, model.cat_freqs, invariant,
-            pattern_weights, cfg)
+            pattern_weights, cfg, group=group)
         d1s.append(d1)
         d2s.append(d2)
     return torch.cat(d1s), torch.cat(d2s)
@@ -954,3 +981,72 @@ def entry(device="cuda"):
 
     return forward, (model, branch_lengths, tipchars, pattern_weights,
                      invariant)
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> list:
+    """The sharded training step on `n_devices` ranks (counterpart of
+    __graft_entry__.dryrun_multichip), launched by parallel.launcher:
+    on each rank optimize_root_branch and loglikelihood on its site slice
+    of a 12-taxon case, then one SPR round (search_fast._spr_round_device,
+    the plain scorer) on a 10-taxon random tree at radius 2.  The ranks
+    share one group over `device` ("cuda": rank r on card r mod the card
+    count; "cpu": gloo on the CPU).  Raises unless every result is finite
+    and equal on every rank; returns the ranks' results."""
+    from .parallel.launcher import launch
+    results = launch(f"{__name__}:_dryrun_rank", n_devices, device=device)
+    for key, value in results[0].items():
+        if not bool(torch.isfinite(value).all()):
+            raise RuntimeError(f"sharded training step: non-finite {key}")
+        for rank, other in enumerate(results[1:], 1):
+            if not torch.equal(value, other[key]):
+                raise RuntimeError(f"sharded training step: {key} of rank "
+                                   f"{rank} differs from rank 0's")
+    return results
+
+
+def _dryrun_rank(mesh) -> dict:
+    """One rank of dryrun_multichip.  The case has 32 sites a rank (the
+    JAX dryrun's 8 a device is below the sweep kernel's smallest site
+    block); the SPR round keeps the JAX dryrun's 8 a rank."""
+    from . import search_fast as sf
+    from . import tree as T
+    from .parallel import shard_site_arrays
+    from .tree.generate import random_newick, random_tipchars
+
+    n, group, dev = mesh.size, mesh.group, mesh.device
+    (cfg, program, model, branch_lengths, tipchars, pattern_weights,
+     invariant) = build_case(n_tips=12, sites=32 * n, rate_cats=4,
+                             dtype=torch.float32, device=dev,
+                             site_block=32 * n)
+    tip_s, pw_s, inv_s = shard_site_arrays(mesh, tipchars, pattern_weights,
+                                           invariant)
+    new_bl, logl = optimize_root_branch(program, cfg, model, branch_lengths,
+                                        tip_s, pw_s, inv_s, group=group)
+    logl2 = loglikelihood(program, cfg, model, new_bl, tip_s, pw_s, inv_s,
+                          group=group)
+
+    rng = np.random.default_rng(0)
+    tree = T.parse_newick_string(random_newick(10, rng))
+    raw = random_tipchars(10, 8 * n, rng)
+    chars = {nd.label: raw[nd.clv_index].astype(np.uint64)
+             for nd in tree.nodes[:10]}
+    scfg = PartitionConfig(
+        tips=10, clv_buffers=tree.inner_count, states=4, sites=8 * n,
+        rate_matrices=1, prob_matrices=17, rate_cats=4,
+        scale_buffers=tree.inner_count, dtype=torch.float32,
+        site_block=8 * n)
+    prog = sf.compile_spr(tree, scfg, radius=2)
+    tip2s, pw2s, inv2s = shard_site_arrays(
+        mesh, sf._tipchars_for(prog, chars, dev), *sf._aux_arrays(prog, dev))
+    smodel = make_model([[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25] * 4],
+                        [0.5, 0.8, 1.2, 1.5], dtype=torch.float32,
+                        device=dev)
+    lops, pslots, bl, root_rows, root_slot, gdev = sf._round_args(prog, dev)
+    logl3, outs = sf._spr_round_device(
+        prog.cfg_ext, smodel, lops, pslots, bl, tip2s, pw2s, inv2s,
+        root_rows, root_slot, gdev, ball_slots=prog.ball_slots,
+        newton_iters=2, use_kernel=False, group=group)
+    return {"new_bl": new_bl, "logl": logl, "logl2": logl2,
+            "spr_logl": logl3,
+            "spr_scores": torch.cat([s.flatten() for s, _ in outs])
+            .nan_to_num(neginf=0.0)}

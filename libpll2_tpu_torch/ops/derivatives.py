@@ -22,27 +22,32 @@ scalers are folded into the sumtable (core_derivatives.c:418-460).
 Layout: sumtable [..., R, S, T].  Unlike the JAX functions, which price
 one edge, these take any leading batch axes (edges, candidates, slots) on
 the CLVs, scalers and branch lengths; the model tensors are shared.
+
+Site sharding (parallel/): with a process group, `cfg` is a rank's
+SiteSlice, and the weighted site sums (logL, d1, d2 and the asc-bias
+components L0, L1, L2 and weight sums) are all-reduced over the group
+before the corrections combine them, so a Newton step takes the same
+(d1, d2) on every rank.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..config import PartitionConfig
+from ..config import PartitionConfig, phantom_columns, site_columns
+from .likelihood import _reduce_logl, all_reduce_sites
 from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
                          SCALE_RATE_MAXDIFF)
 
 
 def _phantom_mask(cfg: PartitionConfig, device):
     """Bool [T]: the asc-bias phantom per-state columns."""
-    cols = np.arange(cfg.sites_padded)
+    cols = site_columns(cfg)
     return torch.as_tensor((cols >= cfg.sites)
                            & (cols < cfg.sites + cfg.states), device=device)
 
 
 def _real_mask(cfg: PartitionConfig, device):
-    return torch.as_tensor(np.arange(cfg.sites_padded) < cfg.sites,
-                           device=device)
+    return torch.as_tensor(site_columns(cfg) < cfg.sites, device=device)
 
 
 def update_sumtable(clvp,            # [..., R, S, T] parent CLV
@@ -111,7 +116,8 @@ def sumtable_loglikelihood(sumtable,         # [..., R, S, T]
                            invariant,        # [T] int32
                            pattern_weights,  # [T]
                            site_scalings,    # [..., T] int32 summed scalers
-                           cfg: PartitionConfig):
+                           cfg: PartitionConfig,
+                           group=None):
     """Log-likelihood of edges AT branch length t, from their sumtables.
 
     Σ_j sum[r,j,t]·e^{λ_j k t} = clvp·freq·expm(Q k t)·clvc — the per-site
@@ -120,6 +126,8 @@ def sumtable_loglikelihood(sumtable,         # [..., R, S, T]
     per-rate relative scalers must already be folded into the sumtable.
     Lewis/Felsenstein asc bias needs the phantom columns already absolute
     (update_sumtable asc_scalers); Stamatakis uses the raw scalings.
+    `group`: the process group the sites are sharded over (None: not
+    sharded).
     """
     dtype = sumtable.dtype
     pinv = prop_invar.to(dtype)
@@ -140,16 +148,12 @@ def sumtable_loglikelihood(sumtable,         # [..., R, S, T]
         * cfg.log_scale_threshold
     logl = torch.sum(torch.where(live, site_lk * pattern_weights.to(dtype),
                                  torch.zeros_like(site_lk)), dim=-1)
-    if cfg.asc_bias != AB_NONE:
-        from .likelihood import asc_bias_correction
-        sc = site_scalings
-        if cfg.asc_bias in (AB_LEWIS, AB_FELSENSTEIN):
-            # phantoms already absolute in the sumtable -> no re-undo
-            sc = torch.where(_phantom_mask(cfg, sc.device),
-                             torch.zeros_like(sc), sc)
-        logl = logl + asc_bias_correction(term, sc, pattern_weights, cfg,
-                                          dtype)
-    return logl
+    sc = site_scalings
+    if cfg.asc_bias in (AB_LEWIS, AB_FELSENSTEIN):
+        # phantoms already absolute in the sumtable -> no re-undo
+        sc = torch.where(_phantom_mask(cfg, sc.device),
+                         torch.zeros_like(sc), sc)
+    return _reduce_logl(logl, term, sc, pattern_weights, cfg, dtype, group)
 
 
 def likelihood_derivatives(sumtable,         # [..., R, S, T]
@@ -161,10 +165,13 @@ def likelihood_derivatives(sumtable,         # [..., R, S, T]
                            freqs,            # [R, S]
                            invariant,        # [T] int32, -1 = variant
                            pattern_weights,  # [T] (0 on padding)
-                           cfg: PartitionConfig):
+                           cfg: PartitionConfig,
+                           group=None):
     """(d1, d2) [...] of -lnL wrt branch length, given the sumtables.
 
     Mirrors pll_core_likelihood_derivatives (core_derivatives.c:696-929).
+    `group`: the process group the sites are sharded over (None: not
+    sharded).
     """
     dtype = sumtable.dtype
     pinv = prop_invar.to(dtype)
@@ -205,24 +212,29 @@ def likelihood_derivatives(sumtable,         # [..., R, S, T]
     d1 = torch.sum(torch.where(live, w * deriv1, zero), dim=-1)
     d2 = torch.sum(torch.where(live, w * deriv2, zero), dim=-1)
 
-    if cfg.asc_bias in (AB_LEWIS, AB_FELSENSTEIN):
-        s0, S = cfg.sites, cfg.states
-        # scalers cancel in L'/L for the main sum but NOT in the absolute
-        # phantom likelihoods: the caller folds thresh^scalers into the
-        # sumtable's phantom columns (update_sumtable asc_scalers).
-        L0 = torch.sum(lk0[..., s0:s0 + S], dim=-1)
-        L1 = torch.sum(lk1[..., s0:s0 + S], dim=-1)
-        L2 = torch.sum(lk2[..., s0:s0 + S], dim=-1)
-        if cfg.asc_bias == AB_LEWIS:
-            sum_w = torch.sum(torch.where(_real_mask(cfg, w.device), w,
-                                          zero))
-            d1 = d1 + sum_w * (L1 / (L0 - 1.0))
-            d2 = d2 + sum_w * (((L0 - 1.0) * L2 - L1 * L1)
-                               / ((L0 - 1.0) * (L0 - 1.0)))
-        else:
-            sum_w_inv = torch.sum(w[s0:s0 + S])
-            d1 = d1 - sum_w_inv * (L1 / L0)
-            d2 = d2 - sum_w_inv * ((L2 * L0 - L1 * L1) / (L0 * L0))
+    if cfg.asc_bias not in (AB_LEWIS, AB_FELSENSTEIN):
+        d1, d2 = all_reduce_sites([d1, d2], group)
+        return d1, d2
+    ph = phantom_columns(cfg)
+    # scalers cancel in L'/L for the main sum but NOT in the absolute
+    # phantom likelihoods: the caller folds thresh^scalers into the
+    # sumtable's phantom columns (update_sumtable asc_scalers).
+    L0 = torch.sum(lk0[..., ph], dim=-1)
+    L1 = torch.sum(lk1[..., ph], dim=-1)
+    L2 = torch.sum(lk2[..., ph], dim=-1)
+    if cfg.asc_bias == AB_LEWIS:
+        sum_w = torch.sum(torch.where(_real_mask(cfg, w.device), w, zero))
+    else:
+        sum_w = torch.sum(w[ph])
+    d1, d2, L0, L1, L2, sum_w = all_reduce_sites(
+        [d1, d2, L0, L1, L2, sum_w], group)
+    if cfg.asc_bias == AB_LEWIS:
+        d1 = d1 + sum_w * (L1 / (L0 - 1.0))
+        d2 = d2 + sum_w * (((L0 - 1.0) * L2 - L1 * L1)
+                           / ((L0 - 1.0) * (L0 - 1.0)))
+    else:
+        d1 = d1 - sum_w * (L1 / L0)
+        d2 = d2 - sum_w * ((L2 * L0 - L1 * L1) / (L0 * L0))
     return d1, d2
 
 

@@ -17,13 +17,19 @@ src/core_likelihood.c:25-209, 1191-1496), including:
 
 Shapes are [R = rate cats, S = states, T = padded sites]; reductions over
 sites use pattern weights (zero on padding, so padding is inert).
+
+Site sharding (parallel/): with a process group, `cfg` is a rank's
+SiteSlice and T its slice; every weighted site sum is all-reduced over
+the group before anything nonlinear is applied to it (the asc-bias
+corrections take the summed components), so each rank returns the whole
+partition's logL.  Per-site outputs stay the rank's own.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..config import PartitionConfig
+from ..config import PartitionConfig, phantom_columns, site_columns
 from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
                          SCALE_RATE_MAXDIFF)
 
@@ -31,39 +37,84 @@ from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
 def _real_site_mask(cfg: PartitionConfig):
     """Static bool [T]: True on real alignment columns, False on the
     asc-bias phantom per-state columns and padding (pll.c:525-531)."""
-    return np.arange(cfg.sites_padded) < cfg.sites
+    return site_columns(cfg) < cfg.sites
 
 
 def _site_mask(cfg: PartitionConfig, device):
     return torch.as_tensor(_real_site_mask(cfg), device=device)
 
 
+def all_reduce_sites(parts, group):
+    """Sum each of the tensors `parts` over the ranks of `group` (one
+    collective for all of them) and return them; `group` None returns
+    `parts` as they are."""
+    if group is None:
+        return list(parts)
+    import torch.distributed as dist
+    parts = torch.broadcast_tensors(*parts)
+    buf = torch.stack(parts)
+    dist.all_reduce(buf, group=group)
+    return list(buf.unbind(0))
+
+
+def _asc_parts(term, site_scalings, pattern_weights, cfg: PartitionConfig,
+               dtype):
+    """The site sums the asc-bias correction is a function of, over the
+    columns `cfg` holds: Stamatakis [the correction itself]; Lewis [base,
+    sum of the real sites' weights]; Felsenstein [base, sum of the phantom
+    sites' weights]."""
+    ph = phantom_columns(cfg)
+    log_thresh = cfg.log_scale_threshold
+    t_ph = term[..., ph]
+    sc_ph = site_scalings[..., ph].to(dtype)
+    w_ph = pattern_weights[ph].to(dtype)
+    if cfg.asc_bias == AB_STAMATAKIS:
+        # the reference adds the scaler correction unweighted
+        # (likelihood.c:97-101)
+        return [torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh,
+                          dim=-1)]
+    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh), dim=-1)
+    if cfg.asc_bias == AB_LEWIS:
+        real = _site_mask(cfg, pattern_weights.device)
+        return [base, torch.sum(torch.where(real, pattern_weights,
+                                            0.0).to(dtype))]
+    if cfg.asc_bias == AB_FELSENSTEIN:
+        return [base, torch.sum(w_ph)]
+    raise ValueError(f"illegal asc bias type {cfg.asc_bias}")
+
+
+def _asc_finish(parts, cfg: PartitionConfig):
+    """The asc-bias correction from the (summed) parts of _asc_parts."""
+    if cfg.asc_bias == AB_STAMATAKIS:
+        return parts[0]
+    base, sum_w = parts
+    if cfg.asc_bias == AB_LEWIS:
+        return -(sum_w * torch.log1p(-base))
+    return sum_w * torch.log(base)
+
+
 def asc_bias_correction(term, site_scalings, pattern_weights,
-                        cfg: PartitionConfig, dtype):
+                        cfg: PartitionConfig, dtype, group=None):
     """Ascertainment-bias logL correction from the phantom per-state sites
     (compute_asc_bias_correction + root_loglikelihood_asc_bias,
     likelihood.c:24-120).  `term` is the pre-log per-site likelihood,
     `site_scalings` the per-site scaler counters, both [..., T] (leading
-    axes are batch axes, e.g. the slots of a search round)."""
-    s0, S = cfg.sites, cfg.states
-    log_thresh = cfg.log_scale_threshold
-    t_ph = term[..., s0:s0 + S]
-    sc_ph = site_scalings[..., s0:s0 + S].to(dtype)
-    w_ph = pattern_weights[s0:s0 + S].to(dtype)
-    if cfg.asc_bias == AB_STAMATAKIS:
-        # the reference adds the scaler correction unweighted
-        # (likelihood.c:97-101)
-        return torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh,
-                         dim=-1)
-    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh), dim=-1)
-    if cfg.asc_bias == AB_LEWIS:
-        real = _site_mask(cfg, pattern_weights.device)
-        sum_w = torch.sum(torch.where(real, pattern_weights,
-                                      0.0).to(dtype))
-        return -(sum_w * torch.log1p(-base))
-    if cfg.asc_bias == AB_FELSENSTEIN:
-        return torch.sum(w_ph) * torch.log(base)
-    raise ValueError(f"illegal asc bias type {cfg.asc_bias}")
+    axes are batch axes, e.g. the slots of a search round).  With a
+    process group the components are summed over its ranks first."""
+    return _asc_finish(all_reduce_sites(
+        _asc_parts(term, site_scalings, pattern_weights, cfg, dtype),
+        group), cfg)
+
+
+def _reduce_logl(logl, term, site_scalings, pattern_weights,
+                 cfg: PartitionConfig, dtype, group):
+    """The weighted site sum `logl` summed over the ranks of `group`, plus
+    the asc-bias correction from the summed components: one collective."""
+    asc = cfg.asc_bias != AB_NONE
+    parts = _asc_parts(term, site_scalings, pattern_weights, cfg,
+                       dtype) if asc else []
+    logl, *parts = all_reduce_sites([logl] + parts, group)
+    return logl + _asc_finish(parts, cfg) if asc else logl
 
 
 def _acc_dtype(clv):
@@ -106,11 +157,14 @@ def root_loglikelihood(clv,              # [..., R, S, T]
                        invariant,        # [T] int, -1 = variant
                        pattern_weights,  # [T] (0 on padding)
                        cfg: PartitionConfig,
-                       with_persite: bool = False):
+                       with_persite: bool = False,
+                       group=None):
     """Weighted log-likelihood at a (virtual) root CLV
     (pll_core_root_loglikelihood, core_likelihood.c:25-209).  Per-rate
     scalers use the edge kernel's min+cap protocol.  Leading axes of clv
-    and scaler are batch axes (one logL each), e.g. candidate edges."""
+    and scaler are batch axes (one logL each), e.g. candidate edges.
+    `group`: the process group the sites are sharded over (None: not
+    sharded)."""
     # bf16 is a CLV storage format: the reduction runs in f32 (a bf16 sum
     # would quantize the total logL itself)
     dtype = _acc_dtype(clv)
@@ -140,10 +194,8 @@ def root_loglikelihood(clv,              # [..., R, S, T]
     site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
                           torch.zeros_like(site_lk))
 
-    logl = torch.sum(site_lk, dim=-1)
-    if cfg.asc_bias != AB_NONE:
-        logl = logl + asc_bias_correction(term, site_scalings,
-                                          pattern_weights, cfg, dtype)
+    logl = _reduce_logl(torch.sum(site_lk, dim=-1), term, site_scalings,
+                        pattern_weights, cfg, dtype, group)
     if with_persite:
         return logl, site_lk
     return logl
@@ -160,16 +212,19 @@ def edge_loglikelihood(clvp,             # [R, S, T] parent CLV
                        invariant,        # [T] int
                        pattern_weights,  # [T]
                        cfg: PartitionConfig,
-                       with_persite: bool = False):
+                       with_persite: bool = False,
+                       group=None):
     """Log-likelihood across an edge: parent CLV . P(t) . child CLV
-    (pll_core_edge_loglikelihood_ii, core_likelihood.c:1191-1496)."""
+    (pll_core_edge_loglikelihood_ii, core_likelihood.c:1191-1496).
+    `group`: the process group the sites are sharded over (None: not
+    sharded)."""
     dtype = _acc_dtype(clvp)                    # bf16 CLVs: f32 sums
     termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype), clvc.to(dtype))
     terma_r = torch.einsum("rjt,rj,rjt->rt", clvp.to(dtype),
                            freqs.to(dtype), termb)                # [R, T]
     return edge_reduce(terma_r, scaler_p, scaler_c, freqs, rate_weights,
                        prop_invar, invariant, pattern_weights, cfg,
-                       with_persite=with_persite)
+                       with_persite=with_persite, group=group)
 
 
 def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
@@ -181,12 +236,14 @@ def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
                 invariant,        # [T] int
                 pattern_weights,  # [T]
                 cfg: PartitionConfig,
-                with_persite: bool = False):
+                with_persite: bool = False,
+                group=None):
     """Reduction tail of edge_loglikelihood from the per-(rate, site) edge
     terms sum_ij pi_i . clvp_i . P_ij . clvc_j (at the CLVs' stored
     scaling): scaler undo, +I mixing and asc-bias corrections.  Leading
     axes of terma_r and the scalers are batch axes (one logL each), e.g.
-    the edges of the analytic reverse pass."""
+    the edges of the analytic reverse pass.  `group`: as in
+    edge_loglikelihood."""
     dtype = terma_r.dtype
     if cfg.per_rate_scalers:
         site_scalings, undo = _per_rate_undo(scaler_p, scaler_c, cfg, dtype)
@@ -234,11 +291,10 @@ def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
 
     site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
                           torch.zeros_like(site_lk))
-    logl = torch.sum(site_lk, dim=-1)
-    if cfg.asc_bias != AB_NONE:
-        # pinv is disallowed with asc bias, so terma+terminv == raw term
-        logl = logl + asc_bias_correction(terma + terminv, site_scalings,
-                                          pattern_weights, cfg, dtype)
+    # pinv is disallowed with asc bias, so terma+terminv == raw term
+    term = terma + terminv if cfg.asc_bias != AB_NONE else None
+    logl = _reduce_logl(torch.sum(site_lk, dim=-1), term, site_scalings,
+                        pattern_weights, cfg, dtype, group)
     if with_persite:
         return logl, site_lk
     return logl

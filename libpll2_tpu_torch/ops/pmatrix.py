@@ -49,3 +49,14 @@ def compute_pmatrices(branch_lengths,      # [E]
     # zero branch length -> exact identity (core_pmatrix.c:239-245)
     zero = (t <= 0.0)[:, None, None, None]
     return torch.where(zero, eye, pmat)
+
+
+def scatter_pmatrices(pmatrix,            # [P, R, S, S] full buffer
+                      matrix_indices,     # [E] int
+                      new_pmats):         # [E, R, S, S]
+    """Write freshly computed P-matrices into the partition's buffer;
+    returns a new buffer and leaves `pmatrix` as it was."""
+    out = pmatrix.clone()
+    out[torch.as_tensor(matrix_indices, dtype=torch.int64,
+                        device=pmatrix.device)] = new_pmats.to(pmatrix.dtype)
+    return out

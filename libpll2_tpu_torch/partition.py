@@ -264,10 +264,12 @@ class Partition:
         row.zero_()
         row[:, :, :full.size] = bits[None]
 
-    def set_tip_clv(self, tip_index: int, clv: np.ndarray) -> None:
+    def set_tip_clv(self, tip_index: int, clv: np.ndarray,
+                    padded: bool = False) -> None:
         """Set a tip CLV from user-supplied values (pll.c:1066-1129).
 
         clv is [sites, rate_cats, states] (or [sites*rate_cats*states] flat).
+        `padded` is accepted and ignored, as in the JAX package.
         """
         cfg = self.cfg
         arr = np.asarray(clv, dtype=np.float64).reshape(

@@ -535,7 +535,7 @@ def _model_factors(model):
 
 def _score_slots(cfg: PartitionConfig, model, ph, away, away_s, other,
                  other_s, sub_clv, sub_scal, t0, pattern_weights, invariant,
-                 newton_iters: int):
+                 newton_iters: int, group=None):
     """Plain scorer of regraft slots (any leading batch axes ...):
     sumtable of the edge split by the regrafted subtree, Newton on the
     attachment branch, logL at the refined length.  Returns (score [...],
@@ -544,7 +544,9 @@ def _score_slots(cfg: PartitionConfig, model, ph, away, away_s, other,
     ph [..., R, S, S] half-branch P; away/other [..., R, S, T] the two
     messages facing the regraft edge; away_s/other_s their scalers
     ([..., T] or per-rate [..., R, T]); sub_clv/sub_scal the pruned
-    subtree's message (broadcast against the slots); t0 [...]."""
+    subtree's message (broadcast against the slots); t0 [...].  With a
+    process group the Newton sums and the score are summed over its ranks'
+    site slices, so every rank takes the same steps."""
     evecs, inv_evecs, evals = _model_factors(model)
     ta = torch.einsum("...rij,...rjt->...rit", ph, away)
     tb = torch.einsum("...rij,...rjt->...rit", ph, other)
@@ -566,11 +568,11 @@ def _score_slots(cfg: PartitionConfig, model, ph, away, away_s, other,
     for _ in range(newton_iters):
         d1, d2 = derivatives_ops.likelihood_derivatives(
             st, t, model.rates, evals, model.cat_pinv, model.rate_weights,
-            model.cat_freqs, invariant, pattern_weights, cfg)
+            model.cat_freqs, invariant, pattern_weights, cfg, group=group)
         t = derivatives_ops.newton_update(t, d1, d2)
     score = derivatives_ops.sumtable_loglikelihood(
         st, t, model.rates, evals, model.cat_pinv, model.rate_weights,
-        model.cat_freqs, invariant, pattern_weights, scal, cfg)
+        model.cat_freqs, invariant, pattern_weights, scal, cfg, group=group)
     return score, t
 
 
@@ -673,7 +675,7 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
                  invariant, ball_levels, score_ops, sub_rows, edge_pos,
                  merge_edges, ball_slots: int, newton_iters: int = 5,
                  cand_batch: int = CAND_BATCH,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, group=None):
     """Radius-limited exact SPR scores of ONE ball-size group:
     ([Cg, Vg] scores, [Cg, Vg] t3).
 
@@ -733,7 +735,7 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
                 base_clv[srows[:, 0]][:, None],
                 base_scal[srows[:, 1]][:, None],
                 branch_lengths[edge_pos[cs:cs + cb]][:, None],
-                pattern_weights, invariant, newton_iters)
+                pattern_weights, invariant, newton_iters, group=group)
         scores.append(torch.where(sops[..., BOP_VALID] == 1, s, ninf))
         t3s.append(t3)
     return torch.cat(scores), torch.cat(t3s)
@@ -742,22 +744,37 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
 def _spr_round_device(cfg: PartitionConfig, model, level_ops, pmat_slots,
                       branch_lengths, tipchars, pattern_weights, invariant,
                       root_rows, root_slot, group_args, ball_slots: int,
-                      newton_iters: int = 3, use_kernel: bool = False):
+                      newton_iters: int = 3, use_kernel: bool = False,
+                      group=None):
     """The device work of one SPR round: the base message sweep, the
     root-edge logL, and every ball-size group's recursion + scoring, all
-    from one sweep.  Returns (logl0, ((scores, t3) per group))."""
+    from one sweep.  Returns (logl0, ((scores, t3) per group)).
+
+    `group`: the process group whose ranks hold the site slices
+    (parallel/); `cfg` is the whole partition's, the site-indexed inputs
+    this rank's slices.  The root-edge logL and the plain scorer's Newton
+    sums are then summed over the ranks.  The edge-scorer kernel runs its
+    Newton steps over the sites it holds, so use_kernel=True with a group
+    raises."""
+    if group is not None:
+        if use_kernel:
+            raise ValueError("the edge-scorer kernel runs Newton over the "
+                             "sites of one device: a site-sharded round "
+                             "takes use_kernel=False")
+        cfg = engine._local(cfg, group, tipchars)
     base_clv, base_scal, pmatrix, halves = _spr_base(
         cfg, model, level_ops, pmat_slots, branch_lengths, tipchars)
     logl0 = likelihood_ops.edge_loglikelihood(
         base_clv[root_rows[0]], base_scal[root_rows[1]],
         base_clv[root_rows[2]], base_scal[root_rows[3]],
         pmatrix[root_slot], model.cat_freqs, model.rate_weights,
-        model.cat_pinv, invariant, pattern_weights, cfg)
+        model.cat_pinv, invariant, pattern_weights, cfg, group=group)
     outs = tuple(
         _score_group(cfg, model, base_clv, base_scal, pmatrix, halves,
                      branch_lengths, pattern_weights, invariant, lvls, sops,
                      srows, epos, medges, ball_slots=ball_slots,
-                     newton_iters=newton_iters, use_kernel=use_kernel)
+                     newton_iters=newton_iters, use_kernel=use_kernel,
+                     group=group)
         for (lvls, sops, srows, epos, medges) in group_args)
     return logl0, outs
 
@@ -1009,6 +1026,23 @@ def _marker(timings: Optional[dict]):
     return mark
 
 
+def _round_args(prog: SprProgram, device) -> tuple:
+    """The topology arguments of _spr_round_device for a radius-compiled
+    program, on `device`: (level_ops, pmat_slots, branch_lengths,
+    root_rows, root_slot, group_args)."""
+    erow = _long(prog.edge_rows, device)
+    pslots = _long(prog.pmatrix_slots, device)
+    group_args = tuple(
+        (tuple(_long(a, device) for a in g.ball_levels),
+         _long(g.score_ops, device), _long(g.sub_rows, device),
+         _long(g.edge_pos, device), _long(g.merge_edges, device))
+        for g in prog.ball_groups)
+    bl = torch.as_tensor(prog.branch_lengths, dtype=prog.cfg_ext.dtype,
+                         device=device)
+    return (_long(prog.level_ops, device), pslots, bl, erow[prog.root_edge],
+            pslots[prog.root_edge], group_args)
+
+
 def _score_partition(prog: SprProgram, model, site, newton_iters: int):
     """The score phase of one radius-compiled program: the device round
     and its flat tables.  site: (tipchars, pattern weights, invariant) on
@@ -1017,21 +1051,14 @@ def _score_partition(prog: SprProgram, model, site, newton_iters: int):
     device = _device_of(model)
     cfg = prog.cfg_ext
     tipchars, pw_d, inv_d = site
-    bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype, device=device)
-    erow = _long(prog.edge_rows, device)
-    pslots = _long(prog.pmatrix_slots, device)
-    group_args = tuple(
-        (tuple(_long(a, device) for a in g.ball_levels),
-         _long(g.score_ops, device), _long(g.sub_rows, device),
-         _long(g.edge_pos, device), _long(g.merge_edges, device))
-        for g in prog.ball_groups)
+    level_ops, pslots, bl, root_rows, root_slot, group_args = _round_args(
+        prog, device)
     kernel_on = use_edge_kernel(cfg, inv_d, device)
     launches0 = edge_score.edge_scores.launches
     logl0_d, outs = _spr_round_device(
-        cfg, model, _long(prog.level_ops, device), pslots, bl, tipchars,
-        pw_d, inv_d, erow[prog.root_edge], pslots[prog.root_edge],
-        group_args, ball_slots=prog.ball_slots, newton_iters=newton_iters,
-        use_kernel=kernel_on)
+        cfg, model, level_ops, pslots, bl, tipchars, pw_d, inv_d, root_rows,
+        root_slot, group_args, ball_slots=prog.ball_slots,
+        newton_iters=newton_iters, use_kernel=kernel_on)
     return (float(logl0_d),) + _flatten_groups(prog.ball_groups, outs) + (
         "kernel" if kernel_on else "plain",
         edge_score.edge_scores.launches - launches0)

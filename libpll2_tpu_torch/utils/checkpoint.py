@@ -77,15 +77,15 @@ def _numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(path, tree) -> None:
+def save(path, pytree) -> None:
     """Persist a tree of tensors (dataclass, named tuple, tuple, list or
     dict, nested) to the directory `path`."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    leaves = _flatten(tree)
+    leaves = _flatten(pytree)
     np.savez(path / "state.npz",
              **{f"leaf_{i}": _numpy(x) for i, x in enumerate(leaves)})
-    (path / "structure.json").write_text(json.dumps(_structure(tree)))
+    (path / "structure.json").write_text(json.dumps(_structure(pytree)))
 
 
 def restore(path, like):

@@ -77,12 +77,18 @@ def show_clv(partition, clv_index: int, scaler_index: int,
 def hardware_probe() -> dict:
     """pll_hardware_probe (hardware.c:166-173): the CUDA device torch
     sees — name, count, compute capability, total memory — or, without
-    one, cuda_available False and the other fields None."""
+    one, cuda_available False and the other fields None; and how the
+    sites can be sharded: the processes of the default process group
+    (parallel.initialize) and this one's rank, 1 and 0 without one."""
+    import torch.distributed as dist
+    grouped = dist.is_available() and dist.is_initialized()
     info = {"torch_version": torch.__version__,
             "cuda_version": torch.version.cuda,
             "cuda_available": torch.cuda.is_available(),
             "device_count": 0, "device_name": None,
-            "compute_capability": None, "total_memory": None}
+            "compute_capability": None, "total_memory": None,
+            "process_count": dist.get_world_size() if grouped else 1,
+            "rank": dist.get_rank() if grouped else 0}
     if info["cuda_available"]:
         props = torch.cuda.get_device_properties(0)
         info.update(device_count=torch.cuda.device_count(),

@@ -181,7 +181,8 @@ def test_port_never_imports_jax():
     assert len(files) > 15
     assert {"multipartition.py", "fit.py", "cache.py", "constructs.py",
             "infer.py", "native.py", "fitch.py", "stepwise.py",
-            "checkpoint.py", "compress.py"} <= {f.name for f in files}
+            "checkpoint.py", "compress.py", "sharding.py", "distributed.py",
+            "launcher.py", "_rank.py"} <= {f.name for f in files}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -197,6 +198,7 @@ def test_port_import_loads_no_jax():
             " libpll2_tpu_torch.probes.constructs, libpll2_tpu_torch.infer,"
             " libpll2_tpu_torch.io, libpll2_tpu_torch.native,"
             " libpll2_tpu_torch.parsimony, libpll2_tpu_torch.utils.checkpoint,"
+            " libpll2_tpu_torch.parallel, libpll2_tpu_torch.parallel._rank,"
             " chip_smoke;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libpll2_tpu')]; print(bad); "

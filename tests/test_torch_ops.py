@@ -136,3 +136,19 @@ def test_per_rate_undo_and_invariant():
         np.asarray(jlik._invariant_site_lk(j(x["freqs"]), j(x["inv"]))))
     np.testing.assert_array_equal(likelihood._real_site_mask(pcfg),
                                   jlik._real_site_mask(jcfg))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_scatter_pmatrices(dtype):
+    """The buffer write of libpll2_tpu.ops.pmatrix.scatter_pmatrices: the
+    same buffer out, the input buffer unchanged."""
+    rng = np.random.default_rng(11)
+    buf = rng.uniform(size=(9, 4, 4, 4)).astype(dtype)
+    idx = np.array([7, 0, 3], np.int32)
+    new = rng.uniform(size=(3, 4, 4, 4)).astype(dtype)
+    want = np.asarray(jpmatrix.scatter_pmatrices(j(buf), j(idx), j(new)))
+    before = t(buf).clone()
+    got = pmatrix.scatter_pmatrices(t(buf), idx, t(new))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == before.dtype
+    assert torch.equal(t(buf), before)
