@@ -103,7 +103,20 @@ Phases (any failure exits non-zero):
      search inputs (radius 5, the plain scorer), each against the same
      work alone in this process and bit-identical across the ranks; the
      forward's CUDA-event and wall times sharded and alone; then
-     engine.dryrun_multichip(2).
+     engine.dryrun_multichip(2);
+ 23. the demos (libpll2_tpu_torch.examples), each run here through its
+     main(argv) with its output captured: the 15 f64 demos on the card
+     and on the host CPU, their outputs equal in text and within 1e-9 in
+     every number; large_search at its defaults (256 x 4,096, radius 5,
+     12 rounds, f32 through the tree-sweep and edge-scorer kernels): a
+     monotone trace and a final logL within LOGL_RTOL of the dense f64
+     path on its tree; infer_demo at its defaults, RF to the truth at most
+     INFER_RF; an [examples] line a run with its seconds;
+ 24. the profiler (libpll2_tpu_torch.profiling): its five targets at the
+     main path's shapes (engine and sweep at 256 x 65,536, round and
+     search on the search inputs, repeats at 256 x 65,536 f64), each
+     printed as a [profile] JSON line whose headline trace must hold a
+     kernel.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -286,14 +299,10 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA device")
+    from libpll2_tpu_torch.profiling import card as card_of
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_of(torch.device("cuda", 0))
     log(card)
     nvcc = subprocess.run(["/usr/local/cuda/bin/nvcc", "--version"],
                           capture_output=True, text=True, timeout=60)
@@ -640,39 +649,12 @@ def phase_training(full_case, card):
 
 def search_inputs(device, tips=SEARCH_TIPS, sites=SEARCH_SITES,
                   seed=SEARCH_SEED):
-    """The JAX bench's search_round case (bench.py measure_search_round):
-    random truth tree, GTR+Gamma(0.9) alignment simulated down it, a
-    random start tree over the same labels; f32.  Returns (truth, start,
-    chars, cfg, model)."""
-    import torch
-
-    from libpll2_tpu_torch import engine
-    from libpll2_tpu_torch import tree as T
-    from libpll2_tpu_torch.config import PartitionConfig
-    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
-    from libpll2_tpu_torch.tree.generate import (random_newick,
-                                                 simulate_alignment)
-
-    rng = np.random.default_rng(seed)
-    rates = compute_gamma_cats(0.9, 4)
-    subst = [1.2, 2.7, 0.8, 1.1, 3.0, 1.0]
-    freqs = [0.28, 0.24, 0.22, 0.26]
-    truth = T.parse_newick_string(
-        random_newick(tips, rng, min_bl=0.02, max_bl=0.35))
-    chars = simulate_alignment(truth, sites, rng, subst, freqs, rates)
-    start = T.parse_newick_string(
-        random_newick(tips, rng, min_bl=0.05, max_bl=0.3))
-    ren = dict(zip(sorted(n.label for n in start.nodes[:tips]),
-                   sorted(chars)))
-    for n in start.nodes[:tips]:
-        n.label = ren[n.label]
-    cfg = PartitionConfig(
-        tips=tips, clv_buffers=start.inner_count, states=4, sites=sites,
-        rate_matrices=1, prob_matrices=2 * tips - 3, rate_cats=4,
-        scale_buffers=start.inner_count, dtype=torch.float32)
-    model = engine.make_model([subst], [freqs], rates, dtype=torch.float32,
-                              device=device)
-    return truth, start, chars, cfg, model
+    """The JAX bench's search_round case (bench.py measure_search_round,
+    profiling.search_case): random truth tree, GTR+Gamma(0.9) alignment
+    simulated down it, a random start tree over the same labels; f32.
+    Returns (truth, start, chars, cfg, model)."""
+    from libpll2_tpu_torch.profiling import search_case
+    return search_case(device, tips, sites, seed)
 
 
 def protein_search_inputs(device, tips=20, sites=512, seed=7):
@@ -2454,43 +2436,21 @@ def partition_results(p, tree, fd: bool):
     return out
 
 
-def profile_kernels(fn, top=5):
-    """One call of `fn` under torch.profiler: (wall ms, kernel ms, the
-    `top` kernels by summed device time as (name, ms, count)), or None
-    where the trace holds no kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    if not by_name:
-        return None
-    rows = sorted(((k,) + v for k, v in by_name.items()),
-                  key=lambda r: -r[1])
-    return wall, sum(r[1] for r in rows), rows[:top]
-
-
 def log_profile(label, prof, card):
+    """A [partition] line of one profiling.profile_kernels result: wall,
+    kernel time (the union of the device rows; their sum beside it where
+    the two differ), idle share and the top five kernels."""
     if prof is None:
         log(f"[partition] profile of {label}: the trace holds no kernel "
             f"(device time not measured)")
         return
-    wall, kernel_ms, rows = prof
-    log(f"[partition] profile of {label}: wall {wall:.4f} ms, kernels "
-        f"{kernel_ms:.4f} ms (idle share {1 - kernel_ms / wall:.4f}); "
-        f"top kernels: " + "; ".join(
-            f"{name[:60]} {ms:.4f} ms x {n}" for name, ms, n in rows)
+    summed = "" if abs(prof.kernel_sum_ms - prof.kernel_ms) < 1e-6 else \
+        f", summed {prof.kernel_sum_ms:.4f} ms"
+    log(f"[partition] profile of {label}: wall {prof.wall_ms:.4f} ms "
+        f"({prof.profiled_wall_ms:.4f} under the profiler), kernels "
+        f"{prof.kernel_ms:.4f} ms{summed} (idle share "
+        f"{prof.idle_share:.4f}); top kernels: " + "; ".join(
+            f"{name[:60]} {ms:.4f} ms x {n}" for name, ms, n in prof.top(5))
         + f" ({card})")
 
 
@@ -2505,6 +2465,7 @@ def time_update_partials(p, ops, card, label):
 
     from libpll2_tpu_torch import partition
     from libpll2_tpu_torch.ops import partials as partials_ops
+    from libpll2_tpu_torch.profiling import profile_kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -2888,6 +2849,160 @@ def phase_sharded(device, card, tips=PART_TIPS, sites=PART_SITES,
     return counts
 
 
+EXAMPLES_F64 = ("rooted", "rooted_tacg", "unrooted", "partial_traversal",
+                "newton", "lg4", "protein_list", "heterotachy",
+                "newick_fasta_unrooted", "newick_phylip_unrooted",
+                "load_utree", "newick_export", "parsimony_demo",
+                "stepwise_demo", "optimize_demo")
+EXAMPLES_RTOL = 1e-9     # an f64 demo's numbers, card against host CPU
+
+
+def run_example(name, argv, card):
+    """libpll2_tpu_torch.examples.<name>.main(argv) in this process, its
+    standard output captured: (output, main's return value).  Prints an
+    [examples] line with its wall seconds."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+    module = importlib.import_module(f"libpll2_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = module.main(argv)
+    torch.cuda.synchronize()
+    where = "host CPU" if "cpu" in argv else "card"
+    log(f"[examples] {name} {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.3f} s on the {where} ({card})")
+    return buf.getvalue(), ret
+
+
+def compare_outputs(name, want, got, rtol=EXAMPLES_RTOL):
+    """The largest relative difference of the numbers of two outputs of
+    one demo; fails where the text between the numbers differs."""
+    from libpll2_tpu_torch.examples._common import split_numbers
+    want_lines, got_lines = want.splitlines(), got.splitlines()
+    check(len(want_lines) == len(got_lines) and want_lines,
+          f"{name}: {len(got_lines)} lines on the card, {len(want_lines)} "
+          f"on the host CPU")
+    worst = 0.0
+    for w, g in zip(want_lines, got_lines):
+        (wt, wn), (gt, gn) = split_numbers(w), split_numbers(g)
+        check(wt == gt, f"{name}: text differs: {w!r} (host CPU) {g!r} "
+                        f"(card)")
+        for a, b in zip(wn, gn):
+            if a != b:
+                worst = max(worst, abs(a - b) / max(abs(a), abs(b)))
+    check(worst <= rtol, f"{name}: numbers differ by {worst:.3e} > {rtol}")
+    return worst
+
+
+def phase_examples(device, card):
+    """Phase 23: every demo of libpll2_tpu_torch.examples, in this process.
+    The f64 demos on the card and on the host CPU, their outputs compared;
+    large_search at its defaults (256 x 4,096, radius 5, 12 rounds, f32
+    through the kernels): a monotone trace and a final logL within
+    LOGL_RTOL of the dense f64 path on the final tree; infer_demo at its
+    defaults: RF to the truth at most INFER_RF.  Returns the launches of
+    the demos on the card."""
+    import torch
+
+    from libpll2_tpu_torch.tree.compare import rf_distance_normalized
+    t_phase = time.perf_counter()
+    reset_counts()
+    worst = {}
+    for name in EXAMPLES_F64:
+        on_card, _ = run_example(name, [], card)
+        on_host, _ = run_example(name, ["--device", "cpu"], card)
+        worst[name] = compare_outputs(name, on_host, on_card)
+    log(f"[examples] {len(EXAMPLES_F64)} f64 demos, card against host CPU: "
+        f"text equal, largest relative difference of a number "
+        f"{max(worst.values()):.3e} ({max(worst, key=worst.get)}; bound "
+        f"{EXAMPLES_RTOL})")
+
+    out, res = run_example("large_search", [], card)
+    for line in out.splitlines():
+        log(f"[examples]   {line}")
+    trace = res["stats"]["logl_trace"]
+    check(all(np.isfinite(trace)), "large_search: non-finite logL")
+    check(all(b >= a for a, b in zip(trace, trace[1:])),
+          "large_search: the logL trace decreased")
+    logl64 = dense_f64_logl(res["tree"], res["chars"], SEARCH_SITES, device)
+    gap = abs(res["logl"] - logl64) / abs(logl64)
+    rf = rf_distance_normalized(res["tree"], res["truth"])
+    log(f"[examples] large_search: {res['stats']['rounds']} rounds, final "
+        f"logL {res['logl']!r}, dense f64 on its tree {logl64!r} (rel gap "
+        f"{gap:.3e}), RF to the truth {rf:.4f}")
+    check(gap < LOGL_RTOL, f"large_search: final logL gap {gap} >= "
+                           f"{LOGL_RTOL}")
+
+    out, res = run_example("infer_demo", [], card)
+    for line in out.splitlines():
+        log(f"[examples]   {line}")
+    check(np.isfinite(res["result"].logl), "infer_demo: non-finite logL")
+    check(res["rf"] <= INFER_RF, f"infer_demo: RF {res['rf']} > {INFER_RF}")
+    counts = read_counts()
+    log(f"[examples] launches on the card: tree_sweep "
+        f"{counts['tree_sweep']}, tree_sweep_mma {counts['tree_sweep_mma']}, "
+        f"edge_score {counts['edge_score']}; phase 23 "
+        f"{time.perf_counter() - t_phase:.3f} s ({card})")
+    check(counts["tree_sweep"] + counts["tree_sweep_mma"] > 0
+          and counts["edge_score"] > 0,
+          "the demos on the card launched no tree sweep or edge scorer")
+    torch.cuda.empty_cache()
+    return counts
+
+
+PROFILE_TARGETS = (
+    ("engine", dict(tips=256, sites=65536)),
+    ("sweep", dict(tips=256, sites=65536)),
+    ("round", dict(tips=SEARCH_TIPS, sites=SEARCH_SITES,
+                   radius=SEARCH_RADIUS, reps=2)),
+    ("search", dict(tips=SEARCH_TIPS, sites=SEARCH_SITES,
+                    radius=SEARCH_RADIUS, rounds=3)),
+    ("repeats", dict(tips=256, sites=65536, reps=1)),
+)
+
+
+def phase_profiling(device, card):
+    """Phase 24: the five targets of libpll2_tpu_torch.profiling at the
+    main path's shapes, each printed as a [profile] JSON line; each
+    headline's trace must hold a kernel."""
+    import torch
+
+    from libpll2_tpu_torch import profiling
+    t_phase = time.perf_counter()
+    for target, kw in PROFILE_TARGETS:
+        t0 = time.perf_counter()
+        out = profiling.run(target, device, **kw)
+        log("[profile] " + json.dumps(out))
+        check(out["card"] == card, f"{target}: card {out['card']!r}")
+        check(bool(out["top_kernels"]),
+              f"profiling {target}: the headline's trace holds no kernel")
+        if out["kernel_ms"] is None:
+            kernels = f"kernels and idle share null: " \
+                      f"{out['kernel_null_reason']}"
+        else:
+            summed = "" if abs(out["kernel_sum_ms"] - out["kernel_ms"]) \
+                < 1e-6 else f" (rows summed {out['kernel_sum_ms']:.4f} ms)"
+            kernels = f"kernels {out['kernel_ms']:.4f} ms{summed}, idle " \
+                      f"share {out['idle_share']:.4f}"
+        lost = [f"{name} {ph['own_rows']:g} of {ph['own_launches']:g}"
+                for name, ph in out["phases"].items()
+                if ph.get("own_rows") is not None
+                and ph["own_rows"] < ph["own_launches"]]
+        log(f"[profile] {target} {out['headline']}: wall "
+            f"{out['wall_ms']:.4f} ms ({out['profiled_wall_ms']:.4f} under "
+            f"the profiler), {kernels}; phases whose trace lost rows of "
+            f"this package's kernels (rows of launches a call): "
+            f"{'; '.join(lost) or 'none'}; "
+            f"{time.perf_counter() - t0:.3f} s ({card})")
+        torch.cuda.empty_cache()
+    log(f"[profile] phase 24 {time.perf_counter() - t_phase:.3f} s ({card})")
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -2935,6 +3050,8 @@ def main() -> int:
     add(phase_partition(device, card))
     torch.cuda.empty_cache()
     add(phase_sharded(device, card))
+    add(phase_examples(device, card))
+    phase_profiling(device, card)
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]

@@ -39,6 +39,10 @@ class BuildInfo:
     path: Path          # the shared library
     seconds: float      # nvcc wall time; 0.0 when an existing build was used
     log: str            # nvcc's output (ptxas register / spill report)
+    # seconds from the start of the build until each source's nvcc was
+    # waited for (they run side by side and are waited for in turn, so an
+    # upper bound of its end); empty when an existing build was used
+    source_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def _nvcc() -> str:
@@ -93,9 +97,10 @@ def _build(build_dir: Path, source_dir: Path) -> BuildInfo:
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
-    logs, failed = [], []
+    logs, failed, seconds = [], [], {}
     for src, proc in zip(sources, procs):
         text, _ = proc.communicate()
+        seconds[src.name] = time.perf_counter() - t0
         logs.append(f"[{src.name}]\n{text}")
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode})")
@@ -114,7 +119,8 @@ def _build(build_dir: Path, source_dir: Path) -> BuildInfo:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return BuildInfo(out, time.perf_counter() - t0, "\n".join(logs))
+    return BuildInfo(out, time.perf_counter() - t0, "\n".join(logs),
+                     seconds)
 
 
 def library(build_dir=None, source_dir=None) -> ctypes.CDLL:

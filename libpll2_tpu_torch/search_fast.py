@@ -675,7 +675,8 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
                  invariant, ball_levels, score_ops, sub_rows, edge_pos,
                  merge_edges, ball_slots: int, newton_iters: int = 5,
                  cand_batch: int = CAND_BATCH,
-                 use_kernel: bool = False, group=None):
+                 use_kernel: bool = False, form: Optional[str] = None,
+                 group=None):
     """Radius-limited exact SPR scores of ONE ball-size group:
     ([Cg, Vg] scores, [Cg, Vg] t3).
 
@@ -684,9 +685,10 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
     score slot of those candidates is priced.  use_kernel=True prices them
     with ops/edge_score.edge_scores (the CUDA kernel on CUDA tensors, its
     plain version on CPU tensors); its contract — f32, per-site scalers,
-    no asc bias, no invariant-marked site — is the caller's to check.
-    Otherwise the plain scorer of the JAX package's XLA path runs, which
-    takes every configuration.
+    no asc bias, no invariant-marked site — is the caller's to check;
+    `form` forces one of its forms (edge_score.FORMS, for the profiler),
+    None takes the one its plan picks.  Otherwise the plain scorer of the
+    JAX package's XLA path runs, which takes every configuration.
 
     Index arrays (ball_levels, score_ops, sub_rows, edge_pos,
     merge_edges) are int64 tensors."""
@@ -723,7 +725,7 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
                 ops32[cs:cs + cb].contiguous(),
                 rows32[cs:cs + cb].contiguous(), t0, *consts,
                 pattern_weights, newton_iters=newton_iters,
-                log_thresh=cfg.log_scale_threshold)
+                log_thresh=cfg.log_scale_threshold, form=form)
         else:
             srows = sub_rows[cs:cs + cb]
             s, t3 = _score_slots(

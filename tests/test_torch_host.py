@@ -182,7 +182,9 @@ def test_port_never_imports_jax():
     assert {"multipartition.py", "fit.py", "cache.py", "constructs.py",
             "infer.py", "native.py", "fitch.py", "stepwise.py",
             "checkpoint.py", "compress.py", "sharding.py", "distributed.py",
-            "launcher.py", "_rank.py"} <= {f.name for f in files}
+            "launcher.py", "_rank.py", "legacy_search.py", "profiling.py",
+            "_common.py", "optimize_demo.py", "large_search.py",
+            "infer_demo.py"} <= {f.name for f in files}
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -199,6 +201,11 @@ def test_port_import_loads_no_jax():
             " libpll2_tpu_torch.io, libpll2_tpu_torch.native,"
             " libpll2_tpu_torch.parsimony, libpll2_tpu_torch.utils.checkpoint,"
             " libpll2_tpu_torch.parallel, libpll2_tpu_torch.parallel._rank,"
+            " libpll2_tpu_torch.legacy_search, libpll2_tpu_torch.profiling,"
+            " libpll2_tpu_torch.examples.optimize_demo,"
+            " libpll2_tpu_torch.examples.large_search,"
+            " libpll2_tpu_torch.examples.infer_demo,"
+            " libpll2_tpu_torch.examples.partial_traversal,"
             " chip_smoke;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'libpll2_tpu')]; print(bad); "
@@ -254,7 +261,10 @@ def test_no_public_function_defaults_to_the_cpu():
             "libpll2_tpu_torch.parsimony.sankoff.Parsimony",
             "libpll2_tpu_torch.partition.Partition",
             "libpll2_tpu_torch.convert.partition_from_jax",
-            "libpll2_tpu_torch.utils.memory.device_memory_bytes"} \
+            "libpll2_tpu_torch.utils.memory.device_memory_bytes",
+            "libpll2_tpu_torch.profiling.run",
+            "libpll2_tpu_torch.profiling.target_engine",
+            "libpll2_tpu_torch.profiling.target_repeats"} \
         <= set(found)
     for name, param in found.items():
         default = param.default

@@ -7,6 +7,7 @@ paths must agree with each other.
 
 Tolerances: none (text, integers and exact copies of f64 values)."""
 import io
+import time
 
 import numpy as np
 import pytest
@@ -22,9 +23,26 @@ from libpll2_tpu_torch.utils import checkpoint
 
 from .test_io import FASTA, PHYLIP_INT, PHYLIP_SEQ, rand_case
 
-needs_native = pytest.mark.skipif(
-    not (native.ensure_native() and jnative.ensure_native()),
-    reason="native build unavailable")
+
+@pytest.fixture(scope="module")
+def native_libraries():
+    """Both packages' native libraries, loaded when the first test that
+    needs them runs (not while the module is imported).  The JAX package
+    builds its library in place with g++ -o, so a pytest worker can find
+    it half-written while another worker's g++ is still linking it, fail
+    to load it once and remember the failure: such a load is retried,
+    a few seconds apart, before the tests skip."""
+    ok = native.ensure_native()
+    for attempt in range(6):
+        if not ok:
+            break
+        if jnative.ensure_native(force=attempt > 0):
+            return
+        time.sleep(2.0)
+    pytest.skip("native build unavailable")
+
+
+needs_native = pytest.mark.usefixtures("native_libraries")
 
 
 @pytest.fixture

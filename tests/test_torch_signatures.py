@@ -21,10 +21,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # JAX modules with no port module of the same path: TPU kernels replaced
 # by the CUDA wrappers of ops/partials_tree.py and ops/edge_score.py
-# (compared below under PAIRED), and the search the port does not take.
+# (compared below under PAIRED).
 NO_COUNTERPART = {"libpll2_tpu.ops.partials_pallas_tree",
-                  "libpll2_tpu.ops.edge_score_pallas",
-                  "libpll2_tpu.legacy_search"}
+                  "libpll2_tpu.ops.edge_score_pallas"}
 PAIRED = {"libpll2_tpu.ops.partials_pallas_tree":
           "libpll2_tpu_torch.ops.partials_tree",
           "libpll2_tpu.ops.edge_score_pallas":
