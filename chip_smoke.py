@@ -116,7 +116,19 @@ Phases (any failure exits non-zero):
      main path's shapes (engine and sweep at 256 x 65,536, round and
      search on the search inputs, repeats at 256 x 65,536 f64), each
      printed as a [profile] JSON line whose headline trace must hold a
-     kernel.
+     kernel;
+ 25. the generic-state forms of the tree sweep and the edge scorer (the
+     state counts without an instantiation of their own) against their
+     plain versions: the sweep at 3, 5, 6, 7, 8, 12 and 32 states, with
+     per-rate scalers and a scale-heavy case at 5 and 32; the scorer over
+     a round at 5 and 32 states ([generic] lines);
+ 26. 5 states at full width: GTR-5 + Gamma4 f32 at 256 x 65,536,
+     loglikelihood against dense f64, 10 optimize_root_branch steps, the
+     generic sweep's times; one SPR round at 256 x 4,096, radius 5, with
+     5-state tips, its scores held to the plain scorer's and timed, then
+     spr_round on the kernel against dense f64;
+ 27. 32 states at full width: Mk-32 + Gamma4 f32 at 128 x 16,384,
+     loglikelihood against dense f64, the generic sweep's times.
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -269,7 +281,9 @@ def reset_counts() -> None:
     partials_tree.sweep.launches = 0
     for mode in partials_tree.sweep.launches_by_mode:
         partials_tree.sweep.launches_by_mode[mode] = 0
+    partials_tree.sweep.launches_generic = 0
     edge_score.edge_scores.launches = 0
+    edge_score.edge_scores.launches_generic = 0
     for form in edge_score.edge_scores.launches_by_form:
         edge_score.edge_scores.launches_by_form[form] = 0
     probe.chain.launches = 0
@@ -281,13 +295,17 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Launches per kernel since reset_counts (just after a path)."""
+    """Launches per kernel since reset_counts (just after a path).  The
+    generic-state forms' launches are also within "tree_sweep" and
+    "edge_score"."""
     from libpll2_tpu_torch.ops import edge_score, partials_tree
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     by_mode = partials_tree.sweep.launches_by_mode
     return {"tree_sweep": by_mode["fma"], "tree_sweep_mma": by_mode["mma"],
+            "tree_sweep_generic": partials_tree.sweep.launches_generic,
             "edge_score": edge_score.edge_scores.launches,
+            "edge_score_generic": edge_score.edge_scores.launches_generic,
             "mma_probe": probe.chain.launches,
             "cache_probe": cache.scale_shift.launches,
             "construct_probe": constructs.static2.launches,
@@ -473,14 +491,32 @@ def compare_rows_site(got, want, got_s, want_s):
     return rel, int((got_s != want_s).sum().item()), comp, abs_err
 
 
-def sweep_bound(prog, cfg, mode):
+def tip_adds(prog, cfg, tips):
+    """f32 adds a sweep needs for its tip children: P's columns that a
+    child's mask selects, summed, R*S adds a site for each set bit past
+    the first (a resolved state is one column read).  tips: the blocked
+    tip masks [NT, tips, TB] of this run."""
+    import torch
+    bits = torch.zeros(tips.shape[1], dtype=torch.int64, device=tips.device)
+    for k in range(cfg.states):
+        bits += ((tips >> k) & 1).sum(dim=(0, 2))
+    child = np.concatenate([prog.ops[prog.ops[:, 3] > 0, 1],
+                            prog.ops[prog.ops[:, 6] > 0, 4]])
+    extra = (bits.cpu().numpy()[child] - cfg.sites_padded).clip(0).sum()
+    return cfg.rate_cats * cfg.states * int(extra)
+
+
+def sweep_bound(prog, cfg, mode, tips):
     """Least time (ms) the card could take for one sweep: the larger of
     the bytes it must move through device memory (tip masks, op table and
     P-matrices read once, exported rows written once) over the HBM rate,
-    and its operations over the peak of the unit that does them: f32 FMAs,
-    or for "mma" the TF32 products of the compensated split (three per
-    inner child, two per tip child) plus the f32 elementwise work.  Also
-    the time of its shared-memory traffic (two children read, one parent
+    and its operations over the peak of the unit that does them.  For
+    "fma" the f32 work the function needs: a product P . c for each inner
+    child, `tip_adds` for the tip children of this run's masks, and the
+    elementwise work.  For "mma" the TF32 products of the compensated
+    split (three per inner child, two per tip child, which the form
+    multiplies as one-hot rows) plus the f32 elementwise work.  Also the
+    time of its shared-memory traffic (two children read, one parent
     written per op) at the shared-memory rate.  Returns (bound_ms,
     bound_by, bytes_ms, ops_ms, smem_ms)."""
     sites, R, S = cfg.sites_padded, cfg.rate_cats, cfg.states
@@ -497,7 +533,8 @@ def sweep_bound(prog, cfg, mode):
         ops_s = ((3 * inner_children + 2 * tip_children) * product
                  / TF32_RATE + elementwise / F32_RATE)
     else:
-        ops_s = (2 * prog.n_ops * product + elementwise) / F32_RATE
+        ops_s = (inner_children * product + tip_adds(prog, cfg, tips)
+                 + elementwise) / F32_RATE
     bytes_s = nbytes / HBM_RATE
     smem_s = prog.n_ops * sites * 3 * (cfg.span + sr) * 4 / SMEM_RATE
     return (max(bytes_s, ops_s) * 1e3,
@@ -823,6 +860,28 @@ def score_round_both(prog, model, chars, timed: bool):
     return out
 
 
+def check_scores(name, r):
+    """The checks made of one score_round_both result: -inf patterns
+    equal, finite scores within SCORE_RTOL, t3 within its bound."""
+    check(r["same_inf"], f"{name}: -inf patterns differ")
+    check(r["finite"] > 0, f"{name}: no finite score compared")
+    check(r["max_rel_err"] <= SCORE_RTOL,
+          f"{name}: score rel err {r['max_rel_err']} > {SCORE_RTOL}")
+    check(r["t3_excess"] <= 0.0, f"{name}: t3 outside its bound")
+
+
+def log_scores(tag, name, r):
+    """One line of a score_round_both result, opened by `tag`."""
+    log(f"{tag} {name}: form={r['form']} cluster={r['cluster']} "
+        f"({r['smem']} bytes of shared memory per CTA; forms held "
+        f"against the plain version: {', '.join(r['forms'])}); "
+        f"{r['launches']} launches, {r['slots']} valid "
+        f"slots, {r['finite']} finite in both; -inf pattern equal "
+        f"{r['same_inf']}; score max abs err {r['max_abs_err']:.3e}, "
+        f"rel {r['max_rel_err']:.3e} (bound {SCORE_RTOL}); t3 max rel "
+        f"{r['t3_rel']:.3e} (bound rtol {T3_RTOL} atol {T3_ATOL})")
+
+
 def phase_edge_scorer(device, card):
     from libpll2_tpu_torch import search_fast as sf
 
@@ -836,19 +895,8 @@ def phase_edge_scorer(device, card):
                      f"{SEARCH_RADIUS}", full),
                     (f"S={pcfg.states} {pcfg.tips}x{pcfg.sites} radius 3",
                      small)):
-        log(f"[edge] {name}: form={r['form']} cluster={r['cluster']} "
-            f"({r['smem']} bytes of shared memory per CTA; forms held "
-            f"against the plain version: {', '.join(r['forms'])}); "
-            f"{r['launches']} launches, {r['slots']} valid "
-            f"slots, {r['finite']} finite in both; -inf pattern equal "
-            f"{r['same_inf']}; score max abs err {r['max_abs_err']:.3e}, "
-            f"rel {r['max_rel_err']:.3e} (bound {SCORE_RTOL}); t3 max rel "
-            f"{r['t3_rel']:.3e} (bound rtol {T3_RTOL} atol {T3_ATOL})")
-        check(r["same_inf"], f"{name}: -inf patterns differ")
-        check(r["finite"] > 0, f"{name}: no finite score compared")
-        check(r["max_rel_err"] <= SCORE_RTOL,
-              f"{name}: score rel err {r['max_rel_err']} > {SCORE_RTOL}")
-        check(r["t3_excess"] <= 0.0, f"{name}: t3 outside its bound")
+        log_scores("[edge]", name, r)
+        check_scores(name, r)
     log(f"[time] edge scorer over one full-width round ({full['launches']} "
         f"launches of up to {sf.CAND_BATCH} candidates): " + ", ".join(
             f"{f} form {full[f + '_ms']:.4f} ms" for f in full["forms"])
@@ -935,7 +983,8 @@ def engine_logl(tree, chars, sites, device, dtype, use_kernel, sweep_mode=None,
                 subst=(1.2, 2.7, 0.8, 1.1, 3.0, 1.0),
                 freqs=(0.28, 0.24, 0.22, 0.26), alpha=0.9):
     """logL of `tree` (its own branch lengths) by engine.loglikelihood on
-    the data of search_inputs, under its model unless another is given:
+    the data of search_inputs, under its model unless another is given
+    (of as many states as `freqs` has):
     the dense path (use_kernel False) or the tree-sweep kernel (True, f32;
     `sweep_mode` forces a form)."""
     import torch
@@ -946,7 +995,7 @@ def engine_logl(tree, chars, sites, device, dtype, use_kernel, sweep_mode=None,
 
     n = tree.tip_count
     cfg = PartitionConfig(
-        tips=n, clv_buffers=tree.inner_count, states=4, sites=sites,
+        tips=n, clv_buffers=tree.inner_count, states=len(freqs), sites=sites,
         rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=4,
         scale_buffers=tree.inner_count, dtype=dtype,
         use_kernel=use_kernel, sweep_mode=sweep_mode)
@@ -1465,7 +1514,7 @@ def phase_sweep_times(cases, card):
             b2b = [cuda_ms_back_to_back(call, 30) for _ in range(3)]
             off_b2b = cuda_ms_back_to_back(lambda: call(carry=False), 30)
             med = statistics.median(b2b)
-            b = sweep_bound(prog, cfg, mode)
+            b = sweep_bound(prog, cfg, mode, tips[tb])
             flags = partials_tree.carry_flags(prog)
             carried = int((flags[:, 0] > 0).sum())
             if mode == "mma" and (cfg.states, cfg.rate_cats) not in \
@@ -3003,6 +3052,327 @@ def phase_profiling(device, card):
     log(f"[profile] phase 24 {time.perf_counter() - t_phase:.3f} s ({card})")
 
 
+# Phases 25-27: the generic-state forms of the tree sweep and the edge
+# scorer, at state counts without an instantiation of their own (2, 4, 10,
+# 16 and 20 have theirs).  Small cases against the plain versions, then the
+# paths at full width: 5 states at dna_256's size, 32 at protein_128's.
+ODD_STATES = (3, 5, 6, 7, 8, 12, 32)
+ODD_TIPS, ODD_SITES = 40, 2048          # the small sweep cases, random trees
+ODD_SEARCH_TIPS, ODD_SEARCH_SITES = 20, 512   # the small scorer cases
+ODD5_TIPS, ODD5_SITES = 256, 65536      # GTR-5 + Gamma4, dna_256's size
+ODD32_TIPS, ODD32_SITES = 128, 16384    # Mk-32 + Gamma4, protein_128's size
+ODD_TRAIN_STEPS = 10
+ODD_SEED = 5
+
+
+def odd_model(states, seed=ODD_SEED):
+    """(exchangeabilities, frequencies): at 5 states GTR drawn from `seed`
+    (gap as a fifth state), at any other count Mk (all equal, as RAxML-NG's
+    MULTIx_MK)."""
+    if states == 5:
+        rng = np.random.default_rng(seed)
+        return (rng.uniform(0.5, 2.0, 10).tolist(),
+                rng.dirichlet(np.full(5, 5.0)).tolist())
+    return [1.0] * (states * (states - 1) // 2), [1.0 / states] * states
+
+
+def odd_case(tips, sites, states, device, dtype, use_kernel=None,
+             seed=ODD_SEED):
+    """engine.build_case's forward case at `states` states under
+    odd_model: a balanced tree, Gamma(1) four rates, one-hot random tips
+    from `seed`.  Returns (cfg, program, model, branch_lengths, tipchars,
+    pattern_weights, invariant)."""
+    from libpll2_tpu_torch import engine
+    subst, freqs = odd_model(states, seed)
+    return engine.build_case(tips, sites, dtype=dtype, device=device,
+                             seed=seed, use_kernel=use_kernel, states=states,
+                             subst=subst, freqs=freqs)
+
+
+def odd_search_inputs(device, states, tips=SEARCH_TIPS, sites=SEARCH_SITES,
+                      seed=SEARCH_SEED):
+    """search_inputs' case (profiling.search_case) at `states` states
+    under odd_model; f32.  Returns (truth, start, chars, cfg, model)."""
+    from libpll2_tpu_torch.profiling import search_case
+    subst, freqs = odd_model(states)
+    return search_case(device, tips, sites, seed, subst=subst, freqs=freqs)
+
+
+def phase_generic_vs_plain(device):
+    """Phase 25: the generic-state forms against their plain versions at
+    small sizes.  The tree sweep at every count of ODD_STATES on a random
+    ODD_TIPS-taxon tree x ODD_SITES sites under a random model, and per-rate
+    scalers and a scale-heavy case (branch lengths x 30) at 5 and 32
+    states: rows at CLV_RTOL, no scaler mismatch, one launch of the generic
+    form each.  The edge scorer at 5 and 32 states over every ball group of
+    a radius-3 round of ODD_SEARCH_TIPS x ODD_SEARCH_SITES, both forms where
+    the resident one is planned.  Returns the sweep's max abs err."""
+    import torch
+
+    from libpll2_tpu_torch import search_fast as sf
+    from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.tree.generate import random_newick
+
+    rng = np.random.default_rng(2614)
+    cases = [(f"S{s}", s, {}) for s in ODD_STATES]
+    for s in (5, 32):
+        cases += [(f"S{s}_per_rate", s, {"per_rate": True,
+                                          "bl_scale": 30.0}),
+                  (f"S{s}_scale_heavy", s, {"bl_scale": 30.0})]
+    worst = 0.0
+    for i, (name, states, kw) in enumerate(cases):
+        cfg, program, pmatrix, tip_b, tb = sweep_inputs(
+            random_newick(ODD_TIPS, rng), ODD_SITES, 100 + i, device,
+            states=states, random_model=True, **kw)
+        prog = program.vmem_prog
+        before = partials_tree.sweep.launches_generic
+        got = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+        want = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+        torch.cuda.synchronize()
+        launched = partials_tree.sweep.launches_generic - before
+        abs_err, mism, rel = compare_rows(got[0], want[0], got[1], want[1])
+        rescues = int(want[1].max().item())
+        log(f"[generic] sweep {name}: ops={prog.n_ops} pool={prog.pool_size} "
+            f"tb={tb} threads={partials_tree.fma_threads(cfg, tb)} smem/cta="
+            f"{partials_tree.smem_bytes(prog, cfg, tb)} sites={ODD_SITES} "
+            f"per_rate={cfg.per_rate_scalers} generic launches {launched}; "
+            f"max_abs_err={abs_err:.3e} compensated_rel_err={rel:.3e} "
+            f"scaler_mismatches={mism} max_scaler={rescues}")
+        check(launched == 1, f"{name}: the generic sweep ran {launched} times")
+        check(mism == 0, f"{name}: {mism} scaler mismatches")
+        check(rel <= CLV_RTOL, f"{name}: CLV rel err {rel} > {CLV_RTOL}")
+        if "bl_scale" in kw:
+            check(rescues > 0, f"{name}: scale-heavy case did not rescue")
+        worst = max(worst, abs_err)
+    for states in (5, 32):
+        _truth, start, chars, cfg, model = odd_search_inputs(
+            device, states, ODD_SEARCH_TIPS, ODD_SEARCH_SITES)
+        before = edge_score.edge_scores.launches_generic
+        r = score_round_both(sf.compile_spr(start, cfg, radius=3), model,
+                             chars, timed=False)
+        launched = edge_score.edge_scores.launches_generic - before
+        name = f"S={states} {cfg.tips}x{cfg.sites} radius 3"
+        log_scores("[generic] edge scorer", name, r)
+        check(launched == r["launches"] * len(r["forms"]),
+              f"{name}: {launched} generic scorer launches for "
+              f"{r['launches']} chunks")
+        check_scores(name, r)
+    return worst
+
+
+def generic_sweep_times(name, case, card):
+    """The generic sweep alone at a full-width case, at the block
+    `engine.kernel_choice` gives: rows against the plain version, the
+    kernel as 30 calls back to back (3 runs), single calls, the plain
+    version (median of 2 calls), and the bound.  Returns a kernels-line
+    dict."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.ops import partials_tree
+
+    cfg, program, model, bl, tipchars, *_ = case
+    prog = program.vmem_prog
+    pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+    tb, mode = engine.kernel_choice(
+        program, dataclasses.replace(cfg, use_kernel=True), tipchars.device)
+    check(mode == "fma" and partials_tree.generic(cfg),
+          f"{name}: kernel_choice gave {mode!r} at {cfg.states} states")
+    tips = engine.block_tips(tipchars, cfg, tb)
+
+    def call():
+        return partials_tree.sweep(tips, pmatrix, prog, cfg, tb)
+    got = {}
+    first = cuda_ms(lambda: got.setdefault("v", call()), 1)[0]
+    plain = {}
+    plain_ms = statistics.median(cuda_ms(lambda: plain.__setitem__(
+        "v", partials_tree.sweep_reference(tips, pmatrix, prog, cfg, tb)),
+        2))
+    abs_err, mism, rel = compare_rows(got["v"][0], plain["v"][0],
+                                      got["v"][1], plain["v"][1])
+    check(mism == 0 and rel <= CLV_RTOL,
+          f"{name}: generic rows off plain by {rel}, {mism} scaler "
+          f"mismatches")
+    del got, plain
+    single = statistics.median(cuda_ms(call, 10))
+    b2b = [cuda_ms_back_to_back(call, 30) for _ in range(3)]
+    med = statistics.median(b2b)
+    b = sweep_bound(prog, cfg, "fma", tips)
+    updates = (cfg.tips - 2) * cfg.sites
+    log(f"[time] sweep generic {name} {cfg.tips}x{cfg.sites} S={cfg.states} "
+        f"ops={prog.n_ops} pool={prog.pool_size} tb={tb} threads="
+        f"{partials_tree.fma_threads(cfg, tb)} ctas={cfg.sites_padded // tb} "
+        f"smem/cta={partials_tree.smem_bytes(prog, cfg, tb)}: {med:.4f} ms a "
+        f"call in 30 launched back to back (3 runs: "
+        f"{', '.join(f'{t:.4f}' for t in b2b)}), warm median of 10 single "
+        f"calls {single:.4f} ms, first call {first:.3f} ms, "
+        f"{updates / (med * 1e-3):.4e} site-updates/s; plain sweep_reference "
+        f"{plain_ms:.2f} ms (median of 2); rows against plain: compensated "
+        f"rel {rel:.3e}, abs {abs_err:.3e}, {mism} scaler mismatches; bound "
+        f"{b[0]:.4f} ms by {b[1]} (HBM bytes {b[2]:.4f}, operations "
+        f"{b[3]:.4f}; shared-memory traffic {b[4]:.4f}) ({card})")
+    del pmatrix, tips
+    torch.cuda.empty_cache()
+    return dict(ms=med, runs=b2b, single_call_ms=single, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], smem_ms=b[4],
+                max_abs_err=abs_err)
+
+
+def forward_vs_dense(name, case, tips, sites, states, device, card):
+    """engine.loglikelihood at full width through the kernel (by launch
+    count, the generic sweep), against the dense f64 path on the same
+    inputs; the dense f32 path's time beside the kernel path's.  Returns
+    the launch counts."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+
+    cfg, program, model, *args = case
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logl = engine.loglikelihood(program, cfg, model, *args).item()
+    cold = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(counts["tree_sweep_generic"] >= 1 and counts["tree_sweep_generic"]
+          == counts["tree_sweep"] + counts["tree_sweep_mma"],
+          f"{name}: the forward step did not run on the generic sweep "
+          f"({counts})")
+    ms = {}
+    for label, c in (("kernel", cfg), ("dense_f32", dataclasses.replace(
+            cfg, use_kernel=False))):
+        def call(c=c):
+            return engine.loglikelihood(program, c, model, *args)
+        call()
+        ms[label] = statistics.median(cuda_ms(call, 5))
+    cfg64, program64, model64, *args64 = odd_case(
+        tips, sites, states, device, torch.float64, use_kernel=False)
+    ref = engine.loglikelihood(program64, cfg64, model64, *args64).item()
+    del args64
+    torch.cuda.empty_cache()
+    gap = abs(logl - ref) / abs(ref)
+    log(f"[generic] forward {name} {tips}x{sites} S={states}: logL kernel "
+        f"f32 {logl!r} dense f64 {ref!r} rel gap {gap:.3e} (bound "
+        f"{LOGL_RTOL}); generic sweep launches {counts['tree_sweep_generic']}"
+        f"; first call {cold:.3f} ms")
+    log(f"[time] loglikelihood {name} {tips}x{sites} S={states}: kernel "
+        f"{ms['kernel']:.4f} ms, dense f32 path {ms['dense_f32']:.4f} ms "
+        f"(warm medians of 5 single calls) ({card})")
+    check(np.isfinite(logl) and gap < LOGL_RTOL,
+          f"{name}: rel gap {gap} >= {LOGL_RTOL}")
+    return counts
+
+
+def phase_generic_5(device, card):
+    """Phase 26: 5 states at full width.  GTR-5 + Gamma4 f32 at
+    ODD5_TIPS x ODD5_SITES: loglikelihood against dense f64,
+    ODD_TRAIN_STEPS optimize_root_branch steps (the logL they reach
+    against dense f64 at the same lengths), the generic sweep's times; one
+    SPR round on search_inputs' shape (radius 5) with 5-state tips through
+    the edge scorer, its scores held to the plain scorer's on every chunk
+    and timed, then spr_round itself on the kernel.  Returns (launch
+    counts of the path, the sweep's times, the scorer's results)."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import search_fast as sf
+    from libpll2_tpu_torch.profiling import SEARCH_ALPHA
+
+    t_phase = time.perf_counter()
+    case = odd_case(ODD5_TIPS, ODD5_SITES, 5, device, torch.float32)
+    counts = forward_vs_dense("odd5", case, ODD5_TIPS, ODD5_SITES, 5,
+                              device, card)
+    cfg, program, model, bl, *args = case
+    reset_counts()
+    trace = []
+    for _ in range(ODD_TRAIN_STEPS):
+        bl, logl = engine.optimize_root_branch(program, cfg, model, bl,
+                                               *args)
+        trace.append(logl.item())
+    final = engine.loglikelihood(program, cfg, model, bl, *args).item()
+    torch.cuda.synchronize()
+    train = read_counts()
+    cfg64, program64, model64, _bl64, *args64 = odd_case(
+        ODD5_TIPS, ODD5_SITES, 5, device, torch.float64, use_kernel=False)
+    final64 = engine.loglikelihood(program64, cfg64, model64, bl.double(),
+                                   *args64).item()
+    del args64
+    torch.cuda.empty_cache()
+    gap = abs(final - final64) / abs(final64)
+    log(f"[generic] train odd5: {ODD_TRAIN_STEPS} optimize_root_branch "
+        f"steps, logL before each {trace}; after the last f32 {final!r}, "
+        f"dense f64 at the same lengths {final64!r} (rel gap {gap:.3e}); "
+        f"generic sweep launches {train['tree_sweep_generic']}")
+    check(train["tree_sweep_generic"] >= ODD_TRAIN_STEPS,
+          "the training steps did not run on the generic sweep")
+    check(np.isfinite(final) and gap < LOGL_RTOL,
+          f"odd5 training: rel gap {gap} >= {LOGL_RTOL}")
+    check(final >= trace[0] - LOGL_RTOL * abs(trace[0]),
+          f"odd5 training: logL fell from {trace[0]} to {final}")
+    times = generic_sweep_times("odd5", case, card)
+    del case
+    torch.cuda.empty_cache()
+
+    truth, start, chars, scfg, smodel = odd_search_inputs(device, 5)
+    prog = sf.compile_spr(start, scfg, radius=SEARCH_RADIUS)
+    name = f"S=5 {scfg.tips}x{scfg.sites} radius {SEARCH_RADIUS}"
+    edge = score_round_both(prog, smodel, chars, timed=True)
+    log_scores("[generic] edge scorer", name, edge)
+    check_scores(name, edge)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    new, logl, applied = sf.spr_round(prog, smodel, chars)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    spr = read_counts()
+    subst, freqs = odd_model(5)
+    logl64 = dense_f64_logl(new.tree, chars, scfg.sites, device,
+                            subst=subst, freqs=freqs, alpha=SEARCH_ALPHA)
+    start64 = dense_f64_logl(start, chars, scfg.sites, device, subst=subst,
+                             freqs=freqs, alpha=SEARCH_ALPHA)
+    gap = abs(logl - logl64) / abs(logl64)
+    log(f"[generic] spr_round {name}: {applied} moves applied, logL "
+        f"{start64!r} -> {logl!r} (dense f64 of the new tree {logl64!r}, rel "
+        f"gap {gap:.3e}); edge scorer launches {spr['edge_score']}, of the "
+        f"generic form {spr['edge_score_generic']}; tree sweep launches "
+        f"{spr['tree_sweep']}; {round_s:.3f} s ({card})")
+    log(f"[time] edge scorer generic over one full-width 5-state round "
+        f"({edge['launches']} chunks): " + ", ".join(
+            f"{f} form {edge[f + '_ms']:.4f} ms" for f in edge["forms"])
+        + f" (medians of 3 launches back to back per chunk; the round runs "
+        f"the {edge['form']} form), plain edge_scores_reference "
+        f"{edge['plain_ms']:.4f} ms ({card})")
+    check(spr["edge_score_generic"] > 0
+          and spr["edge_score_generic"] == spr["edge_score"],
+          "the 5-state round did not run on the generic edge scorer")
+    check(applied > 0, "the 5-state round applied no move")
+    check(np.isfinite(logl) and gap < LOGL_RTOL,
+          f"odd5 round: rel gap {gap} >= {LOGL_RTOL}")
+    log(f"[generic] phase 26 {time.perf_counter() - t_phase:.3f} s")
+    path = {k: counts[k] + train[k] + spr[k]
+            for k in ("tree_sweep_generic", "edge_score_generic")}
+    return path, times, edge
+
+
+def phase_generic_32(device, card):
+    """Phase 27: 32 states at full width.  Mk-32 + Gamma4 f32 at
+    ODD32_TIPS x ODD32_SITES: loglikelihood against dense f64, and the
+    generic sweep's times.  Returns (launch counts, the sweep's times)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    case = odd_case(ODD32_TIPS, ODD32_SITES, 32, device, torch.float32)
+    counts = forward_vs_dense("odd32", case, ODD32_TIPS, ODD32_SITES, 32,
+                              device, card)
+    times = generic_sweep_times("odd32", case, card)
+    del case
+    torch.cuda.empty_cache()
+    log(f"[generic] phase 27 {time.perf_counter() - t_phase:.3f} s")
+    return {"tree_sweep_generic": counts["tree_sweep_generic"],
+            "edge_score_generic": 0}, times
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -3012,7 +3382,8 @@ def main() -> int:
     cases, cold_ms, main_counts = phase_main_path(device, card)
     full_case = cases[(256, 65536)]
     launches = {"tree_sweep": 0, "tree_sweep_mma": 0, "edge_score": 0,
-                "mma_probe": 0}
+                "mma_probe": 0, "tree_sweep_generic": 0,
+                "edge_score_generic": 0}
 
     def add(counts):
         for k in ("tree_sweep", "tree_sweep_mma", "edge_score"):
@@ -3052,6 +3423,12 @@ def main() -> int:
     add(phase_sharded(device, card))
     add(phase_examples(device, card))
     phase_profiling(device, card)
+    torch.cuda.empty_cache()
+    generic_err = phase_generic_vs_plain(device)
+    odd5, odd5_times, odd5_edge = phase_generic_5(device, card)
+    odd32, odd32_times = phase_generic_32(device, card)
+    for k in ("tree_sweep_generic", "edge_score_generic"):
+        launches[k] = odd5[k] + odd32[k]
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
@@ -3090,6 +3467,36 @@ def main() -> int:
         "bound_by": "bytes" if edge_bytes_s >= edge_ops_s else "operations",
         "library_ms": None,
         "shape": "one 256 x 4096 round, radius 5",
+    }, {
+        "name": "tree_sweep_generic", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep.cu",
+        "replaces": f"{ppt}:808 (_tree_kernel_static); :1136 "
+                    f"(_tree_kernel_static_seg); :410 (_tree_kernel, vpu), "
+                    f"at the state counts without an instantiation",
+        "launches": launches["tree_sweep_generic"],
+        "max_abs_err": max(generic_err, odd5_times["max_abs_err"],
+                           odd32_times["max_abs_err"]),
+        **{k: odd5_times[k] for k in ("ms", "single_call_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "smem_ms")},
+        "library_ms": None,
+        "shape": "256 x 65536, 5 states",
+        "ms_32_states": odd32_times["ms"],
+        "plain_ms_32_states": odd32_times["plain_ms"],
+        "bound_ms_32_states": odd32_times["bound_ms"],
+    }, {
+        "name": "edge_score_generic", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/edge_score.cu",
+        "replaces": "libpll2_tpu/ops/edge_score_pallas.py:54 (_kernel), at "
+                    "the state counts without an instantiation",
+        "launches": launches["edge_score_generic"],
+        "max_abs_err": odd5_edge["max_abs_err"],
+        "ms": odd5_edge["kernel_ms"], "plain_ms": odd5_edge["plain_ms"],
+        "bound_ms": max(odd5_edge["bytes"] / HBM_RATE,
+                        odd5_edge["flops"] / F32_RATE) * 1e3,
+        "bound_by": "bytes" if odd5_edge["bytes"] / HBM_RATE
+        >= odd5_edge["flops"] / F32_RATE else "operations",
+        "library_ms": None,
+        "shape": "one 256 x 4096 round, radius 5, 5 states",
     }, {
         "name": "mma_probe", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/mma_probe.cu",

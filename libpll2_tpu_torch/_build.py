@@ -187,6 +187,8 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     lib.edge_score_launch.restype = ctypes.c_int
     lib.edge_score_resident_smem.argtypes = [i, i, i, i]
     lib.edge_score_resident_smem.restype = ctypes.c_int
+    lib.edge_score_reread_smem.argtypes = [i, i]         # rates, states
+    lib.edge_score_reread_smem.restype = ctypes.c_int
     lib.cache_probe_launch.argtypes = [
         p, p, i,       # x, out, n
         p,             # stream

@@ -125,3 +125,10 @@ MAPS = {"bin": MAP_BIN, "nt": MAP_NT, "aa": MAP_AA, "gt10": MAP_GT10,
 
 def gap_state(states: int) -> int:
     return (1 << states) - 1
+
+
+def gap_state_int32(states: int) -> int:
+    """gap_state as an int32 tip mask holds it: all ones, -1, at 32
+    states (numpy and torch refuse to cast 2^32 - 1 to int32)."""
+    gap = gap_state(states)
+    return gap - (1 << 32) if gap >= 1 << 31 else gap

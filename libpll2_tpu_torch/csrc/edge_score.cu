@@ -100,6 +100,7 @@ struct Args {
   float* t3;               // [cb, vg]
   int vg, slots, rates, sites, newton_iters;
   float log_thresh;
+  int states;              // read by the generic-state form only
 };
 
 // The rows one slot reads.
@@ -124,10 +125,10 @@ __device__ __forceinline__ Rows slot_rows(const Args& a, const int* op, int c,
 }
 
 // The per-slot constants: H, ML, EV [R][S][S] and x, w0 [R*S], consecutive
-// from sH.  The caller synchronises.
-template <int S>
+// from sH.  The caller synchronises.  S is a compile-time constant where the
+// kernel is specialised for it (the call is inlined and folds it).
 __device__ __forceinline__ void load_constants(const Args& a, const int* op,
-                                               float* sH) {
+                                               float* sH, int S) {
   const int R = a.rates, span = R * S, ss = S * S;
   float* sL = sH + R * ss;
   float* sE = sL + R * ss;
@@ -259,6 +260,69 @@ __device__ __forceinline__ void site_lk(const float* __restrict__ away,
   }
 }
 
+// The generic-state form of site_lk at one site (V = 1): the state count S
+// at run time, up to SMAX, and registers O(1) in S.  Each thread stages its
+// site's columns of a rate category in its own words of shared memory,
+// scratch[k * THREADS] for k < 3 * S (the away and facing rows, then the
+// sub row over the away row, and the product of the two half-branch
+// messages), so that every sum over j reads them from there.  The sums run
+// over j in the order site_lk's do.
+template <int SMAX, bool KEEP>
+__device__ __forceinline__ void site_lk_any(
+    const float* __restrict__ away, const float* __restrict__ other,
+    const float* __restrict__ sub, size_t T, int R, int S, const float* sH,
+    const float* sL, const float* sE, const float4* se, bool derivs,
+    float* scratch, float* st, int st_stride, float& lk0, float& lk1,
+    float& lk2) {
+  lk0 = lk1 = lk2 = 0.0f;
+  float* A = scratch;                 // away, then sub
+  float* O = scratch + S * THREADS;   // facing
+  float* C = O + S * THREADS;         // (H away) * (H facing)
+  for (int r = 0; r < R; ++r) {
+    for (int j = 0; j < S; ++j) {
+      const size_t off = (size_t)(r * S + j) * T;
+      A[j * THREADS] = __ldg(away + off);
+      O[j * THREADS] = __ldg(other + off);
+    }
+    const float* H = sH + r * S * S;
+    for (int i = 0; i < S; ++i) {
+      float ta = 0.0f, tb = 0.0f;
+#pragma unroll
+      for (int j = 0; j < SMAX; ++j) {
+        if (j < S) {
+          const float h = H[i * S + j];
+          ta = fmaf(h, A[j * THREADS], ta);
+          tb = fmaf(h, O[j * THREADS], tb);
+        }
+      }
+      C[i * THREADS] = ta * tb;
+    }
+    for (int k = 0; k < S; ++k)
+      A[k * THREADS] = __ldg(sub + (size_t)(r * S + k) * T);
+    const float* L = sL + r * S * S;
+    const float* E = sE + r * S * S;
+    for (int j = 0; j < S; ++j) {
+      float lef = 0.0f, rig = 0.0f;
+#pragma unroll
+      for (int k = 0; k < SMAX; ++k) {
+        if (k < S) {
+          lef = fmaf(L[j * S + k], C[k * THREADS], lef);
+          rig = fmaf(E[j * S + k], A[k * THREADS], rig);
+        }
+      }
+      const int q = r * S + j;
+      const float4 e = se[q];
+      const float val = lef * rig;
+      lk0 = fmaf(val, e.x, lk0);
+      if (derivs) {
+        lk1 = fmaf(val, e.y, lk1);
+        lk2 = fmaf(val, e.z, lk2);
+      }
+      if constexpr (KEEP) st[(size_t)q * st_stride] = val;
+    }
+  }
+}
+
 // The same from sumtable columns kept in shared memory.
 template <int V>
 __device__ __forceinline__ void site_lk_resident(const float* st,
@@ -374,18 +438,29 @@ constexpr int SUM_FLOATS = 2 * MAX_CLUSTER * NWARPS * 2;
 __host__ __device__ constexpr int resident_head_floats(int R, int S) {
   return (SUM_FLOATS + 4 * NWARPS * R * S + const_floats(R, S) + 3) / 4 * 4;
 }
+// The generic-state form's staging words (site_lk_any), after the head of
+// either form: 3 * S a thread.  A multiple of 4 floats.
+__host__ __device__ constexpr int specialised(int S) {
+  return S == 2 || S == 4 || S == 10 || S == 16 || S == 20;
+}
+__host__ __device__ constexpr int scratch_floats(int S) {
+  return specialised(S) ? 0 : 3 * S * THREADS;
+}
 
-// The "reread" form.  grid = cb * vg slots, block = THREADS.
-template <int S>
+// The "reread" form.  grid = cb * vg slots, block = THREADS.  SMAX > 0: the
+// generic-state form, S = a.states at run time (S = 0 in the template), its
+// staging words (scratch_floats) after the constants.
+template <int S, int SMAX = 0>
 __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
   extern __shared__ float4 smem4[];
   __shared__ float s_t;
+  const int Sn = SMAX > 0 ? a.states : S;
   const int tid = threadIdx.x;
   const int slot = blockIdx.x;               // c * vg + v
   const int c = slot / a.vg;
   const int R = a.rates;
-  const int span = R * S;
-  const int ss = S * S;
+  const int span = R * Sn;
+  const int ss = Sn * Sn;
   const size_t T = (size_t)a.sites;
   const int* op = a.ops + (size_t)slot * OP_COLS;
   const float t0 = __ldg(a.t0 + c);
@@ -405,7 +480,8 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
   float* sE = sL + R * ss;
   float* sx = sE + R * ss;
   float* sw = sx + span;
-  load_constants<S>(a, op, sH);
+  float* scratch = smem + reread_floats(R, Sn) + tid;
+  load_constants(a, op, sH, Sn);
   const Rows rows = slot_rows(a, op, c, span);
   if (tid == 0) s_t = t0;
   __syncthreads();
@@ -420,9 +496,15 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
       float w[1], lk0[1], lk1[1], lk2[1];
       load_sites<1>(a.pw + site, w);
       if (!any_live(w)) continue;      // padding: weight 0, inert
-      site_lk<S, 1, 0, false>(rows.away + site, rows.other + site,
-                              rows.sub + site, T, R, sH, sL, sE, se, !last,
-                              nullptr, 0, lk0, lk1, lk2);
+      if constexpr (SMAX > 0)
+        site_lk_any<SMAX, false>(rows.away + site, rows.other + site,
+                                 rows.sub + site, T, R, Sn, sH, sL, sE, se,
+                                 !last, scratch, nullptr, 0, lk0[0], lk1[0],
+                                 lk2[0]);
+      else
+        site_lk<S, 1, 0, false>(rows.away + site, rows.other + site,
+                                rows.sub + site, T, R, sH, sL, sE, se, !last,
+                                nullptr, 0, lk0, lk1, lk2);
       accumulate<1>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh, acc1,
                     acc2);
     }
@@ -449,8 +531,10 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
 // The "resident" form.  grid = cb * vg slots * k CTAs in clusters of k along
 // x, block = THREADS.  V sites per thread and step (4: 16-byte loads; the
 // host checks the alignment), RC as in site_lk.  shared: the head as above,
-// then the CTA's stripe of the sumtable, st [R*S][stripe] f32.
-template <int S, int V, int RC>
+// then the CTA's stripe of the sumtable, st [R*S][stripe] f32.  SMAX > 0:
+// the generic-state form (S = 0, V = 1, RC = 0), with its staging words
+// (scratch_floats) between the head and the stripe.
+template <int S, int V, int RC, int SMAX = 0>
 __global__ void __launch_bounds__(THREADS, V == 4 ? 2 : 1)
 edge_score_resident_kernel(Args a, int stripe) {
   extern __shared__ float4 smem4[];
@@ -461,8 +545,9 @@ edge_score_resident_kernel(Args a, int stripe) {
   const int slot = blockIdx.x / k;           // c * vg + v
   const int c = slot / a.vg;
   const int R = RC > 0 ? RC : a.rates;
-  const int span = R * S;
-  const int ss = S * S;
+  const int Sn = SMAX > 0 ? a.states : S;
+  const int span = R * Sn;
+  const int ss = Sn * Sn;
   const size_t T = (size_t)a.sites;
   const int* op = a.ops + (size_t)slot * OP_COLS;
   const float t0 = __ldg(a.t0 + c);
@@ -482,8 +567,9 @@ edge_score_resident_kernel(Args a, int stripe) {
   float* sE = sL + R * ss;
   float* sx = sE + R * ss;
   float* sw = sx + span;
-  float* st = smem + resident_head_floats(R, S);
-  load_constants<S>(a, op, sH);
+  float* scratch = smem + resident_head_floats(R, Sn) + tid;
+  float* st = smem + resident_head_floats(R, Sn) + scratch_floats(Sn);
+  load_constants(a, op, sH, Sn);
   const Rows rows = slot_rows(a, op, c, span);
   const size_t first = (size_t)rank * stripe;
   const size_t left = first < T ? T - first : 0;
@@ -503,11 +589,17 @@ edge_score_resident_kernel(Args a, int stripe) {
       float w[V], lk0[V], lk1[V], lk2[V];
       load_sites<V>(a.pw + site, w);
       if (!any_live(w)) continue;      // padding: weight 0, inert
-      if (it == 0)
-        site_lk<S, V, RC, true>(rows.away + site, rows.other + site,
-                                rows.sub + site, T, R, sH, sL, sE, se, !last,
-                                st + ls, stripe, lk0, lk1, lk2);
-      else
+      if (it == 0) {
+        if constexpr (SMAX > 0)
+          site_lk_any<SMAX, true>(rows.away + site, rows.other + site,
+                                  rows.sub + site, T, R, Sn, sH, sL, sE, se,
+                                  !last, scratch, st + ls, stripe, lk0[0],
+                                  lk1[0], lk2[0]);
+        else
+          site_lk<S, V, RC, true>(rows.away + site, rows.other + site,
+                                  rows.sub + site, T, R, sH, sL, sE, se,
+                                  !last, st + ls, stripe, lk0, lk1, lk2);
+      } else
         site_lk_resident<V>(st + ls, stripe, span, se, !last, lk0, lk1, lk2);
       accumulate<V>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh, acc1,
                     acc2);
@@ -556,8 +648,13 @@ cudaError_t allow_shared(K kernel, size_t smem) {
 
 size_t resident_bytes(int rates, int S, int sites, int cluster) {
   const int stripe = (sites + cluster - 1) / cluster;
-  return ((size_t)resident_head_floats(rates, S) +
+  return ((size_t)resident_head_floats(rates, S) + scratch_floats(S) +
           (size_t)rates * S * stripe) * sizeof(float);
+}
+
+size_t reread_bytes(int rates, int S) {
+  return ((size_t)reread_floats(rates, S) + scratch_floats(S)) *
+         sizeof(float);
 }
 
 template <class K>
@@ -591,18 +688,20 @@ bool aligned16(const void* p) {
 // cluster == 0: the "reread" form; else the "resident" form on clusters of
 // `cluster` CTAs: four sites per thread and step where the state count is
 // small enough for the registers, there are four rate categories and every
-// row and stripe starts on 16 bytes, else one.
-template <int S>
+// row and stripe starts on 16 bytes, else one.  SMAX > 0 (S = 0): the
+// generic-state form of either, one site per thread and step.
+template <int S, int SMAX = 0>
 cudaError_t launch(const Args& a, int n_slots, int cluster,
                    cudaStream_t stream) {
+  const int Sn = SMAX > 0 ? a.states : S;
   if (cluster == 0) {
-    const size_t smem = (size_t)reread_floats(a.rates, S) * sizeof(float);
-    cudaError_t err = allow_shared(edge_score_kernel<S>, smem);
+    const size_t smem = reread_bytes(a.rates, Sn);
+    cudaError_t err = allow_shared(edge_score_kernel<S, SMAX>, smem);
     if (err != cudaSuccess) return err;
-    edge_score_kernel<S><<<n_slots, THREADS, smem, stream>>>(a);
+    edge_score_kernel<S, SMAX><<<n_slots, THREADS, smem, stream>>>(a);
     return cudaGetLastError();
   }
-  if constexpr (S <= 4) {
+  if constexpr (S > 0 && S <= 4) {
     const int stripe = (a.sites + cluster - 1) / cluster;
     if (a.rates == 4 && a.sites % 4 == 0 && stripe % 4 == 0 &&
         aligned16(a.away) && aligned16(a.base) && aligned16(a.pw) &&
@@ -610,8 +709,8 @@ cudaError_t launch(const Args& a, int n_slots, int cluster,
       return launch_resident(edge_score_resident_kernel<S, 4, 4>, a, n_slots,
                              S, cluster, stream);
   }
-  return launch_resident(edge_score_resident_kernel<S, 1, 0>, a, n_slots, S,
-                         cluster, stream);
+  return launch_resident(edge_score_resident_kernel<S, 1, 0, SMAX>, a,
+                         n_slots, Sn, cluster, stream);
 }
 
 }  // namespace
@@ -638,7 +737,7 @@ int edge_score_launch(const float* away, const int* away_scal,
                       float log_thresh, int cluster, void* stream) {
   const Args a{away, away_scal, base, base_scal, halves, ops, sub_rows, t0,
                lbd, rbd, xw, pw, score, t3, vg, slots, rates, sites,
-               newton_iters, log_thresh};
+               newton_iters, log_thresh, states};
   if (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 &&
       cluster != 8)
     return (int)cudaErrorInvalidValue;
@@ -650,8 +749,19 @@ int edge_score_launch(const float* away, const int* away_scal,
     case 10: return (int)launch<10>(a, n_slots, cluster, s);
     case 16: return (int)launch<16>(a, n_slots, cluster, s);
     case 20: return (int)launch<20>(a, n_slots, cluster, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  // every other count of an int32 tip mask: the generic-state form
+  if (states < 2 || states > 32) return (int)cudaErrorInvalidValue;
+  if (states <= 8) return (int)launch<0, 8>(a, n_slots, cluster, s);
+  if (states <= 16) return (int)launch<0, 16>(a, n_slots, cluster, s);
+  return (int)launch<0, 32>(a, n_slots, cluster, s);
+}
+
+// Bytes of dynamic shared memory one CTA of the "reread" form needs (what
+// ops/edge_score.py:reread_smem_bytes computes on the host).
+int edge_score_reread_smem(int rates, int states) {
+  return (int)reread_bytes(rates, states);
 }
 
 }  // extern "C"

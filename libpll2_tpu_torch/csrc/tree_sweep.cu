@@ -8,8 +8,10 @@
 //   libpll2_tpu/ops/partials_pallas_tree.py:_tree_kernel_static     (:808)
 //   libpll2_tpu/ops/partials_pallas_tree.py:_tree_kernel_static_seg (:1136)
 // and the broadcast-FMA ("vpu") mode of its runtime-ops kernel _tree_kernel
-// (:410).  They compute the same thing; the JAX package unrolls the op list
-// into the kernel and cuts it into segments to bound Mosaic's compile time.
+// (:410), at every state count they take (2 to 32; the generic-state form
+// at the end of this file serves the counts without an instantiation).
+// They compute the same thing; the JAX package unrolls the op list into the
+// kernel and cuts it into segments to bound Mosaic's compile time.
 // Here the op table is runtime data, so one compiled kernel serves every
 // topology and every op count, with no segments.  The bf16 split-term
 // operands of the TPU kernels are not carried over: f32 FMA is native here.
@@ -518,6 +520,177 @@ cudaError_t launch_rates(const int* ops, int n_ops, const float* pmat,
 #undef TREE_SWEEP_ARGS
 }
 
+// ---------------------------------------------------------------------------
+// The generic-state form: every state count from 2 to 32 without an
+// instantiation above (3, 5-9, 11-15, 17-19, 21-32: odd counts, Dayhoff-6,
+// multistate morphology).  It computes the same op as op_lane, per (site,
+// rate lane), with the state count S at run time up to SMAX (8, 16 or 32:
+// three instantiations for 29 counts).  What it does differently:
+//   * registers stay O(1) in S: row i of the parent is summed over j
+//     reading each child entry from its pool slot (or the bit of its tip
+//     mask) and each P entry through L1, so S = 32 holds no [S] arrays and
+//     does not spill;
+//   * the parent is stored as its rows are formed and scaled in place if
+//     the site (or the (site, rate) under per-rate scalers) rescues;
+//   * nothing is staged ahead and nothing is handed on in registers: every
+//     parent is stored and every child loaded from its slot (a handed-on
+//     child's slot is the previous op's parent slot in the op table), so
+//     the rows are those of the carry on and off alike;
+//   * one thread per (site, rate lane), lanes a power of two >= rates as
+//     in the specialised kernel (padding lanes repeat the last rate and
+//     write nothing out); the per-site rescue is the same AND over the
+//     site's lanes by __shfl_xor_sync.
+// Each thread reads back only pool words it wrote, so no CTA barrier.
+// P rows are read as scalars: at odd S a row starts on a 4-byte boundary.
+// Tip masks are read unsigned: bit 31 is a state at S = 32 and the gap
+// mask is all ones.
+constexpr int GENERIC_THREADS = 1024;
+
+// One op for one lane: K1_TIP / K2_TIP say whether the children are tips
+// (the op table orders a tip child first).  Child 2 at a pool slot, or
+// handed on in the table, is read from its slot.
+template <int SMAX, bool K1_TIP, bool K2_TIP>
+__device__ __forceinline__ void generic_op(
+    const int4& st, const int4& op, const int* __restrict__ tip_col, int tb,
+    const float* __restrict__ pmat, size_t p_stride, int p_rate, int S,
+    float* pool, size_t slot_words, int nth, int t, int* spool,
+    int sr_stride, int sidx, bool keeps, int lanes, int per_rate,
+    float thresh, float factor) {
+  const float* P1 = pmat + (size_t)st.z * p_stride + p_rate;
+  const float* P2 = pmat + (size_t)st.w * p_stride + p_rate;
+  const unsigned m1 =
+      K1_TIP ? static_cast<unsigned>(__ldg(tip_col + (size_t)st.x * tb)) : 0u;
+  const unsigned m2 =
+      K2_TIP ? static_cast<unsigned>(__ldg(tip_col + (size_t)st.y * tb)) : 0u;
+  const float* c1 = pool + (size_t)op.y * slot_words + t;
+  const float* c2 = pool + (size_t)op.z * slot_words + t;
+  float* par = pool + (size_t)op.x * slot_words + t;
+  int below = 1;  // every entry of the parent < thresh
+  for (int i = 0; i < S; ++i) {
+    const float* p1 = P1 + i * S;
+    const float* p2 = P2 + i * S;
+    float left = 0.0f, right = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SMAX; ++j) {
+      if (j < S) {
+        const float a = K1_TIP ? static_cast<float>((m1 >> j) & 1u)
+                               : c1[(size_t)j * nth];
+        const float b = K2_TIP ? static_cast<float>((m2 >> j) & 1u)
+                               : c2[(size_t)j * nth];
+        left = fmaf(__ldg(p1 + j), a, left);
+        right = fmaf(__ldg(p2 + j), b, right);
+      }
+    }
+    const float v = left * right;
+    if (!(v < thresh)) below = 0;
+    par[(size_t)i * nth] = v;
+  }
+  if (!per_rate) {
+    // every lane of the warp takes part in each shuffle
+    for (int x = 1; x < lanes; x <<= 1)
+      below &= __shfl_xor_sync(FULL, below, x);
+  }
+  if (below) {
+    for (int i = 0; i < S; ++i) par[(size_t)i * nth] *= factor;
+  }
+  // scalers: only the lane that keeps this word reads or writes it
+  if (keeps) {
+    int sc = below;
+    if (!K1_TIP) sc += spool[op.y * sr_stride + sidx];
+    if (!K2_TIP) sc += spool[op.z * sr_stride + sidx];
+    spool[op.x * sr_stride + sidx] = sc;
+  }
+}
+
+// grid = NT site blocks of TB sites; block = TB * lanes threads: thread t
+// has rate lane t % lanes of site t / lanes.  shared: pool
+// [pool_size][S][threads] f32, then spool [pool_size][SR] i32 (SR = threads
+// per-rate, TB per-site).  ops as for tree_sweep_kernel.
+template <int SMAX>
+__global__ void __launch_bounds__(GENERIC_THREADS)
+tree_sweep_generic_kernel(const int4* __restrict__ ops, int n_ops,
+                          const float* __restrict__ pmat,
+                          const int* __restrict__ tip_blocked, int tips,
+                          const int* __restrict__ export_slots, int n_exp,
+                          float* __restrict__ clv_out,
+                          int* __restrict__ scal_out, int S, int rates,
+                          int lane_bits, int pool_size, int per_rate,
+                          float thresh, float factor) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, nth = blockDim.x;
+  const int lanes = 1 << lane_bits;
+  const int tb = nth >> lane_bits;
+  const int s0 = t >> lane_bits, r = t & (lanes - 1);
+  const int R = rates;
+  const int sr_stride = per_rate ? nth : tb;
+  const int sidx = per_rate ? t : s0;
+  const bool keeps = per_rate || r == 0;
+  const size_t slot_words = (size_t)S * nth;
+  float* pool = smem;
+  int* spool = reinterpret_cast<int*>(smem + (size_t)pool_size * slot_words);
+  const int* tip_col = tip_blocked + (size_t)blockIdx.x * tips * tb + s0;
+  const size_t p_stride = (size_t)R * S * S;
+  const int p_rate = min(r, R - 1) * S * S;
+
+  for (int w = 0; w < n_ops; ++w) {
+    const int4 st = __ldg(ops + ROW_INT4 * (size_t)w);
+    const int4 op = __ldg(ops + ROW_INT4 * (size_t)w + 1);
+#define LIBPLL_GENERIC_OP(T1, T2)                                             \
+  generic_op<SMAX, T1, T2>(st, op, tip_col, tb, pmat, p_stride, p_rate, S,    \
+                           pool, slot_words, nth, t, spool, sr_stride, sidx,  \
+                           keeps, lanes, per_rate, thresh, factor)
+    // the op's case 2 * kinds + keep; kinds (tip, tip), (tip, pool),
+    // (tip, handed on), (pool, pool), (pool, handed on)
+    switch (op.w >> 1) {
+      case 0: LIBPLL_GENERIC_OP(true, true); break;
+      case 1:
+      case 2: LIBPLL_GENERIC_OP(true, false); break;
+      default: LIBPLL_GENERIC_OP(false, false); break;
+    }
+#undef LIBPLL_GENERIC_OP
+  }
+
+  // export slots are never reused by the schedule; padding lanes write
+  // nothing
+  if (r >= R) return;
+  const int nt = gridDim.x, blk = blockIdx.x;
+  for (int e = 0; e < n_exp; ++e) {
+    const int slot = __ldg(export_slots + e);
+    const float* src = pool + (size_t)slot * slot_words + t;
+    float* dst = clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + s0;
+    for (int i = 0; i < S; ++i) dst[(size_t)i * tb] = src[(size_t)i * nth];
+    if (keeps)
+      scal_out[(((size_t)e * nt + blk) * (per_rate ? R : 1) +
+                (per_rate ? r : 0)) * tb + s0] =
+          spool[slot * sr_stride + sidx];
+  }
+}
+
+template <int SMAX>
+cudaError_t launch_generic(const int* ops, int n_ops, const float* pmat,
+                           const int* tip_blocked, int tips,
+                           const int* export_slots, int n_exp,
+                           float* clv_out, int* scal_out, int nt, int tb,
+                           int rates, int states, int pool_size, int per_rate,
+                           float thresh, float factor, cudaStream_t stream) {
+  int lane_bits = 0;
+  while ((1 << lane_bits) < rates) ++lane_bits;
+  const int nth = tb << lane_bits;
+  if (nth > GENERIC_THREADS || nth % 32) return cudaErrorInvalidValue;
+  const int sr = per_rate ? nth : tb;
+  const size_t smem =
+      (size_t)pool_size * ((size_t)states * nth + sr) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      tree_sweep_generic_kernel<SMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  tree_sweep_generic_kernel<SMAX><<<nt, nth, smem, stream>>>(
+      reinterpret_cast<const int4*>(ops), n_ops, pmat, tip_blocked, tips,
+      export_slots, n_exp, clv_out, scal_out, states, rates, lane_bits,
+      pool_size, per_rate, thresh, factor);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -526,8 +699,10 @@ extern "C" {
 // ops: [n_ops][8] int32, 16-byte aligned (partials_tree.fma_device_table).
 // rates <= 32; tb * (rates rounded up to a power of two) / H threads (H = 2
 // sites a thread up to 4 states, else 1), a multiple of 32, at most 256 for
-// 1 and 4 rates, 1024 otherwise.  The kernel allocates nothing and
-// does not synchronise.
+// 1 and 4 rates, 1024 otherwise.  states 2, 4, 10, 16 and 20 run their own
+// instantiations; any other count from 2 to 32 the generic form (H = 1, at
+// most 1024 threads).  The kernel allocates nothing and does not
+// synchronise.
 int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
                       const int* tip_blocked, int tips,
                       const int* export_slots, int n_exp, float* clv_out,
@@ -552,9 +727,19 @@ int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
     TREE_SWEEP_CASE(16)
     TREE_SWEEP_CASE(20)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
 #undef TREE_SWEEP_CASE
+#define TREE_SWEEP_GENERIC(SMAX)                                             \
+  return (int)launch_generic<SMAX>(ops, n_ops, pmat, tip_blocked, tips,      \
+                                   export_slots, n_exp, clv_out, scal_out,   \
+                                   nt, tb, rates, states, pool_size,         \
+                                   per_rate, thresh, factor, s)
+  if (states < 2 || states > 32) return (int)cudaErrorInvalidValue;
+  if (states <= 8) TREE_SWEEP_GENERIC(8);
+  if (states <= 16) TREE_SWEEP_GENERIC(16);
+  TREE_SWEEP_GENERIC(32);
+#undef TREE_SWEEP_GENERIC
 }
 
 // Dynamic shared memory a block may opt in to on `device`, in bytes.

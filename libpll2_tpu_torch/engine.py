@@ -175,8 +175,8 @@ def pad_tipchars(tipchars: np.ndarray, cfg: PartitionConfig) -> np.ndarray:
     Under ascertainment bias the phantom per-state columns are stamped with
     pure states (phantom site j observes state j at every tip,
     pll.c:1006-1018) whether or not the input carries them."""
-    from .constants import AB_NONE, gap_state
-    out = np.full((cfg.tips, cfg.sites_padded), gap_state(cfg.states),
+    from .constants import AB_NONE, gap_state_int32
+    out = np.full((cfg.tips, cfg.sites_padded), gap_state_int32(cfg.states),
                   dtype=np.int32)
     out[:, :tipchars.shape[1]] = tipchars.astype(np.int32)
     if cfg.asc_bias != AB_NONE:
@@ -913,13 +913,15 @@ def build_case(n_tips: int, sites: int, rate_cats: int = 4,
                seed: int = 0, use_kernel: Optional[bool] = None,
                states: int = 4, aa_model_name: str = "lg",
                newick: Optional[str] = None,
-               sweep_mode: Optional[str] = None):
+               sweep_mode: Optional[str] = None, subst=None, freqs=None):
     """The bench's forward case: a balanced n_tips tree (or `newick`),
     Gamma(alpha=1) rates, one-hot random tips from numpy's generator at
     `seed` (libpll2_tpu's bench.py and __graft_entry__.py build the same
     inputs).  states=4: GTR(1,2,1,1,2,1) with equal frequencies.
     states=20: the empirical model `aa_model_name` (models/aa.py); a
     four-matrix mixture (lg4m, lg4x) gets one matrix per rate category.
+    Any state count from 2 to 32 with `subst` and `freqs` given: that GTR
+    model, len(freqs) == states.
 
     Returns (cfg, program, model, branch_lengths, tipchars,
     pattern_weights, invariant), tensors on `device`."""
@@ -931,14 +933,19 @@ def build_case(n_tips: int, sites: int, rate_cats: int = 4,
     if tree.tip_count != n_tips:
         raise ValueError(f"newick has {tree.tip_count} tips, not {n_tips}")
     rates = compute_gamma_cats(1.0, rate_cats)
-    if states == 20:
+    if freqs is not None:
+        if len(freqs) != states:
+            raise ValueError(f"{len(freqs)} frequencies for {states} states")
+        subst, freqs = [subst], [freqs]
+    elif states == 20:
         from .models.aa import aa_model
         subst, freqs = (np.atleast_2d(x) for x in aa_model(aa_model_name))
     elif states == 4:
         subst, freqs = [[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25] * 4]
     else:
         raise ValueError(f"build_case builds DNA (4) or protein (20) "
-                         f"cases, got states={states}")
+                         f"cases, or takes subst and freqs, got "
+                         f"states={states}")
     n_matrices = len(subst)
     if n_matrices not in (1, rate_cats):
         raise ValueError(f"{aa_model_name} has {n_matrices} matrices, "

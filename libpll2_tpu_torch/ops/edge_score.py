@@ -38,6 +38,13 @@ and the device's shared memory:
   * "reread": one CTA per slot recomputes st from the rows in every pass;
     it serves the shapes whose stripe does not fit a block at k = 8.
 
+Both forms take every state count from 2 to 32 (an int32 tip mask), as
+the Pallas kernel does: 2, 4, 10, 16 and 20 states have instantiations of
+their own, every other count a generic-state one that stages each
+thread's site columns in shared memory (`scratch_floats`).  `unsupported`
+says where neither form fits the device's shared memory; the wrapper and
+the SPR search's gate (search_fast.use_edge_kernel) both ask it.
+
 Neither form stands in for the other after a failure: a build or launch
 error raises.
 
@@ -53,7 +60,7 @@ from typing import Optional
 import torch
 
 from .derivatives import newton_update
-from .partials_tree import KERNEL_STATES, SMEM_LIMIT
+from .partials_tree import FMA_STATES, MAX_STATES, MIN_STATES, SMEM_LIMIT
 
 # score-op columns the scorer reads (search_fast.BOP_*)
 OP_COLS = 12
@@ -70,6 +77,15 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 # passes): clusters of 4 (68 KB a CTA) 7.5 ms, of 2 (131 KB, one CTA an
 # SM) 8.5 ms, of 8 (half the threads idle at four sites a thread) 13.2 ms.
 RESIDENT_CTAS_PER_SM = 3
+# threads of a CTA of either form (csrc/edge_score.cu THREADS)
+THREADS = 256
+
+
+def scratch_floats(states: int) -> int:
+    """f32 words of the generic-state form's staging area, 3 * S a thread
+    (csrc/edge_score.cu:scratch_floats); 0 for the state counts with an
+    instantiation of their own (partials_tree.FMA_STATES)."""
+    return 0 if states in FMA_STATES else 3 * states * THREADS
 
 
 def resident_smem_bytes(rate_cats: int, states: int, sites: int,
@@ -78,13 +94,24 @@ def resident_smem_bytes(rate_cats: int, states: int, sites: int,
     CTAs per slot (csrc/edge_score.cu:edge_score_resident_smem): the sums
     of every warp of the cluster [2, 8 CTAs, 8 warps, 2], the e-terms
     [8 warps, R*S, 4], the constants H, ML, EV [R, S, S] and x, w0 [R*S],
-    rounded up to 16 bytes, then the stripe of the sumtable
+    rounded up to 16 bytes, the generic-state form's staging area
+    (`scratch_floats`), then the stripe of the sumtable
     [R*S, ceil(sites / cluster)], all f32."""
     span = rate_cats * states
     head = 256 + 32 * span + 3 * rate_cats * states * states + 2 * span
     head = -(-head // 4) * 4
     stripe = -(-sites // cluster)
-    return 4 * (head + span * stripe)
+    return 4 * (head + scratch_floats(states) + span * stripe)
+
+
+def reread_smem_bytes(rate_cats: int, states: int) -> int:
+    """Dynamic shared memory of one CTA of the re-reading form
+    (csrc/edge_score.cu:edge_score_reread_smem): the warp sums [8, 2], the
+    e-terms [R*S, 4], the constants H, ML, EV [R, S, S] and x, w0 [R*S],
+    then the generic-state form's staging area, all f32."""
+    span = rate_cats * states
+    return 4 * (16 + 4 * span + 3 * rate_cats * states * states + 2 * span
+                + scratch_floats(states))
 
 
 def plan(rate_cats: int, states: int, sites: int,
@@ -94,12 +121,43 @@ def plan(rate_cats: int, states: int, sites: int,
     smem_limit / RESIDENT_CTAS_PER_SM bytes (so that CTAs of several slots
     share an SM and hide each other's latency); failing that, on the
     smallest cluster whose CTA fits `smem_limit` at all; ("reread", 0)
-    where even the largest cluster does not fit."""
+    where even the largest cluster does not fit (`unsupported` says
+    whether that form fits)."""
     for budget in (smem_limit // RESIDENT_CTAS_PER_SM, smem_limit):
         for k in CLUSTER_SIZES:
             if resident_smem_bytes(rate_cats, states, sites, k) <= budget:
                 return "resident", k
     return "reread", 0
+
+
+def unsupported(rate_cats: int, states: int,
+                smem_limit: int = SMEM_LIMIT) -> Optional[str]:
+    """Why the edge scorer's kernel cannot take this shape, or None if it
+    can: a state count outside 2..32, or the re-reading form's constants
+    and staging area above `smem_limit` bytes of shared memory.  A CTA of
+    the resident form always needs more than one of the re-reading form,
+    so the site count cannot change the answer: where no stripe fits,
+    `plan` picks the re-reading form."""
+    if not MIN_STATES <= states <= MAX_STATES:
+        return (f"the edge scorer takes {MIN_STATES} to {MAX_STATES} states "
+                f"(an int32 tip mask), got {states}")
+    need = reread_smem_bytes(rate_cats, states)
+    if need > smem_limit:
+        return (f"at {rate_cats} rates and {states} states the re-reading "
+                f"form needs {need} bytes of shared memory, above the "
+                f"{smem_limit}-byte limit")
+    return None
+
+
+def smem_limit_of(device: torch.device) -> int:
+    """The shared memory a block may opt in to on `device`: the card's
+    own where `device` is a CUDA device of this process, else SMEM_LIMIT
+    (an H100's), so that a gate asked about a CUDA device without one
+    present answers as it would on the card."""
+    if device.type == "cuda" and torch.cuda.is_available():
+        from .. import _build
+        return _build.max_shared_memory(device)
+    return SMEM_LIMIT
 
 
 def model_constants(model, cfg):
@@ -269,9 +327,11 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
                          f"{sorted({str(x.device) for x in tensors})}")
     _check(*tensors)
     cb, slots, R, S, T = away.shape
-    if S not in KERNEL_STATES:
-        raise ValueError(f"the edge scorer is built for states "
-                         f"{KERNEL_STATES}, got {S}")
+    limit = smem_limit_of(device)
+    reason = unsupported(R, S, limit)
+    if reason is not None:
+        raise ValueError(f"the edge scorer kernel cannot take this case: "
+                         f"{reason}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("edge scorer inputs must be contiguous")
     from .. import _build
@@ -281,7 +341,6 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
     t3 = torch.empty((cb, vg), dtype=torch.float32, device=device)
     if cb * vg == 0:
         return scores, t3
-    limit = _build.max_shared_memory(device)
     planned, cluster = plan(R, S, T, limit)
     if form == "reread":
         cluster = 0
@@ -309,9 +368,13 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
             f"): CUDA error {err} ({_build.error_string(err)})")
     edge_scores.launches += 1
     edge_scores.launches_by_form["resident" if cluster else "reread"] += 1
+    if S not in FMA_STATES:
+        edge_scores.launches_generic += 1
     return scores, t3
 
 
-# kernel launches by this wrapper (plain runs excluded), in all and per form
+# kernel launches by this wrapper (plain runs excluded), in all, per form,
+# and of the generic-state form (within both counts)
 edge_scores.launches = 0
 edge_scores.launches_by_form = {form: 0 for form in FORMS}
+edge_scores.launches_generic = 0

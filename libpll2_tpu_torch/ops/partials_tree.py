@@ -27,7 +27,11 @@ carry on or off).  Two forms of the kernel exist, picked by
     static kernels (the unrolled `_tree_kernel_static`, <= 512 ops, and the
     segmented `_tree_kernel_static_seg`, 513-4096 ops, whose segments exist
     only to bound Mosaic's compile time) and is the counterpart of the
-    runtime-ops kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs);
+    runtime-ops kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs).
+    The state counts of FMA_STATES have instantiations of their own; every
+    other count from 2 to 32 (odd counts, Dayhoff-6, multistate
+    morphology) runs its generic instantiation, which takes the state
+    count at run time and holds O(1) registers in it;
   * "mma" (csrc/tree_sweep_mma.cu): the propagation as one product with the
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
     split of both operands.  It is the counterpart of the runtime-ops
@@ -56,19 +60,28 @@ OP_COLS = 9
 # columns: 0 parent_slot, 1 c1_tip_idx, 2 c1_slot, 3 c1_is_tip,
 #          4 c2_tip_idx, 5 c2_slot, 6 c2_is_tip, 7 pmatrix1, 8 pmatrix2
 
-# Site-block sizes the kernels take (one CTA per block).
+# Site-block sizes the kernels take (one CTA per block); the generic "fma"
+# instantiation, whose pools grow with any state count up to 32, also takes
+# the smaller GENERIC_SITE_BLOCKS where no larger block fits.
 SITE_BLOCKS = (256, 128, 64, 32)
+GENERIC_SITE_BLOCKS = SITE_BLOCKS + (16, 8)
 # Dynamic shared memory one block may opt in to on an H100 (sm_90):
 # 227 KB = 232,448 bytes.  The wrapper also checks the device's own limit.
 SMEM_LIMIT = 232448
-# State counts the "fma" form is instantiated for (bin, nt, gt10, gt16, aa),
-# at up to FMA_MAX_RATES rate categories, with per-site or per-rate scalers.
-# A site has `rate_lanes(R)` lanes, one per rate, R rounded up to a power
-# of two; a thread holds one lane of `sites_a_thread` sites.  For the rate
-# counts in FMA_RATE_LANES R
-# is a compile-time constant and a CTA has at most FMA_THREADS threads;
-# other counts run the run-time-R instantiation, at most FMA_THREADS_ANY.
-KERNEL_STATES = (2, 4, 10, 16, 20)
+# State counts the "fma" form takes: 2 to 32, the bits of an int32 tip
+# mask (libpll-2's any-state partitions), at up to FMA_MAX_RATES rate
+# categories, with per-site or per-rate scalers.  FMA_STATES (bin, nt, gt10,
+# gt16, aa) have instantiations of their own, with the state count a
+# compile-time constant; every other count runs the generic instantiation,
+# which takes the state count at run time (`generic`; csrc/tree_sweep.cu
+# instantiates it for at most 8, 16 and 32 states).  A site has
+# `rate_lanes(R)` lanes, one per rate, R rounded up to a power of two; a
+# thread holds one lane of `sites_a_thread` sites.
+# For the rate counts in FMA_RATE_LANES R is a compile-time constant of the
+# specialised instantiations and a CTA has at most FMA_THREADS threads;
+# other counts, and the generic instantiation, at most FMA_THREADS_ANY.
+MIN_STATES, MAX_STATES = 2, 32
+FMA_STATES = (2, 4, 10, 16, 20)
 FMA_MAX_RATES = 32
 FMA_RATE_LANES = (1, 4)
 FMA_THREADS, FMA_THREADS_ANY = 256, 1024
@@ -362,15 +375,24 @@ def rate_lanes(rate_cats: int) -> int:
     return 1 << max(rate_cats - 1, 0).bit_length()
 
 
+def generic(cfg: PartitionConfig) -> bool:
+    """Whether the "fma" form runs its generic instantiation (the state
+    count at run time) for this case: every state count outside
+    FMA_STATES."""
+    return cfg.states not in FMA_STATES
+
+
 def max_threads(cfg: PartitionConfig) -> int:
-    """Threads an "fma" CTA may have at this rate count."""
+    """Threads an "fma" CTA may have at this rate and state count."""
     return FMA_THREADS if cfg.rate_cats in FMA_RATE_LANES \
-        else FMA_THREADS_ANY
+        and not generic(cfg) else FMA_THREADS_ANY
 
 
 def sites_a_thread(cfg: PartitionConfig) -> int:
-    """Sites one "fma" thread holds."""
-    return FMA_SITES_A_THREAD if cfg.states <= FMA_SITES_STATES else 1
+    """Sites one "fma" thread holds: FMA_SITES_A_THREAD up to
+    FMA_SITES_STATES states of a specialised instantiation, else one."""
+    return FMA_SITES_A_THREAD if cfg.states <= FMA_SITES_STATES \
+        and not generic(cfg) else 1
 
 
 def fma_threads(cfg: PartitionConfig, tb: int) -> int:
@@ -383,8 +405,11 @@ def ring_words(cfg: PartitionConfig) -> int:
     """32-bit words of one warp's staging ring in the "fma" kernel: 2 *
     FMA_AHEAD + 1 op rows of 8, then FMA_AHEAD + 1 slots of both P-matrices
     (where staged; a rate block padded to 20 floats at S = 4) and of two tip
-    masks for each of the warp's sites; rounded up to a multiple of 4."""
+    masks for each of the warp's sites; rounded up to a multiple of 4.  The
+    generic instantiation stages nothing: 0."""
     S, R = cfg.states, cfg.rate_cats
+    if generic(cfg):
+        return 0
     p_floats = 0
     if R in FMA_RATE_LANES and S <= FMA_STAGE_P_MAX_STATES:
         p_floats = 2 * R * (20 if S == 4 else S * S)
@@ -410,12 +435,19 @@ def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
             + fma_threads(cfg, tb) // 32 * ring_words(cfg)) * 4
 
 
+def site_blocks(cfg: PartitionConfig, mode: str = "fma") -> tuple:
+    """The site blocks `mode` may run at, largest first: SITE_BLOCKS, and
+    GENERIC_SITE_BLOCKS for the generic "fma" instantiation."""
+    return GENERIC_SITE_BLOCKS if mode == "fma" and generic(cfg) \
+        else SITE_BLOCKS
+
+
 def fitting_blocks(prog: TreeVmemProgram, cfg: PartitionConfig,
                    smem_limit: int = SMEM_LIMIT, mode: str = "fma") -> list:
-    """The site blocks of SITE_BLOCKS, largest first, that divide
+    """The site blocks of `site_blocks`, largest first, that divide
     sites_padded, whose pools fit `smem_limit` bytes and, for "fma", whose
     CTA has whole warps and at most `max_threads` threads."""
-    return [tb for tb in SITE_BLOCKS
+    return [tb for tb in site_blocks(cfg, mode)
             if cfg.sites_padded % tb == 0
             and smem_bytes(prog, cfg, tb, mode) <= smem_limit
             and (mode == "mma"
@@ -459,9 +491,9 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     if cfg.dtype != torch.float32:
         return (f"the tree-sweep kernels ({mode!r} included) are f32 only, "
                 f"got {cfg.dtype}")
-    if mode == "fma" and cfg.states not in KERNEL_STATES:
-        return (f"the 'fma' tree-sweep kernel is built for states "
-                f"{KERNEL_STATES}, got {cfg.states}")
+    if mode == "fma" and not MIN_STATES <= cfg.states <= MAX_STATES:
+        return (f"the 'fma' tree-sweep kernel takes {MIN_STATES} to "
+                f"{MAX_STATES} states (an int32 tip mask), got {cfg.states}")
     if mode == "fma" and cfg.rate_cats > FMA_MAX_RATES:
         return (f"the 'fma' tree-sweep kernel runs one thread per site and "
                 f"rate, at most {FMA_MAX_RATES} rates, got {cfg.rate_cats}")
@@ -474,11 +506,13 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
             return ("the 'mma' tree-sweep kernel keeps per-site scalers "
                     "only; the 'fma' form serves per-rate scalers")
     if pick_site_block(prog, cfg, smem_limit, mode) == 0:
-        small = SITE_BLOCKS[-1]
+        blocks = site_blocks(cfg, mode)
+        small = blocks[-1]
         return (f"in mode {mode!r} a {small}-site block needs "
                 f"{smem_bytes(prog, cfg, small, mode)} bytes of shared "
-                f"memory for a pool of {prog.pool_size} slots, above the "
-                f"{smem_limit}-byte limit, or no block size in {SITE_BLOCKS} "
+                f"memory for a pool of {prog.pool_size} slots at "
+                f"{cfg.states} states and {cfg.rate_cats} rates, above the "
+                f"{smem_limit}-byte limit, or no block size in {blocks} "
                 f"divides {cfg.sites_padded} sites within the thread limit")
     return None
 
@@ -500,6 +534,8 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     against 0.74; at a random 8,192-taxon tree x 8,192 sites 3.82-3.84
     against 5.67-5.71; at 128 protein taxa x 16,384 sites 2.08 against
     2.33-2.34.  Between 16,384 and 65,536 DNA sites no time was taken.
+    Every state count outside MMA_CASES takes "fma", on its generic
+    instantiation outside FMA_STATES (`generic`).
     The JAX package's rule (the static kernels up to 4,096 ops) follows a
     limit of Mosaic's compile time that the CUDA kernels, which read the
     op table at run time, do not have.  None for an empty schedule or a
@@ -719,7 +755,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  `carry_flags` allows (the default), or store every parent
                  and load every child (the same rows, bit for bit; the card
                  tests and timings hold the two side by side).  The "mma"
-                 form's general kernel (span 80) stores every parent.
+                 form's general kernel (span 80) and the "fma" form's
+                 generic instantiation store every parent.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     """
@@ -742,8 +779,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     if reason is not None:
         raise ValueError(f"tree sweep kernel cannot take this case: {reason}")
     _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
-    if tb not in SITE_BLOCKS:
-        raise ValueError(f"site block {tb} not in {SITE_BLOCKS}")
+    if tb not in site_blocks(cfg, mode):
+        raise ValueError(f"site block {tb} not in {site_blocks(cfg, mode)}")
     if smem_bytes(prog, cfg, tb, mode) > limit:
         raise ValueError(f"site block {tb} needs "
                          f"{smem_bytes(prog, cfg, tb, mode)} bytes of shared "
@@ -793,12 +830,16 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                            f"error {err} ({_build.error_string(err)})")
     sweep.launches += 1
     sweep.launches_by_mode[mode] += 1
+    if mode == "fma" and generic(cfg):
+        sweep.launches_generic += 1
     return clv_rows, scal_rows
 
 
-# kernel launches by this wrapper (plain runs excluded), in all and per mode
+# kernel launches by this wrapper (plain runs excluded), in all, per mode,
+# and of the "fma" form's generic instantiation (within the "fma" count)
 sweep.launches = 0
 sweep.launches_by_mode = {mode: 0 for mode in MODES}
+sweep.launches_generic = 0
 
 
 def unblock_clv_row(row_blocked):

@@ -452,10 +452,12 @@ def target_sweep(tips: int = 256, sites: int = 65536, reps: int = 10,
 
 
 def search_case(device, tips: int = 256, sites: int = 4096,
-                seed: int = SEARCH_SEED, dtype=torch.float32):
+                seed: int = SEARCH_SEED, dtype=torch.float32,
+                subst=SEARCH_SUBST, freqs=SEARCH_FREQS):
     """The JAX bench's search_round case (bench.py measure_search_round):
     a random truth tree, a GTR+Gamma(0.9) alignment simulated down it, a
-    random start tree over the same labels.  Returns (truth, start, chars,
+    random start tree over the same labels.  The GTR model is `subst`,
+    `freqs`, the state count len(freqs).  Returns (truth, start, chars,
     cfg, model)."""
     from . import tree as T
     from .tree.generate import random_newick, simulate_alignment
@@ -463,8 +465,7 @@ def search_case(device, tips: int = 256, sites: int = 4096,
     rates = compute_gamma_cats(SEARCH_ALPHA, 4)
     truth = T.parse_newick_string(
         random_newick(tips, rng, min_bl=0.02, max_bl=0.35))
-    chars = simulate_alignment(truth, sites, rng, SEARCH_SUBST,
-                               SEARCH_FREQS, rates)
+    chars = simulate_alignment(truth, sites, rng, subst, freqs, rates)
     start = T.parse_newick_string(
         random_newick(tips, rng, min_bl=0.05, max_bl=0.3))
     ren = dict(zip(sorted(n.label for n in start.nodes[:tips]),
@@ -472,11 +473,11 @@ def search_case(device, tips: int = 256, sites: int = 4096,
     for n in start.nodes[:tips]:
         n.label = ren[n.label]
     cfg = PartitionConfig(
-        tips=tips, clv_buffers=start.inner_count, states=4, sites=sites,
-        rate_matrices=1, prob_matrices=2 * tips - 3, rate_cats=4,
+        tips=tips, clv_buffers=start.inner_count, states=len(freqs),
+        sites=sites, rate_matrices=1, prob_matrices=2 * tips - 3, rate_cats=4,
         scale_buffers=start.inner_count, dtype=dtype)
-    model = engine.make_model([SEARCH_SUBST], [SEARCH_FREQS], rates,
-                              dtype=dtype, device=device)
+    model = engine.make_model([subst], [freqs], rates, dtype=dtype,
+                              device=device)
     return truth, start, chars, cfg, model
 
 

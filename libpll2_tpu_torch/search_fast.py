@@ -39,6 +39,7 @@ import json
 import math
 import pathlib
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +47,7 @@ import torch
 
 from . import engine
 from .config import PartitionConfig
-from .constants import AB_NONE, gap_state
+from .constants import AB_NONE, gap_state, gap_state_int32
 from .ops import derivatives as derivatives_ops
 from .ops import edge_score
 from .ops import likelihood as likelihood_ops
@@ -589,7 +590,7 @@ def _spr_all_scores(cfg: PartitionConfig, model, level_ops, edge_rows,
     base_clv, base_scal, pmatrix = _sweep_rt(
         cfg, model, level_ops, pmat_slots, branch_lengths, tipchars)
     halves = _pmatrices(model, branch_lengths * 0.5, cfg.dtype)  # [E,R,S,S]
-    gap = torch.tensor(gap_state(cfg.states), dtype=tipchars.dtype,
+    gap = torch.tensor(gap_state_int32(cfg.states), dtype=tipchars.dtype,
                        device=tipchars.device)
     ninf = torch.tensor(-math.inf, dtype=cfg.dtype, device=tipchars.device)
     scores, t3s = [], []
@@ -1001,20 +1002,46 @@ def _apply_to_tree(prog: SprProgram, selection, sel_idx, t3s):
 
 def use_edge_kernel(cfg: PartitionConfig, invariant, device) -> bool:
     """Whether a round prices its slots with the edge scorer (kernel on
-    CUDA tensors).  Its contract: f32, per-site scalers, no asc bias, no
-    invariant-marked site.  cfg.use_kernel: None takes the kernel exactly
-    when the contract holds on a CUDA device; True takes it (its plain
-    version on the CPU) and raises when the contract fails; False takes
-    the plain scorer."""
+    CUDA tensors): `plain_scorer_reason` finds no reason against it."""
+    return plain_scorer_reason(cfg, invariant, device) is None
+
+
+def plain_scorer_reason(cfg: PartitionConfig, invariant,
+                        device) -> Optional[str]:
+    """Why a round prices its slots with the plain scorer, or None where
+    it takes the edge scorer (kernel on CUDA tensors).  The scorer's
+    contract: f32, per-site scalers, no asc bias, no invariant-marked
+    site, and a shape the kernel takes (edge_score.unsupported: any state
+    count from 2 to 32, where its shared memory fits `device`'s, an
+    H100's without a card present), so that the gate and the kernel never
+    disagree.  cfg.use_kernel: None takes the kernel exactly when the
+    contract holds on a CUDA device, and warns with the kernel's reason
+    where only its shared memory refuses the case; True takes it (its
+    plain version on the CPU) and raises when the contract fails; False
+    takes the plain scorer."""
     contract = (cfg.dtype == torch.float32 and cfg.asc_bias == AB_NONE
                 and not cfg.per_rate_scalers
                 and bool((invariant < 0).all()))
-    if cfg.use_kernel is None:
-        return contract and device.type == "cuda"
-    if cfg.use_kernel and not contract:
+    if cfg.use_kernel is False:
+        return "use_kernel=False"
+    if cfg.use_kernel is None and not contract:
+        return ("outside the edge scorer's contract (f32, per-site "
+                "scalers, no asc bias, no invariant-marked site)")
+    if cfg.use_kernel is None and device.type != "cuda":
+        return f"the edge scorer kernel runs on CUDA devices, not {device}"
+    if not contract:
         raise ValueError("the edge scorer takes f32, per-site scalers, no "
                          "asc bias and no invariant-marked site")
-    return bool(cfg.use_kernel)
+    reason = edge_score.unsupported(cfg.rate_cats, cfg.states,
+                                    edge_score.smem_limit_of(device))
+    if reason is None:
+        return None
+    if cfg.use_kernel:
+        raise ValueError(f"the edge scorer kernel cannot take this case: "
+                         f"{reason}")
+    warnings.warn(f"the plain scorer prices this SPR round on {device}: "
+                  f"{reason}", stacklevel=2)
+    return reason
 
 
 def _marker(timings: Optional[dict]):
@@ -1049,13 +1076,15 @@ def _score_partition(prog: SprProgram, model, site, newton_iters: int):
     """The score phase of one radius-compiled program: the device round
     and its flat tables.  site: (tipchars, pattern weights, invariant) on
     the model's device.  Returns (logl0, scores, t3s, cand_of, edge_of,
-    scorer, edge-scorer launches)."""
+    scorer, edge-scorer launches, the reason the plain scorer ran or
+    None)."""
     device = _device_of(model)
     cfg = prog.cfg_ext
     tipchars, pw_d, inv_d = site
     level_ops, pslots, bl, root_rows, root_slot, group_args = _round_args(
         prog, device)
-    kernel_on = use_edge_kernel(cfg, inv_d, device)
+    reason = plain_scorer_reason(cfg, inv_d, device)
+    kernel_on = reason is None
     launches0 = edge_score.edge_scores.launches
     logl0_d, outs = _spr_round_device(
         cfg, model, level_ops, pslots, bl, tipchars, pw_d, inv_d, root_rows,
@@ -1063,7 +1092,7 @@ def _score_partition(prog: SprProgram, model, site, newton_iters: int):
         newton_iters=newton_iters, use_kernel=kernel_on)
     return (float(logl0_d),) + _flatten_groups(prog.ball_groups, outs) + (
         "kernel" if kernel_on else "plain",
-        edge_score.edge_scores.launches - launches0)
+        edge_score.edge_scores.launches - launches0, reason)
 
 
 def _recompile_pins(prog: SprProgram) -> dict:
@@ -1207,10 +1236,11 @@ def spr_round(prog: SprProgram, model,
                         invariant)
     _t = mark("setup", _t)
     if prog.radius is not None:
-        logl0, scores, t3s, cand_of, edge_of, scorer, launches = \
+        logl0, scores, t3s, cand_of, edge_of, scorer, launches, reason = \
             _score_partition(prog, model, site, newton_iters)
         if timings is not None:
             timings["scorer"] = scorer
+            timings["scorer_reason"] = reason
             timings["edge_score_launches"] = launches
     else:
         tipchars, pw_d, inv_d = site
@@ -1238,6 +1268,8 @@ def spr_round(prog: SprProgram, model,
         scores = np.where(np.isnan(scores), -np.inf, scores)
         if timings is not None:
             timings["scorer"] = "plain"
+            timings["scorer_reason"] = ("the program has no radius: the "
+                                        "edge scorer prices ball slots")
     _t = mark("score", _t)
 
     new_progs, logl, applied = _select_apply_verify(
@@ -1529,13 +1561,14 @@ def spr_round_multi(progs: List[SprProgram], models,
     _t = mark("setup", _t)
     logl0 = 0.0
     scores = cand_of = edge_of = None
-    t3_list, scorers, launches = [], [], []
+    t3_list, scorers, reasons, launches = [], [], [], []
     for prog, model, site in zip(progs, models, sites):
-        logl0_k, scores_k, t3s_k, cand_k, edge_k, scorer, n = \
+        logl0_k, scores_k, t3s_k, cand_k, edge_k, scorer, n, reason = \
             _score_partition(prog, model, site, newton_iters)
         logl0 += logl0_k
         t3_list.append(t3s_k)
         scorers.append(scorer)
+        reasons.append(reason)
         launches.append(n)
         if scores is None:
             scores, cand_of, edge_of = scores_k, cand_k, edge_k
@@ -1545,6 +1578,7 @@ def spr_round_multi(progs: List[SprProgram], models,
             scores = scores + scores_k
     if timings is not None:
         timings["scorer"] = scorers
+        timings["scorer_reason"] = reasons
         timings["edge_score_launches"] = launches
     _t = mark("score", _t)
 

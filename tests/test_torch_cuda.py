@@ -1,4 +1,5 @@
-"""The CUDA kernels (both tree-sweep forms, edge scorer, matrix-unit
+"""The CUDA kernels (both tree-sweep forms and the "fma" form's generic
+instantiation, edge scorer and its generic-state form, matrix-unit
 probe, build-cache probe, construct probe: k0-k3 and c0-c4) against their
 plain PyTorch versions, on the card; one multi-partition round and one fit
 step on the kernel paths.
@@ -187,6 +188,74 @@ def test_spr_round_launches_edge_scorer(cuda_device):
     tm = {}
     _, logl, applied = search_fast.spr_round(prog, model, chars, timings=tm)
     assert tm["scorer"] == "kernel" and tm["edge_score_launches"] > 0
+    assert np.isfinite(logl) and applied > 0
+
+
+@pytest.mark.parametrize("rates", [4, 3])
+@pytest.mark.parametrize("bl_scale", [1.0, 30.0])
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("states", [3, 5, 6, 7, 9, 12, 17, 32])
+def test_generic_kernel_matches_plain(cuda_device, states, per_rate,
+                                      bl_scale, rates):
+    """The "fma" form's generic instantiation (every SMAX bound: 8, 16,
+    32) at state counts without one of their own, as
+    test_kernel_matches_plain holds the specialised ones: CLV rows rtol
+    1e-5, scalers exact, one generic launch."""
+    newick = random_newick(40, np.random.default_rng(states))
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        newick, 2048, states, cuda_device, states=states, per_rate=per_rate,
+        bl_scale=bl_scale, random_model=True, rates=rates)
+    prog = program.vmem_prog
+    assert partials_tree.generic(cfg)
+    before = partials_tree.sweep.launches_generic
+    clv, scal = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+    torch.cuda.synchronize()
+    assert partials_tree.sweep.launches_generic == before + 1
+    want_clv, want_scal = partials_tree.sweep_reference(tip_b, pmatrix, prog,
+                                                        cfg, tb)
+    torch.testing.assert_close(scal, want_scal, rtol=0, atol=0)
+    torch.testing.assert_close(clv, want_clv, rtol=1e-5, atol=0)
+    if bl_scale > 1:
+        assert int(want_scal.max()) > 0
+
+
+@pytest.mark.parametrize("states", [5, 32])
+def test_generic_edge_scorer_matches_plain(cuda_device, states):
+    """The scorer's generic-state form, both forms where the resident one
+    is planned, at chip_smoke's bounds; the shared memory both forms need
+    as the host computes it."""
+    from libpll2_tpu_torch import _build
+    _t, start, chars, cfg, model = chip_smoke.odd_search_inputs(
+        cuda_device, states, tips=20, sites=512)
+    prog = search_fast.compile_spr(start, cfg, radius=3)
+    T = prog.cfg_ext.sites_padded
+    lib = _build.library()
+    for k in edge_score.CLUSTER_SIZES:
+        assert lib.edge_score_resident_smem(4, states, T, k) == \
+            edge_score.resident_smem_bytes(4, states, T, k)
+    assert lib.edge_score_reread_smem(4, states) == \
+        edge_score.reread_smem_bytes(4, states)
+    before = edge_score.edge_scores.launches_generic
+    r = chip_smoke.score_round_both(prog, model, chars, timed=False)
+    assert edge_score.edge_scores.launches_generic - before \
+        == len(r["forms"]) * r["launches"] > 0
+    assert r["same_inf"] and r["finite"] > 100
+    assert r["max_rel_err"] <= chip_smoke.SCORE_RTOL
+    assert r["t3_excess"] <= 0.0
+
+
+def test_generic_spr_round_on_the_kernel(cuda_device):
+    """A 5-state round on the card takes the scorer kernel (the gate and
+    the kernel agree) and applies moves."""
+    _t, start, chars, cfg, model = chip_smoke.odd_search_inputs(
+        cuda_device, 5, tips=32, sites=1024)
+    prog = search_fast.compile_spr(start, cfg, radius=3)
+    tm = {}
+    before = edge_score.edge_scores.launches_generic
+    _, logl, applied = search_fast.spr_round(prog, model, chars, timings=tm)
+    assert tm["scorer"] == "kernel" and tm["edge_score_launches"] > 0
+    assert edge_score.edge_scores.launches_generic - before \
+        == tm["edge_score_launches"]
     assert np.isfinite(logl) and applied > 0
 
 

@@ -161,8 +161,11 @@ def test_site_block_and_unsupported():
     import dataclasses
     f64 = dataclasses.replace(pcfg, dtype=torch.float64)
     assert "f32" in partials_tree.unsupported(prog, f64)
+    # any state count of an int32 tip mask (3: the generic instantiation)
     three = dataclasses.replace(pcfg, states=3)
-    assert "states" in partials_tree.unsupported(prog, three)
+    assert partials_tree.unsupported(prog, three) is None
+    too_many = dataclasses.replace(pcfg, states=33)
+    assert "states" in partials_tree.unsupported(prog, too_many)
     assert "shared memory" in partials_tree.unsupported(prog, pcfg,
                                                         smem_limit=1024)
 

@@ -47,20 +47,23 @@ class Case:
     pmodel: object
 
 
-def make_case(n=12, sites=256, seed=5, dt="f64", start_seed=9, **cfg_kw):
-    """Simulated alignment down a random truth tree; a random start tree
-    over the same labels, parsed by both packages."""
+def make_case(n=12, sites=256, seed=5, dt="f64", start_seed=9, subst=SUBST,
+              freqs=FREQS, **cfg_kw):
+    """Simulated alignment down a random truth tree under GTR (`subst`,
+    `freqs`; the state count is len(freqs)) + Gamma(0.8); a random start
+    tree over the same labels, parsed by both packages; the port's model
+    carried across from the JAX one."""
     rng = np.random.default_rng(seed)
     rates = pll.compute_gamma_cats(0.8, 4)
     truth = T.parse_newick_string(random_newick(n, rng))
-    chars = simulate_alignment(truth, sites, rng, SUBST, FREQS, rates)
+    chars = simulate_alignment(truth, sites, rng, subst, freqs, rates)
     start = random_newick(n, np.random.default_rng(start_seed))
     jt, pt = jtree.parse_newick_string(start), T.parse_newick_string(start)
-    common = dict(tips=n, clv_buffers=pt.inner_count, states=4, sites=sites,
-                  rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=4,
-                  scale_buffers=pt.inner_count, **cfg_kw)
+    common = dict(tips=n, clv_buffers=pt.inner_count, states=len(freqs),
+                  sites=sites, rate_matrices=1, prob_matrices=2 * n - 3,
+                  rate_cats=4, scale_buffers=pt.inner_count, **cfg_kw)
     jdt, pdt = DTYPES[dt]
-    jmodel = jengine.make_model([SUBST], [FREQS], rates, dtype=jdt)
+    jmodel = jengine.make_model([subst], [freqs], rates, dtype=jdt)
     return Case(jt, pt, chars, JConfig(**common, dtype=jdt),
                 PartitionConfig(**common, dtype=pdt), jmodel,
                 convert.model_from_jax(convert.model_arrays(jmodel),
