@@ -128,7 +128,19 @@ Phases (any failure exits non-zero):
      5-state tips, its scores held to the plain scorer's and timed, then
      spr_round on the kernel against dense f64;
  27. 32 states at full width: Mk-32 + Gamma4 f32 at 128 x 16,384,
-     loglikelihood against dense f64, the generic sweep's times.
+     loglikelihood against dense f64, the generic sweep's times;
+ 28. bf16 CLV storage (`[bf16]` lines): both sweep forms with a bf16 pool
+     against the plain version at bf16 ("fma" at 2, 4, 5, 10, 16, 20 and
+     32 states, per-rate and per-site scalers, "mma" at its two cases, on
+     a scale-heavy caterpillar, the carry on and off bit-equal); then at
+     bf16 the forward step through `choose` and with the other form forced
+     at dna_256 (with 10 optimize_root_branch steps), dna_1024,
+     large_8192, protein_128, the two smaller 20-state cases, 5 and 32
+     states (phases 26-27's cases),
+     each against the port's dense bf16 path on the card and beside the
+     dense f64 path; both forms' times at bf16 at the four shapes of
+     phase 14, at phase 11's LG4X case and at LG 128 x 4,096 (`[choose]`
+     lines at bf16).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -282,6 +294,8 @@ def reset_counts() -> None:
     for mode in partials_tree.sweep.launches_by_mode:
         partials_tree.sweep.launches_by_mode[mode] = 0
     partials_tree.sweep.launches_generic = 0
+    for mode in partials_tree.sweep.launches_bf16:
+        partials_tree.sweep.launches_bf16[mode] = 0
     edge_score.edge_scores.launches = 0
     edge_score.edge_scores.launches_generic = 0
     for form in edge_score.edge_scores.launches_by_form:
@@ -297,13 +311,16 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Launches per kernel since reset_counts (just after a path).  The
     generic-state forms' launches are also within "tree_sweep" and
-    "edge_score"."""
+    "edge_score", the bf16 forms' within "tree_sweep" and
+    "tree_sweep_mma"."""
     from libpll2_tpu_torch.ops import edge_score, partials_tree
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     by_mode = partials_tree.sweep.launches_by_mode
     return {"tree_sweep": by_mode["fma"], "tree_sweep_mma": by_mode["mma"],
             "tree_sweep_generic": partials_tree.sweep.launches_generic,
+            "tree_sweep_bf16": partials_tree.sweep.launches_bf16["fma"],
+            "tree_sweep_mma_bf16": partials_tree.sweep.launches_bf16["mma"],
             "edge_score": edge_score.edge_scores.launches,
             "edge_score_generic": edge_score.edge_scores.launches_generic,
             "mma_probe": probe.chain.launches,
@@ -379,10 +396,11 @@ def log_ptxas(text: str, only: str = "", tag: str = "") -> None:
 
 
 def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
-                 bl_scale=1.0, random_model=False, rates=4):
+                 bl_scale=1.0, random_model=False, rates=4, dtype=None):
     """(cfg, program, pmatrix, tip_blocked, tb) for one sweep case; tb is
     the site block `choose` gives the "fma" form (the "mma" form's
-    footprint is no larger, so it can run at the same block)."""
+    footprint is no larger, so it can run at the same block).  dtype: the
+    pool's type (f32 by default; the P buffer is made at it)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -397,7 +415,7 @@ def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
         tips=n, clv_buffers=tree.inner_count, states=states, sites=sites,
         rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=rates,
         scale_buffers=tree.inner_count, per_rate_scalers=per_rate,
-        dtype=torch.float32, use_kernel=True)
+        dtype=dtype or torch.float32, use_kernel=True)
     program = engine.compile_tree(tree, cfg)
     rng = np.random.default_rng(seed)
     if random_model:
@@ -472,21 +490,30 @@ def sweep_cases():
     ]
 
 
-def compare_rows_site(got, want, got_s, want_s):
-    """As compare_rows, relative to each site's largest entry: (max err
-    where the scalers agree, scaler mismatches, max err of
-    scaling-compensated values)."""
+def site_errors(got, want, got_s, want_s):
+    """[E, NT, TB] f64: each site's largest error of scaling-compensated
+    values, relative to the site's largest entry (rows [E, NT, R, S, TB];
+    where the scalers agree, the error of the values themselves)."""
     import torch
     g, w = got.double(), want.double()
     gs = got_s.double()[:, :, :, None, :]      # [E, NT, 1, 1, TB]
     ws = want_s.double()[:, :, :, None, :]
     mag = w.amax(dim=(2, 3), keepdim=True).clamp_min(1e-300)
-    same = (got_s == want_s)[:, :, :, None, :]
-    rel = (((g - w).abs() / mag) * same).max().item()
     # compensate by the scalers' difference: 2^(-30 k) itself underflows
     # f64 on a large tree (k in the hundreds)
     gc = g * torch.exp2(-SCALE_BITS * (gs - ws))
-    comp = ((gc - w).abs() / mag).max().item()
+    return ((gc - w).abs() / mag).amax(dim=(2, 3))
+
+
+def compare_rows_site(got, want, got_s, want_s):
+    """As compare_rows, relative to each site's largest entry: (max err
+    where the scalers agree, scaler mismatches, max err of
+    scaling-compensated values, max abs err where the scalers agree)."""
+    g, w = got.double(), want.double()
+    mag = w.amax(dim=(2, 3), keepdim=True).clamp_min(1e-300)
+    same = (got_s == want_s)[:, :, :, None, :]
+    rel = (((g - w).abs() / mag) * same).max().item()
+    comp = site_errors(got, want, got_s, want_s).max().item()
     abs_err = ((g - w).abs() * same).max().item()
     return rel, int((got_s != want_s).sum().item()), comp, abs_err
 
@@ -515,28 +542,36 @@ def sweep_bound(prog, cfg, mode, tips):
     child, `tip_adds` for the tip children of this run's masks, and the
     elementwise work.  For "mma" the TF32 products of the compensated
     split (three per inner child, two per tip child, which the form
-    multiplies as one-hot rows) plus the f32 elementwise work.  Also the
-    time of its shared-memory traffic (two children read, one parent
-    written per op) at the shared-memory rate.  Returns (bound_ms,
-    bound_by, bytes_ms, ops_ms, smem_ms)."""
+    multiplies as one-hot rows) plus the f32 elementwise work; with a bf16
+    pool one bf16 product per child at the bf16 tensor rate.  P is read in
+    the pool's type, tips once and the exported rows written once in f32
+    whatever the pool's type.  Also the time of its shared-memory traffic
+    (two children read, one parent written per op) at the shared-memory
+    rate.  Returns (bound_ms, bound_by, bytes_ms, ops_ms, smem_ms)."""
+    from libpll2_tpu_torch.ops import partials_tree
     sites, R, S = cfg.sites_padded, cfg.rate_cats, cfg.states
+    item = partials_tree.pool_itemsize(cfg)
     sr = R if (cfg.per_rate_scalers and mode == "fma") else 1
     slots = int(prog.ops[:, [7, 8]].max()) + 1
     nbytes = (cfg.tips * sites * 4 + prog.ops.size * 4
-              + slots * R * S * S * 4
+              + slots * R * S * S * item
               + len(prog.exports) * sites * (cfg.span + sr) * 4)
     tip_children = int(prog.ops[:, 3].sum() + prog.ops[:, 6].sum())
     inner_children = 2 * prog.n_ops - tip_children
     product = 2 * R * S * S * sites                # FLOPs of one P . child
     elementwise = 2 * cfg.span * sites * prog.n_ops
-    if mode == "mma":
+    if mode == "mma" and item == 2:
+        ops_s = (2 * prog.n_ops * product / BF16_RATE
+                 + elementwise / F32_RATE)
+    elif mode == "mma":
         ops_s = ((3 * inner_children + 2 * tip_children) * product
                  / TF32_RATE + elementwise / F32_RATE)
     else:
         ops_s = (inner_children * product + tip_adds(prog, cfg, tips)
                  + elementwise) / F32_RATE
     bytes_s = nbytes / HBM_RATE
-    smem_s = prog.n_ops * sites * 3 * (cfg.span + sr) * 4 / SMEM_RATE
+    smem_s = (prog.n_ops * sites * 3 * (cfg.span * item + sr * 4)
+              / SMEM_RATE)
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations",
             bytes_s * 1e3, ops_s * 1e3, smem_s * 1e3)
@@ -1168,28 +1203,30 @@ def phase_mma_vs_plain(device):
         log(line)
 
 
-def dense_f64_sliced(case32, device, slice_sites=1024):
-    """logL of an f32 case by the dense f64 path, summed over site slices
+def dense_sliced(case, device, slice_sites=1024, dtype=None):
+    """logL of a case by the dense path in `dtype` (f64 by default; the
+    case's parameters widened or narrowed to it), summed over site slices
     (logL is a sum over sites; the dense CLV buffer of all sites at once
     would be tens of GB on a large tree)."""
     import torch
 
     from libpll2_tpu_torch import engine
 
-    cfg, program, model, bl, tipchars, pw, inv = case32
-    model64 = engine.Model(*(getattr(model, f).double()
+    dtype = dtype or torch.float64
+    cfg, program, model, bl, tipchars, pw, inv = case
+    model_d = engine.Model(*(getattr(model, f).to(dtype)
                              if getattr(model, f).is_floating_point()
                              else getattr(model, f)
                              for f in engine.Model.FIELDS))
     total = 0.0
     for start in range(0, cfg.sites_padded, slice_sites):
         stop = min(start + slice_sites, cfg.sites_padded)
-        cfg64 = dataclasses.replace(
+        cfg_d = dataclasses.replace(
             cfg, sites=stop - start, site_block=stop - start,
-            dtype=torch.float64, use_kernel=False, sweep_mode=None)
+            dtype=dtype, use_kernel=False, sweep_mode=None)
         total += engine.loglikelihood(
-            program, cfg64, model64, bl.double(), tipchars[:, start:stop],
-            pw[start:stop].double(), inv[start:stop]).item()
+            program, cfg_d, model_d, bl.to(dtype), tipchars[:, start:stop],
+            pw[start:stop].to(dtype), inv[start:stop]).item()
         torch.cuda.empty_cache()
     return total
 
@@ -1235,7 +1272,7 @@ def phase_wide_path(name, case, expect_mode, device, card, train):
     for mode, c in configs:       # timed after the counted path
         warm[mode] = statistics.median(cuda_ms(
             lambda: engine.loglikelihood(program, c, model, *args), 10))
-    ref = dense_f64_sliced(case, device)
+    ref = dense_sliced(case, device)
     for mode, (logl, first_ms, trained) in got.items():
         gap = abs(logl - ref) / abs(ref)
         line = (f"[{name}] mode {mode!r}: logL f32 {logl!r} dense f64 "
@@ -1436,7 +1473,7 @@ def phase_probe(card):
                 else "operations")
 
 
-def phase_sweep_times(cases, card):
+def phase_sweep_times(cases, card, f32_times=None):
     """Both sweep forms alone at the main paths' shapes, each at the site
     block `engine.kernel_choice` gives that form: first call, warm median
     of 20 single calls (CUDA events around each, the wrapper's host time
@@ -1446,7 +1483,22 @@ def phase_sweep_times(cases, card):
     `[choose]` line per shape: the form `choose` picks and the faster one,
     which must be within CHOOSE_SLACK of each other.  Returns
     {(name, mode): (ms back to back, plain_ms, bound tuple, max_abs_err,
-    single-call ms)}."""
+    single-call ms)}.
+
+    f32_times: this function's result for the f32 cases, given when
+    `cases` are bf16 ones: each bf16 line prints the f32 pool's time of
+    the same run beside its own where it has one, and the plain version
+    is timed at PLAIN_BLOCK only.  At bf16 "fma" rows are held to the
+    plain version within BF16_ROW_BOUND of each site's largest entry, as
+    on the small cases.  "mma" rows are held by a count
+    (`bf16_mma_flips`): the tensor cores truncate their f32 sums, so now
+    and then a stored parent rounds to the neighbouring bf16 value (2^-8)
+    and the flip carries up the tree, and at a thousand ops a site can
+    lie several flips off.  So at most one site in BF16_FLIP_SITES beyond
+    BF16_ROW_BOUND, none beyond BF16_SITE_MAX.  The distance of both
+    forms and of the plain version from the plain version in f64
+    arithmetic on the same bf16 P-matrices is printed beside (bf16
+    storage itself)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -1455,6 +1507,8 @@ def phase_sweep_times(cases, card):
     out = {}
     for name, case in cases.items():
         cfg, program, model, bl, tipchars, *_ = case
+        bf16 = cfg.dtype == torch.bfloat16
+        tag = "bf16 " if bf16 else ""
         prog = program.vmem_prog
         pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
         blocks = {mode: engine.kernel_choice(
@@ -1468,22 +1522,32 @@ def phase_sweep_times(cases, card):
         # the plain version: a Python loop of small launches, timed at one
         # fixed block, at the forms' blocks and at the 256-site block of the
         # earlier timings (PLAIN_MS_BEFORE)
+        def site_order(rows):
+            """rows in site order, whatever the block: [E, R, S, sites]"""
+            return (rows[0].permute(0, 2, 3, 1, 4).flatten(3),
+                    rows[1].permute(0, 2, 1, 3).flatten(2))
+
         p_ms, want = {}, None
-        for tb in sorted(tips):
+        for tb in [PLAIN_BLOCK] if bf16 else sorted(tips):
             plain = {}
             p_ms[tb] = statistics.median(cuda_ms(lambda: plain.__setitem__(
                 "v", partials_tree.sweep_reference(tips[tb], pmatrix, prog,
                                                    cfg, tb)), 2))
             if tb == PLAIN_BLOCK:
-                # rows in site order, whatever the block: [E, R, S, sites]
-                want = (plain["v"][0].permute(0, 2, 3, 1, 4).flatten(3),
-                        plain["v"][1].permute(0, 2, 1, 3).flatten(2))
+                want = site_order(plain["v"])
             del plain
-        log(f"[time] plain sweep_reference {name}: "
+        if bf16:
+            exact = site_order(partials_tree.sweep_reference(
+                tips[PLAIN_BLOCK], pmatrix.double(), prog, cfg, PLAIN_BLOCK))
+            plain_exact = compare_rows_site(
+                want[0][:, None], exact[0][:, None], want[1][:, None],
+                exact[1][:, None])[2]
+        log(f"[time] plain sweep_reference {tag}{name}: "
             + ", ".join(f"{p_ms[tb]:.2f} ms at site block {tb}"
                         for tb in sorted(p_ms))
-            + f" (median of 2 calls; earlier single calls at 256 sites: "
-            f"{PLAIN_MS_BEFORE[name]}) ({card})")
+            + (" (median of 2 calls)" if bf16 else
+               f" (median of 2 calls; earlier single calls at 256 sites: "
+               f"{PLAIN_MS_BEFORE[name]})") + f" ({card})")
         updates = (cfg.tips - 2) * cfg.sites
         for mode in partials_tree.MODES:
             tb = blocks[mode]
@@ -1500,10 +1564,34 @@ def phase_sweep_times(cases, card):
             rel, mism, comp, abs_err = compare_rows_site(
                 got["v"][0][:, None], want[0][:, None], got["v"][1][:, None],
                 want[1][:, None])
-            bound_rel = mma_bound(prog.n_ops) if mode == "mma" else CLV_RTOL
-            check(rel <= bound_rel and comp <= COMP_RTOL,
-                  f"{name} {mode}: rows off plain by {rel} (bound "
-                  f"{bound_rel}), compensated {comp}")
+            if bf16:
+                kernel_exact = compare_rows_site(
+                    got["v"][0][:, None], exact[0][:, None],
+                    got["v"][1][:, None], exact[1][:, None])[2]
+                errs = site_errors(got["v"][0][:, None], want[0][:, None],
+                                   got["v"][1][:, None], want[1][:, None])
+                over, allowed = bf16_mma_flips(errs)
+                accuracy = (f"; {over} of {errs.numel()} root-row sites "
+                            f"beyond {BF16_ROW_BOUND:.3e} of plain; against "
+                            f"the plain version in f64 arithmetic "
+                            f"(compensated): kernel {kernel_exact:.3e}, "
+                            f"plain {plain_exact:.3e}")
+                if mode == "fma":
+                    check(rel <= BF16_ROW_BOUND and comp <= BF16_ROW_BOUND,
+                          f"{tag}{name} fma: rows off plain by {rel}, "
+                          f"compensated {comp} > {BF16_ROW_BOUND}")
+                else:
+                    check(over <= allowed and comp <= BF16_SITE_MAX,
+                          f"{tag}{name} mma: {over} sites beyond "
+                          f"{BF16_ROW_BOUND} of plain (at most {allowed}), "
+                          f"the worst {comp} (at most {BF16_SITE_MAX})")
+            else:
+                accuracy = ""
+                bound_rel = mma_bound(prog.n_ops) if mode == "mma" \
+                    else CLV_RTOL
+                check(rel <= bound_rel and comp <= COMP_RTOL,
+                      f"{name} {mode}: rows off plain by {rel} (bound "
+                      f"{bound_rel}), compensated {comp}")
             off = call(carry=False)
             torch.cuda.synchronize()
             check(torch.equal(off[0], got["v"][0])
@@ -1520,12 +1608,19 @@ def phase_sweep_times(cases, card):
             if mode == "mma" and (cfg.states, cfg.rate_cats) not in \
                     partials_tree.MMA_CARRY_CASES:
                 carried = 0
-            before = (f"before the redesign: "
-                      f"{' / '.join(map(str, FMA_MS_BEFORE[name]))} ms"
-                      if mode == "fma" else
-                      f"before the register carry and SM-fill site block: "
-                      f"{MMA_MS_BEFORE[name]} ms")
-            log(f"[time] sweep {mode} {name} {cfg.tips}x{cfg.sites} "
+            if bf16 and (name, mode) in f32_times:
+                before = (f"f32 pool in this run: "
+                          f"{f32_times[(name, mode)][0]:.4f} ms back to "
+                          f"back, {f32_times[(name, mode)][4]:.4f} single")
+            elif bf16:
+                before = "f32 pool not timed at this shape"
+            elif mode == "fma":
+                before = (f"before the redesign: "
+                          f"{' / '.join(map(str, FMA_MS_BEFORE[name]))} ms")
+            else:
+                before = (f"before the register carry and SM-fill site "
+                          f"block: {MMA_MS_BEFORE[name]} ms")
+            log(f"[time] sweep {tag}{mode} {name} {cfg.tips}x{cfg.sites} "
                 f"S={cfg.states} ops={prog.n_ops} tb={tb} "
                 f"ctas={cfg.sites_padded // tb} smem/cta="
                 f"{partials_tree.smem_bytes(prog, cfg, tb, mode)}: "
@@ -1537,13 +1632,15 @@ def phase_sweep_times(cases, card):
                 f"{off_b2b:.4f} ms back to back, rows and scalers bit-equal;"
                 f" {carried} of {prog.n_ops} ops take a child from registers; "
                 f"{before}; rows against plain: site-rel {rel:.3e}, {mism} "
-                f"scaler mismatches; bound {b[0]:.4f} ms by {b[1]} (HBM bytes "
+                f"scaler mismatches{accuracy}; bound {b[0]:.4f} ms by {b[1]} "
+                f"(HBM bytes "
                 f"{b[2]:.4f}, operations {b[3]:.4f}; shared-memory traffic "
                 f"{b[4]:.4f}) ({card})")
-            out[(name, mode)] = (med, p_ms[tb], b, abs_err, single)
+            out[(name, mode)] = (med, p_ms[PLAIN_BLOCK if bf16 else tb], b,
+                                 abs_err, single)
         times = {mode: out[(name, mode)][0] for mode in partials_tree.MODES}
         fastest = min(times, key=times.get)
-        log(f"[choose] {name}: choose picks {chosen!r} (site block "
+        log(f"[choose] {tag}{name}: choose picks {chosen!r} (site block "
             f"{chosen_tb}), {times[chosen]:.4f} ms; faster in this run: "
             f"{fastest!r}, {times[fastest]:.4f} ms ("
             + ", ".join(f"{m} {t:.4f}" for m, t in times.items())
@@ -1557,6 +1654,8 @@ def phase_sweep_times(cases, card):
                       f"{name}: the {mode!r} form runs on "
                       f"{cfg.sites_padded // blocks[mode]} CTAs")
         del want, pmatrix, tips
+        if bf16:
+            del exact
         torch.cuda.empty_cache()
     return out
 
@@ -1645,7 +1744,7 @@ def phase_multi_linked(device, card):
     total = total.item()
     singles = [engine.loglikelihood(c[1], c[0], *c[2:]).item()
                for c in cases]
-    ref = sum(dense_f64_sliced(c, device) for c in cases)
+    ref = sum(dense_sliced(c, device) for c in cases)
     gap_sum = abs(total - sum(singles)) / abs(total)
     gap = abs(total - ref) / abs(ref)
     log(f"[multi] linked total {total!r}; sum of three engine.loglikelihood "
@@ -1665,7 +1764,7 @@ def phase_multi_linked(device, card):
     secs = time.perf_counter() - t0
 
     def scaled_f64(lengths):
-        return sum(dense_f64_sliced(
+        return sum(dense_sliced(
             c[:3] + (lengths * MULTI_SCALERS[k],) + c[4:], device)
             for k, c in enumerate(cases))
 
@@ -3162,7 +3261,8 @@ def phase_generic_vs_plain(device):
 
 def generic_sweep_times(name, case, card):
     """The generic sweep alone at a full-width case, at the block
-    `engine.kernel_choice` gives: rows against the plain version, the
+    `engine.kernel_choice` gives: rows against the plain version (at a
+    bf16 pool within BF16_ROW_BOUND of each site's largest entry), the
     kernel as 30 calls back to back (3 runs), single calls, the plain
     version (median of 2 calls), and the bound.  Returns a kernels-line
     dict."""
@@ -3188,11 +3288,18 @@ def generic_sweep_times(name, case, card):
     plain_ms = statistics.median(cuda_ms(lambda: plain.__setitem__(
         "v", partials_tree.sweep_reference(tips, pmatrix, prog, cfg, tb)),
         2))
-    abs_err, mism, rel = compare_rows(got["v"][0], plain["v"][0],
-                                      got["v"][1], plain["v"][1])
-    check(mism == 0 and rel <= CLV_RTOL,
-          f"{name}: generic rows off plain by {rel}, {mism} scaler "
-          f"mismatches")
+    if cfg.dtype == torch.bfloat16:
+        rel, mism, comp, abs_err = compare_rows_site(
+            got["v"][0], plain["v"][0], got["v"][1], plain["v"][1])
+        check(rel <= BF16_ROW_BOUND and comp <= BF16_ROW_BOUND,
+              f"{name}: generic rows off plain by {rel}, compensated "
+              f"{comp}")
+    else:
+        abs_err, mism, rel = compare_rows(got["v"][0], plain["v"][0],
+                                          got["v"][1], plain["v"][1])
+        check(mism == 0 and rel <= CLV_RTOL,
+              f"{name}: generic rows off plain by {rel}, {mism} scaler "
+              f"mismatches")
     del got, plain
     single = statistics.median(cuda_ms(call, 10))
     b2b = [cuda_ms_back_to_back(call, 30) for _ in range(3)]
@@ -3373,6 +3480,226 @@ def phase_generic_32(device, card):
             "edge_score_generic": 0}, times
 
 
+BF16_ROW_BOUND = 2.0 ** -7   # bf16 kernel rows against plain, of each site's
+#                              largest entry: two bf16 sweeps can differ by
+#                              one rounding of a stored parent (2^-8)
+BF16_FLIP_SITES = 4096       # "mma" at full width: at most one root-row site
+BF16_SITE_MAX = 2.0 ** -5    # in this many beyond BF16_ROW_BOUND, none
+#                              beyond BF16_SITE_MAX (bf16_mma_flips)
+BF16_SLICE_RTOL = 1e-6       # bf16 kernel logL against the dense bf16 path
+BF16_STATES = (2, 4, 5, 10, 16, 20, 32)
+BF16_TRAIN_STEPS = 10
+BF16_TIMED = ("dna_256", "dna_1024", "large_8192", "protein_128",
+              "protein_lg4x", "protein_128_4k")
+
+
+def bf16_mma_flips(errs):
+    """(sites beyond BF16_ROW_BOUND, the most allowed) of site_errors'
+    [E, NT, TB] of "mma" rows against plain at bf16: one in
+    BF16_FLIP_SITES, at least one."""
+    over = int((errs > BF16_ROW_BOUND).sum().item())
+    return over, max(1, errs.numel() // BF16_FLIP_SITES)
+
+
+def bf16_cases():
+    """(name, engine.build_case keywords) of phase 28's forward cases:
+    phase 14's four shapes, phase 11's LG4X case (64 x 2,048) and LG at
+    128 x 4,096 (the 20-state choice at fewer sites), and phases 26-27's
+    5- and 32-state cases."""
+    s5, f5 = odd_model(5)
+    s32, f32 = odd_model(32)
+    return [
+        ("dna_256", dict(n_tips=256, sites=65536)),
+        ("dna_1024", dict(n_tips=1024, sites=16384)),
+        ("large_8192", dict(n_tips=LARGE_TIPS, sites=LARGE_SITES,
+                            newick=large_newick())),
+        ("protein_128", dict(n_tips=PROTEIN_TIPS, sites=PROTEIN_SITES,
+                             states=20)),
+        ("protein_lg4x", dict(n_tips=64, sites=2048, states=20,
+                              aa_model_name="lg4x")),
+        ("protein_128_4k", dict(n_tips=PROTEIN_TIPS, sites=4096,
+                                states=20)),
+        ("odd5", dict(n_tips=ODD5_TIPS, sites=ODD5_SITES, states=5,
+                      subst=s5, freqs=f5, seed=ODD_SEED)),
+        ("odd32", dict(n_tips=ODD32_TIPS, sites=ODD32_SITES, states=32,
+                       subst=s32, freqs=f32, seed=ODD_SEED))]
+
+
+def phase_bf16_vs_plain(device):
+    """Phase 28, first part: both sweep forms with a bf16 pool against the
+    plain version at bf16 on a 64-taxon caterpillar x ODD_SITES with branch
+    lengths x 30 under a random model: "fma" at every count of BF16_STATES
+    with per-rate and per-site scalers, "mma" where it takes the case; each
+    with the carry on and off (bit-equal); rows within BF16_ROW_BOUND of
+    each site's largest entry where the scalers agree and, compensated,
+    where a rescue flipped; the "mma" form's bf16 P fragments bit-equal to
+    their plain version.  Returns the largest abs err where the scalers
+    agree."""
+    import torch
+
+    from libpll2_tpu_torch.ops import partials_tree
+
+    worst = 0.0
+    for i, states in enumerate(BF16_STATES):
+        for per_rate in (True, False):
+            cfg, program, pmatrix, tip_b, tb = sweep_inputs(
+                caterpillar(64), ODD_SITES, 300 + i, device, states=states,
+                per_rate=per_rate, bl_scale=30.0, random_model=True,
+                dtype=torch.bfloat16)
+            prog = program.vmem_prog
+            f32 = dataclasses.replace(cfg, dtype=torch.float32)
+            want = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg,
+                                                 tb)
+            rescues = int(want[1].max().item())
+            name = f"S{states}{'_per_rate' if per_rate else ''}"
+            modes = [m for m in partials_tree.MODES
+                     if partials_tree.unsupported(prog, cfg, mode=m) is None]
+            for mode in modes:
+                before = partials_tree.sweep.launches_bf16[mode]
+                on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                         mode=mode)
+                off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                          mode=mode, carry=False)
+                torch.cuda.synchronize()
+                launched = partials_tree.sweep.launches_bf16[mode] - before
+                rel, mism, comp, abs_err = compare_rows_site(
+                    on[0], want[0], on[1], want[1])
+                same = torch.equal(on[0], off[0]) \
+                    and torch.equal(on[1], off[1])
+                smem = partials_tree.smem_bytes(prog, cfg, tb, mode)
+                smem32 = partials_tree.smem_bytes(prog, f32, tb, mode)
+                log(f"[bf16] sweep {mode} {name}: ops={prog.n_ops} "
+                    f"pool={prog.pool_size} tb={tb} sites={ODD_SITES} "
+                    f"smem/cta={smem} (f32 pool {smem32}); bf16 launches "
+                    f"{launched}; against plain: site-rel {rel:.3e} (bound "
+                    f"{BF16_ROW_BOUND:.3e}) abs {abs_err:.3e} scaler "
+                    f"mismatches {mism} compensated {comp:.3e}; max_scaler="
+                    f"{rescues}; carry on and off bit-equal: {same}")
+                check(launched == 2, f"{name} {mode}: {launched} bf16 "
+                                     f"launches for 2 calls")
+                check(same, f"{name} {mode}: rows differ between carry on "
+                            f"and off")
+                check(on[0].dtype == torch.float32,
+                      f"{name} {mode}: exported rows are {on[0].dtype}")
+                check(rel <= BF16_ROW_BOUND and comp <= BF16_ROW_BOUND,
+                      f"{name} {mode}: rows off plain by {rel}, "
+                      f"compensated {comp} > {BF16_ROW_BOUND}")
+                worst = max(worst, abs_err)
+            check(rescues > 0, f"{name}: the scale-heavy case did not rescue")
+            if "mma" in modes:
+                check(torch.equal(
+                    partials_tree.pmatrix_fragments(pmatrix, cfg),
+                    partials_tree.pmatrix_fragments_reference(pmatrix, cfg)),
+                    f"{name}: bf16 P fragments differ from their plain "
+                    f"version")
+    return worst
+
+
+def phase_bf16_path(device, card):
+    """Phase 28, second part: the forward step at bf16 at full width on
+    bf16_cases(), through `choose` and with the other form forced where it
+    takes the case (so both bf16 forms run on the path), and at dna_256
+    BF16_TRAIN_STEPS optimize_root_branch steps; every logL against the
+    port's dense bf16 path on the card at the same inputs (within
+    BF16_SLICE_RTOL: the same P-matrices and storage type, the kernel's
+    share of the error) and beside the dense f64 path of the same case
+    (the gap of bf16 storage and bf16 P-matrices together, printed).
+    The generic form's times at bf16 at the 5- and 32-state cases
+    (generic_sweep_times).  Returns (bf16 launches of the path, {name:
+    case} of BF16_TIMED for the times, {name: generic_sweep_times dict}
+    at 5 and 32 states)."""
+    import torch
+
+    from libpll2_tpu_torch import _build, engine
+    from libpll2_tpu_torch.ops import partials_tree
+
+    t_phase = time.perf_counter()
+    limit = _build.max_shared_memory(device)
+    totals = {"tree_sweep_bf16": 0, "tree_sweep_mma_bf16": 0}
+    timed, generic_times = {}, {}
+    for name, kw in bf16_cases():
+        case = engine.build_case(**kw, dtype=torch.bfloat16, device=device)
+        cfg, program, model, bl, *args = case
+        prog = program.vmem_prog
+        chosen = engine.kernel_choice(program, cfg, device)[1]
+        modes = [chosen] + [m for m in partials_tree.MODES if m != chosen
+                            and partials_tree.unsupported(prog, cfg, limit,
+                                                          m) is None]
+        configs = {m: cfg if m == chosen
+                   else dataclasses.replace(cfg, sweep_mode=m) for m in modes}
+        blocks = {m: engine.kernel_choice(program, c, device)[0]
+                  for m, c in configs.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        got = {}
+        for mode, c in configs.items():
+            t0 = time.perf_counter()
+            logl = engine.loglikelihood(program, c, model, bl, *args).item()
+            got[mode] = (logl, (time.perf_counter() - t0) * 1e3)
+        trace, trained = [], bl
+        if name == "dna_256":
+            for _ in range(BF16_TRAIN_STEPS):
+                trained, logl = engine.optimize_root_branch(
+                    program, cfg, model, trained, *args)
+                trace.append(logl.item())
+            final = engine.loglikelihood(program, cfg, model, trained,
+                                         *args).item()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k in totals:
+            totals[k] += counts[k]
+        runs = len(modes) + (BF16_TRAIN_STEPS + 1 if trace else 0)
+        check(counts["tree_sweep_bf16"] + counts["tree_sweep_mma_bf16"]
+              == counts["tree_sweep"] + counts["tree_sweep_mma"] == runs,
+              f"{name}: the bf16 path ran {counts}, not {runs} bf16 sweeps")
+        dense = dataclasses.replace(cfg, use_kernel=False)
+        ref16 = dense_sliced(case, device, dtype=torch.bfloat16)
+        case64 = engine.build_case(**kw, dtype=torch.float64, device=device,
+                                   use_kernel=False)
+        ref64 = dense_sliced(case64, device)
+        for mode, (logl, first_ms) in got.items():
+            gap16 = abs(logl - ref16) / abs(ref16)
+            gap64 = abs(logl - ref64) / abs(ref64)
+            log(f"[bf16] forward {name} {cfg.tips}x{cfg.sites} "
+                f"S={cfg.states} mode {mode!r}"
+                f"{' (choose)' if mode == chosen else ''}, site block "
+                f"{blocks[mode]}: logL kernel bf16 {logl!r}, dense bf16 "
+                f"{ref16!r} (rel gap {gap16:.3e}, bound {BF16_SLICE_RTOL}), "
+                f"dense f64 {ref64!r} (rel gap {gap64:.3e}; dense bf16 to "
+                f"f64 {abs(ref16 - ref64) / abs(ref64):.3e}); first call "
+                f"{first_ms:.3f} ms ({card})")
+            check(np.isfinite(logl) and gap16 <= BF16_SLICE_RTOL,
+                  f"bf16 {name} {mode}: rel gap to dense bf16 {gap16} > "
+                  f"{BF16_SLICE_RTOL}")
+        if trace:
+            final16 = engine.loglikelihood(program, dense, model, trained,
+                                           *args).item()
+            final64 = dense_sliced(case64[:3] + (trained.double(),)
+                                   + case64[4:], device)
+            gap16 = abs(final - final16) / abs(final16)
+            gap64 = abs(final - final64) / abs(final64)
+            log(f"[bf16] train {name}: {BF16_TRAIN_STEPS} "
+                f"optimize_root_branch steps, logL before each {trace}; "
+                f"after the last bf16 {final!r}, dense bf16 at the same "
+                f"lengths {final16!r} (rel gap {gap16:.3e}), dense f64 "
+                f"{final64!r} (rel gap {gap64:.3e})")
+            check(np.isfinite(final) and gap16 <= BF16_SLICE_RTOL,
+                  f"bf16 training: rel gap to dense bf16 {gap16}")
+            check(final >= trace[0] - BF16_SLICE_RTOL * abs(trace[0]),
+                  f"bf16 training: logL fell from {trace[0]} to {final}")
+        del case64
+        if name in BF16_TIMED:
+            timed[name] = case
+        elif partials_tree.generic(cfg):
+            generic_times[name] = generic_sweep_times(f"{name}_bf16", case,
+                                                      card)
+        del case
+        torch.cuda.empty_cache()
+    log(f"[bf16] bf16 launches on the path {totals}; phase 28 forward "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return totals, timed, generic_times
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -3429,11 +3756,18 @@ def main() -> int:
     odd32, odd32_times = phase_generic_32(device, card)
     for k in ("tree_sweep_generic", "edge_score_generic"):
         launches[k] = odd5[k] + odd32[k]
+    bf16_err = phase_bf16_vs_plain(device)
+    bf16_launches, bf16_timed, bf16_generic = phase_bf16_path(device, card)
+    times16 = phase_sweep_times(bf16_timed, card, f32_times=times)
+    del bf16_timed
+    torch.cuda.empty_cache()
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
     mma_ms, mma_plain, mma_b, mma_err, mma_single = times[("large_8192",
                                                            "mma")]
+    fma16 = times16[("dna_256", "fma")]
+    mma16 = times16[("large_8192", "mma")]
     edge_bytes_s = edge["bytes"] / HBM_RATE
     edge_ops_s = edge["flops"] / F32_RATE
     kernels = [{
@@ -3497,6 +3831,30 @@ def main() -> int:
         >= odd5_edge["flops"] / F32_RATE else "operations",
         "library_ms": None,
         "shape": "one 256 x 4096 round, radius 5, 5 states",
+    }, {
+        "name": "tree_sweep_bf16", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep.cu",
+        "replaces": f"{ppt}:808 (_tree_kernel_static); :1136 "
+                    f"(_tree_kernel_static_seg), at bf16 (parts=1)",
+        "launches": bf16_launches["tree_sweep_bf16"],
+        "max_abs_err": max(bf16_err, fma16[3]),
+        "ms": fma16[0], "single_call_ms": fma16[4], "plain_ms": fma16[1],
+        "bound_ms": fma16[2][0], "bound_by": fma16[2][1],
+        "smem_ms": fma16[2][4], "library_ms": None,
+        "shape": "256 x 65536 DNA, bf16 pool",
+        **{f"{k}_generic_{s}_states": bf16_generic[name][k]
+           for name, s in (("odd5", 5), ("odd32", 32))
+           for k in ("ms", "single_call_ms", "plain_ms", "bound_ms")},
+    }, {
+        "name": "tree_sweep_mma_bf16", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep_mma.cu",
+        "replaces": f"{ppt}:547 (_tree_kernel_splitk, parts=1)",
+        "launches": bf16_launches["tree_sweep_mma_bf16"],
+        "max_abs_err": max(bf16_err, mma16[3]),
+        "ms": mma16[0], "single_call_ms": mma16[4], "plain_ms": mma16[1],
+        "bound_ms": mma16[2][0], "bound_by": mma16[2][1],
+        "smem_ms": mma16[2][4], "library_ms": None,
+        "shape": "8192 x 8192 DNA, bf16 pool",
     }, {
         "name": "mma_probe", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/mma_probe.cu",

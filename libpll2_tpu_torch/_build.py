@@ -137,10 +137,10 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         p, i,          # ops, n_ops
         p,             # pmat
         p, i,          # tip_blocked, tips
-        p, i,          # export_slots, n_exp
+        p, i, p,       # export_slots, n_exp, export_at
         p, p,          # clv_out, scal_out
         i, i, i, i,    # nt, tb, rates, states
-        i, i,          # pool_size, per_rate
+        i, i, i,       # pool_size, per_rate, bf16
         f, f,          # thresh, factor
         p,             # stream
     ]
@@ -149,10 +149,10 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         p, i,          # ops, n_ops
         p,             # pfrag
         p, i,          # tip_blocked, tips
-        p, i,          # export_slots, n_exp
+        p, i, p,       # export_slots, n_exp, export_at
         p, p,          # clv_out, scal_out
         i, i, i, i,    # nt, tb, rates, states
-        i,             # pool_size
+        i, i,          # pool_size, bf16
         f, f,          # thresh, factor
         p,             # stream
     ]
@@ -160,6 +160,7 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     lib.tree_sweep_mma_fragments.argtypes = [
         p, p, p,       # pmat, idx, pfrag
         i, i, i, i,    # n_slots, words, run, pm_words
+        i,             # bf16
         p,             # stream
     ]
     lib.tree_sweep_mma_fragments.restype = ctypes.c_int

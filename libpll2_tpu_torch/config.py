@@ -47,10 +47,10 @@ class PartitionConfig:
     asc_bias_flag: bool = False  # apply correction during logL computation
     dtype: torch.dtype = torch.float64
     site_block: int = 128
-    # None: the CUDA kernels for CUDA tensors — the tree sweep (f32 only;
-    # any case it cannot take raises) and the search's edge scorer (where
-    # its contract holds, else the plain scorer) — and the plain paths for
-    # CPU tensors.
+    # None: the CUDA kernels for CUDA tensors — the tree sweep (f32 or bf16
+    # CLV storage; any case it cannot take, f64 among them, raises) and the
+    # search's edge scorer (where its contract holds, else the plain
+    # scorer) — and the plain paths for CPU tensors.
     # True: the kernels or raise (their plain versions on CPU tensors).
     # False: the plain paths (ops/partials.py, the plain scorer).
     use_kernel: Optional[bool] = None

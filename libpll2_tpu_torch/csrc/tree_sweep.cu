@@ -69,8 +69,24 @@
 //     is unchanged, and write nothing out), P read from device memory.
 // probes/variants.py ("fma_staging", "fma_clocks") times the variants of
 // these choices and reads the cycles an op takes.
+//
+// The pool's type T is float or __nv_bfloat16 (cfg.dtype bfloat16): the
+// JAX package's static kernels at one split part.  At bf16 the arithmetic
+// stays f32 (P is read as f32, the wrapper widens the bf16 P-matrices once
+// a call, exactly; a pool child is widened exactly), the rescue is decided
+// on the f32 parent, and the parent is rounded to the nearest even bf16
+// where it is stored and where it is handed on, so the carry on and off
+// stay bit-equal.  The exported rows are the f32 parent unrounded: the
+// slot holds the rounded one, so a bf16 kernel writes an exported parent to
+// device memory at the op that makes it (partials_tree.export_rows).  A
+// lane's two sites of entry j share one __nv_bfloat162 word: a warp still
+// reads and writes 32 consecutive words, half the bytes; a bf16 pool is
+// half the f32 one, so more sites or CTAs fit an SM.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,6 +111,13 @@ constexpr int ROW_SLOTS = 2 * AHEAD + 1;
 // through the ring too; above, a lane reads its rows from device memory when
 // the op starts (probes/variants.py "fma_p_direct" sets 0).
 constexpr int STAGE_P_MAX_STATES = 4;
+
+template <class T>
+constexpr bool IS_BF16 = std::is_same<T, __nv_bfloat16>::value;
+
+// The pool type as a value, so that a launch function deduces it.
+template <class T>
+struct Store {};
 
 template <int RL>
 struct Threads {
@@ -178,7 +201,7 @@ __device__ __forceinline__ void load_prow(float (&out)[S],
 }
 
 // A child's S entries at one of this lane's sites; a pool slot's entry j
-// is `stride` floats after entry j - 1.
+// is `stride` floats after entry j - 1 (f32 pools).
 template <int S, Child K>
 __device__ __forceinline__ void child(float (&c)[S], int code,
                                       const float* col, int stride,
@@ -191,6 +214,58 @@ __device__ __forceinline__ void child(float (&c)[S], int code,
       c[j] = held[j];
     else
       c[j] = col[(size_t)j * stride];
+  }
+}
+
+// A bf16 pool slot of nth threads holds a lane's entry j of its H sites in
+// [S][H / 2][nth] words of two sites (__nv_bfloat162), or [S][H][nth] at an
+// odd H; stores round to nearest even.  A child's S entries at this lane's
+// H sites from such a slot, from the tip masks, or handed on.
+template <int S, int H, Child K>
+__device__ __forceinline__ void child_bf16(float (&c)[H][S],
+                                           const int (&code)[H],
+                                           const __nv_bfloat16* slot, int nth,
+                                           int t, const float (&held)[H][S]) {
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if constexpr (K != Child::POOL) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        c[h][j] = K == Child::TIP ? static_cast<float>((code[h] >> j) & 1)
+                                  : held[h][j];
+    } else if constexpr (H % 2 == 0) {
+      const __nv_bfloat162* w = reinterpret_cast<const __nv_bfloat162*>(slot);
+#pragma unroll
+      for (int p = 0; p < H / 2; ++p) {
+        const float2 v = __bfloat1622float2(w[((size_t)j * (H / 2) + p) * nth
+                                              + t]);
+        c[2 * p][j] = v.x;
+        c[2 * p + 1][j] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        c[h][j] = __bfloat162float(slot[((size_t)j * H + h) * nth + t]);
+    }
+  }
+}
+template <int S, int H>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* slot,
+                                           const float (&v)[H][S], int nth,
+                                           int t) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    if constexpr (H % 2 == 0) {
+      __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(slot);
+#pragma unroll
+      for (int p = 0; p < H / 2; ++p)
+        w[((size_t)i * (H / 2) + p) * nth + t] =
+            __floats2bfloat162_rn(v[2 * p][i], v[2 * p + 1][i]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        slot[((size_t)i * H + h) * nth + t] = __float2bfloat16_rn(v[h][i]);
+    }
   }
 }
 
@@ -216,25 +291,45 @@ struct Lane {
   int per_rate;
 };
 
+// Where a bf16 kernel writes an exported parent: this lane's entry 0 of
+// its site h = 0 in export row 0 (site h at + h * part, entry i at
+// + i * tb, row e at + e * clv_row) and the scaler word it keeps (row e at
+// + e * scal_row).  Padding lanes write nothing.
+struct Export {
+  float* clv;
+  int* scal;
+  size_t clv_row, scal_row;
+  int part, tb;
+  bool writes;
+};
+
 // One op for one lane's H sites: P1 and P2 are this lane's rate block of
 // the two P-matrices, in the ring (STAGED) or in device memory.  A pool
-// slot is [S][H][nth] floats.
-template <int S, int H, bool STAGED, Child K1, Child K2, bool KEEP>
+// slot is [S][H][nth] floats, or S * H * nth bf16 (child_bf16).  e: the
+// export row of the op's parent (bf16 only; -1: none).
+template <int S, int H, bool STAGED, Child K1, Child K2, bool KEEP, class T>
 __device__ __forceinline__ void op_lane(
     const int4& op, const int (&code1)[H], const int (&code2)[H],
-    const float* __restrict__ P1, const float* __restrict__ P2, float* pool,
+    const float* __restrict__ P1, const float* __restrict__ P2, T* pool,
     int* spool, const Lane& L, float thresh, float factor,
-    float (&held)[H][S], int (&held_scal)[H]) {
+    float (&held)[H][S], int (&held_scal)[H], const Export& X, int e) {
   static_assert(K1 != Child::CARRIED, "the host puts a carried child second");
   const int stride = H * L.nth;
   const size_t slot_words = (size_t)S * stride;
   float a[H][S], b[H][S];
+  if constexpr (IS_BF16<T>) {
+    child_bf16<S, H, K1>(a, code1, pool + op.y * slot_words, L.nth, L.t,
+                         held);
+    child_bf16<S, H, K2>(b, code2, pool + op.z * slot_words, L.nth, L.t,
+                         held);
+  } else {
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
-    child<S, K1>(a[h], code1[h], pool + op.y * slot_words + h * L.nth + L.t,
-                 stride, held[h]);
-    child<S, K2>(b[h], code2[h], pool + op.z * slot_words + h * L.nth + L.t,
-                 stride, held[h]);
+    for (int h = 0; h < H; ++h) {
+      child<S, K1>(a[h], code1[h], pool + op.y * slot_words + h * L.nth + L.t,
+                   stride, held[h]);
+      child<S, K2>(b[h], code2[h], pool + op.z * slot_words + h * L.nth + L.t,
+                   stride, held[h]);
+    }
   }
   float v[H][S];
   unsigned below = (1u << H) - 1;  // bit h: every entry of site h < thresh
@@ -271,8 +366,20 @@ __device__ __forceinline__ void op_lane(
     if constexpr (K2 == Child::CARRIED) sc += held_scal[h];
     if constexpr (KEEP) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) held[h][i] = v[h][i];
+      for (int i = 0; i < S; ++i)
+        held[h][i] = IS_BF16<T> ? __bfloat162float(__float2bfloat16_rn(
+                                      v[h][i]))
+                                : v[h][i];
       held_scal[h] = sc;
+    } else if constexpr (IS_BF16<T>) {
+      if (L.keeps_scaler) spool[op.x * L.sr_stride + word] = sc;
+      // an exported parent is never handed on
+      if (e >= 0 && X.writes) {
+        float* dst = X.clv + e * X.clv_row + h * X.part;
+#pragma unroll
+        for (int i = 0; i < S; ++i) dst[(size_t)i * X.tb] = v[h][i];
+        if (L.keeps_scaler) X.scal[e * X.scal_row + h * X.part] = sc;
+      }
     } else {
       float* par = pool + op.x * slot_words + h * L.nth + L.t;
 #pragma unroll
@@ -280,6 +387,8 @@ __device__ __forceinline__ void op_lane(
       if (L.keeps_scaler) spool[op.x * L.sr_stride + word] = sc;
     }
   }
+  if constexpr (IS_BF16<T> && !KEEP)
+    store_bf16<S, H>(pool + op.x * slot_words, v, L.nth, L.t);
 }
 
 // 32-bit words of one warp's ring: ROW_SLOTS rows of 8, then DATA_SLOTS
@@ -299,16 +408,21 @@ __host__ __device__ constexpr int ring_words(int lanes) {
 // grid = NT site blocks of TB sites; block = TB / H * lanes threads: thread
 // t has rate t % lanes of sites s0 + h * TB / H, s0 = t / lanes, h < H.
 // RL > 0: lanes == rates == RL at compile time; RL == 0: lanes (a power of
-// two >= rates) at run time.  shared: pool [pool_size][S][H][threads] f32,
-// then spool [pool_size][SR] i32 (SR = TB * lanes per-rate, TB per-site),
-// then one ring a warp (ring_words).  A parent is either stored or handed
-// on, never both (partials_tree.carry_flags).
-template <int S, int RL>
+// two >= rates) at run time.  shared: pool [pool_size][S][H][threads] f32
+// or its bf16 layout (child_bf16), then spool [pool_size][SR] i32 (SR =
+// TB * lanes per-rate, TB per-site), then one ring a warp (ring_words).  A
+// parent is either stored or handed on, never both
+// (partials_tree.carry_flags).
+// export_slots: the f32 kernel copies these slots out after the sweep;
+// export_at [n_ops]: the export row of each op's parent, which the bf16
+// kernel writes out at the op.
+template <int S, int RL, class T>
 __global__ void __launch_bounds__(Threads<RL>::MAX)
 tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
                   const float* __restrict__ pmat,
                   const int* __restrict__ tip_blocked, int tips,
                   const int* __restrict__ export_slots, int n_exp,
+                  const int* __restrict__ export_at,
                   float* __restrict__ clv_out, int* __restrict__ scal_out,
                   int rates, int lane_bits, int pool_size, int per_rate,
                   float thresh, float factor) {
@@ -330,9 +444,9 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
   L.sidx_step = per_rate ? L.nth : part;
   L.sr_stride = per_rate ? H * L.nth : tb;
   L.keeps_scaler = per_rate || r == 0;
-  float* pool = smem;
+  T* pool = reinterpret_cast<T*>(smem);
   int* spool =
-      reinterpret_cast<int*>(smem + (size_t)pool_size * S * H * L.nth);
+      reinterpret_cast<int*>(pool + (size_t)pool_size * S * H * L.nth);
   int* ring = spool + pool_size * L.sr_stride +
               (L.t / 32) * ring_words<S, RL>(lanes);
   int4* rows = reinterpret_cast<int4*>(ring);
@@ -344,6 +458,15 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
   // block (a padding lane repeats the last rate)
   const int p_stride = R * S * S;
   const int r_p = min(r, R - 1);
+  Export X;
+  X.writes = r < R;
+  X.clv = clv_out + ((size_t)blockIdx.x * R + r_p) * S * tb + s0;
+  X.clv_row = (size_t)gridDim.x * R * S * tb;
+  X.scal = scal_out + ((size_t)blockIdx.x * (per_rate ? R : 1) +
+                       (per_rate ? r_p : 0)) * tb + s0;
+  X.scal_row = (size_t)gridDim.x * (per_rate ? R : 1) * tb;
+  X.part = part;
+  X.tb = tb;
   // the 16-byte piece of an op's P-matrices this lane copies into the ring
   constexpr int PER_M = St::CHUNKS / 2 > 0 ? St::CHUNKS / 2 : 1;
   const bool copies_p = lane < St::CHUNKS;
@@ -430,10 +553,13 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
       P1 = pmat + (size_t)st.z * p_stride + r_p * S * S;
       P2 = pmat + (size_t)st.w * p_stride + r_p * S * S;
     }
+    int e = -1;  // the export row of this op's parent (bf16 only)
+    if constexpr (IS_BF16<T>) e = __ldg(export_at + w);
 #define LIBPLL_OP(K1, K2, KEEP)                                               \
   op_lane<S, H, St::P, Child::K1, Child::K2, KEEP>(op, code1, code2, P1, P2,  \
                                                    pool, spool, L, thresh,    \
-                                                   factor, held, held_scal)
+                                                   factor, held, held_scal,   \
+                                                   X, e)
     switch (op.w) {
       case 0: LIBPLL_OP(TIP, TIP, false); break;
       case 1: LIBPLL_OP(TIP, TIP, true); break;
@@ -451,67 +577,73 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
 
   // Export slots are never reused by the schedule, and an exported parent is
   // always stored.  Each lane copies what it wrote; padding lanes nothing.
-  if (r >= R) return;
-  const int nt = gridDim.x, blk = blockIdx.x;
-  for (int e = 0; e < n_exp; ++e) {
-    const int slot = __ldg(export_slots + e);
+  // (A bf16 kernel wrote its exports at their ops.)
+  if constexpr (!IS_BF16<T>) {
+    if (r >= R) return;
+    const int nt = gridDim.x, blk = blockIdx.x;
+    for (int e = 0; e < n_exp; ++e) {
+      const int slot = __ldg(export_slots + e);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int site = s0 + h * part;
-      const float* src =
-          pool + (size_t)slot * S * H * L.nth + h * L.nth + L.t;
-      float* dst =
-          clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + site;
+      for (int h = 0; h < H; ++h) {
+        const int site = s0 + h * part;
+        const float* src =
+            pool + (size_t)slot * S * H * L.nth + h * L.nth + L.t;
+        float* dst =
+            clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + site;
 #pragma unroll
-      for (int i = 0; i < S; ++i)
-        dst[(size_t)i * tb] = src[(size_t)i * H * L.nth];
-      if (L.keeps_scaler) {
-        const int v = spool[slot * L.sr_stride + L.sidx + h * L.sidx_step];
-        scal_out[(((size_t)e * nt + blk) * (per_rate ? R : 1) +
-                  (per_rate ? r : 0)) * tb + site] = v;
+        for (int i = 0; i < S; ++i)
+          dst[(size_t)i * tb] = src[(size_t)i * H * L.nth];
+        if (L.keeps_scaler) {
+          const int v = spool[slot * L.sr_stride + L.sidx + h * L.sidx_step];
+          scal_out[(((size_t)e * nt + blk) * (per_rate ? R : 1) +
+                    (per_rate ? r : 0)) * tb + site] = v;
+        }
       }
     }
   }
 }
 
-template <int S, int RL>
-cudaError_t launch(const int* ops, int n_ops, const float* pmat,
+template <int S, int RL, class T>
+cudaError_t launch(Store<T>, const int* ops, int n_ops, const float* pmat,
                    const int* tip_blocked, int tips, const int* export_slots,
-                   int n_exp, float* clv_out, int* scal_out, int nt, int tb,
-                   int rates, int lane_bits, int pool_size, int per_rate,
-                   float thresh, float factor, cudaStream_t stream) {
+                   int n_exp, const int* export_at, float* clv_out,
+                   int* scal_out, int nt, int tb, int rates, int lane_bits,
+                   int pool_size, int per_rate, float thresh, float factor,
+                   cudaStream_t stream) {
   constexpr int H = Staged<S, RL>::H;
   const int nth = (tb << lane_bits) / H;
   if (tb % H || nth > Threads<RL>::MAX || nth % 32)
     return cudaErrorInvalidValue;
   const int sr = per_rate ? H * nth : tb;
-  const size_t smem = (size_t)pool_size * ((size_t)S * H * nth + sr) * 4 +
+  const size_t smem = (size_t)pool_size *
+                          ((size_t)S * H * nth * sizeof(T) + (size_t)sr * 4) +
                       (size_t)(nth / 32) * ring_words<S, RL>(1 << lane_bits) *
                           4;
   cudaError_t err = cudaFuncSetAttribute(
-      tree_sweep_kernel<S, RL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tree_sweep_kernel<S, RL, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  tree_sweep_kernel<S, RL><<<nt, nth, smem, stream>>>(
+  tree_sweep_kernel<S, RL, T><<<nt, nth, smem, stream>>>(
       reinterpret_cast<const int4*>(ops), n_ops, pmat, tip_blocked, tips,
-      export_slots, n_exp, clv_out, scal_out, rates, lane_bits, pool_size,
-      per_rate, thresh, factor);
+      export_slots, n_exp, export_at, clv_out, scal_out, rates, lane_bits,
+      pool_size, per_rate, thresh, factor);
   return cudaGetLastError();
 }
 
-template <int S>
-cudaError_t launch_rates(const int* ops, int n_ops, const float* pmat,
-                         const int* tip_blocked, int tips,
-                         const int* export_slots, int n_exp, float* clv_out,
-                         int* scal_out, int nt, int tb, int rates,
-                         int pool_size, int per_rate, float thresh,
-                         float factor, cudaStream_t stream) {
+template <int S, class T>
+cudaError_t launch_rates(Store<T> store, const int* ops, int n_ops,
+                         const float* pmat, const int* tip_blocked, int tips,
+                         const int* export_slots, int n_exp,
+                         const int* export_at, float* clv_out, int* scal_out,
+                         int nt, int tb, int rates, int pool_size,
+                         int per_rate, float thresh, float factor,
+                         cudaStream_t stream) {
   int lane_bits = 0;
   while ((1 << lane_bits) < rates) ++lane_bits;
 #define TREE_SWEEP_ARGS                                                      \
-  ops, n_ops, pmat, tip_blocked, tips, export_slots, n_exp, clv_out,         \
-      scal_out, nt, tb, rates, lane_bits, pool_size, per_rate, thresh,       \
-      factor, stream
+  store, ops, n_ops, pmat, tip_blocked, tips, export_slots, n_exp,           \
+      export_at, clv_out, scal_out, nt, tb, rates, lane_bits, pool_size,     \
+      per_rate, thresh, factor, stream
   switch (rates) {
     case 1: return launch<S, 1>(TREE_SWEEP_ARGS);
     case 4: return launch<S, 4>(TREE_SWEEP_ARGS);
@@ -539,7 +671,11 @@ cudaError_t launch_rates(const int* ops, int n_ops, const float* pmat,
 //   * one thread per (site, rate lane), lanes a power of two >= rates as
 //     in the specialised kernel (padding lanes repeat the last rate and
 //     write nothing out); the per-site rescue is the same AND over the
-//     site's lanes by __shfl_xor_sync.
+//     site's lanes by __shfl_xor_sync;
+//   * a bf16 pool holds 16-bit entries [pool_size][S][threads]; where a
+//     site rescues, its rows are formed again and stored scaled (a stored
+//     bf16 row scaled afterwards would differ from the rounded scaled f32
+//     row below 2^-126), and an exported parent goes out in f32 at its op.
 // Each thread reads back only pool words it wrote, so no CTA barrier.
 // P rows are read as scalars: at odd S a row starts on a 4-byte boundary.
 // Tip masks are read unsigned: bit 31 is a state at S = 32 and the gap
@@ -602,16 +738,89 @@ __device__ __forceinline__ void generic_op(
   }
 }
 
+// The same op with a bf16 pool [pool_size][S][threads]: rows formed in f32
+// and stored rounded; where the site rescues they are formed again and
+// stored scaled (a stored bf16 row scaled afterwards would differ from the
+// rounded scaled f32 row below 2^-126).  out / sout: where this lane's
+// exported parent and its scaler go (null: the op exports nothing, or the
+// lane keeps no such word).  A copy of generic_op rather than one template
+// for both types: the f32 form with its rows in a lambda ran slower on the
+// card (PERF.md, bf16 storage).
+template <int SMAX, bool K1_TIP, bool K2_TIP>
+__device__ __forceinline__ void generic_op_bf16(
+    const int4& st, const int4& op, const int* __restrict__ tip_col, int tb,
+    const float* __restrict__ pmat, size_t p_stride, int p_rate, int S,
+    __nv_bfloat16* pool, size_t slot_words, int nth, int t, int* spool,
+    int sr_stride, int sidx, bool keeps, int lanes, int per_rate,
+    float thresh, float factor, float* out, int* sout) {
+  const float* P1 = pmat + (size_t)st.z * p_stride + p_rate;
+  const float* P2 = pmat + (size_t)st.w * p_stride + p_rate;
+  const unsigned m1 =
+      K1_TIP ? static_cast<unsigned>(__ldg(tip_col + (size_t)st.x * tb)) : 0u;
+  const unsigned m2 =
+      K2_TIP ? static_cast<unsigned>(__ldg(tip_col + (size_t)st.y * tb)) : 0u;
+  const __nv_bfloat16* c1 = pool + (size_t)op.y * slot_words + t;
+  const __nv_bfloat16* c2 = pool + (size_t)op.z * slot_words + t;
+  __nv_bfloat16* par = pool + (size_t)op.x * slot_words + t;
+  // row i of the parent, f32
+  auto row = [&](int i) {
+    const float* p1 = P1 + i * S;
+    const float* p2 = P2 + i * S;
+    float left = 0.0f, right = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SMAX; ++j) {
+      if (j < S) {
+        const float a = K1_TIP ? static_cast<float>((m1 >> j) & 1u)
+                               : __bfloat162float(c1[(size_t)j * nth]);
+        const float b = K2_TIP ? static_cast<float>((m2 >> j) & 1u)
+                               : __bfloat162float(c2[(size_t)j * nth]);
+        left = fmaf(__ldg(p1 + j), a, left);
+        right = fmaf(__ldg(p2 + j), b, right);
+      }
+    }
+    return left * right;
+  };
+  int below = 1;  // every entry of the parent < thresh
+  for (int i = 0; i < S; ++i) {
+    const float v = row(i);
+    if (!(v < thresh)) below = 0;
+    par[(size_t)i * nth] = __float2bfloat16_rn(v);
+    if (out) out[(size_t)i * tb] = v;
+  }
+  if (!per_rate) {
+    // every lane of the warp takes part in each shuffle
+    for (int x = 1; x < lanes; x <<= 1)
+      below &= __shfl_xor_sync(FULL, below, x);
+  }
+  if (below) {
+    for (int i = 0; i < S; ++i) {
+      const float v = row(i) * factor;
+      par[(size_t)i * nth] = __float2bfloat16_rn(v);
+      if (out) out[(size_t)i * tb] = v;
+    }
+  }
+  // scalers: only the lane that keeps this word reads or writes it
+  if (keeps) {
+    int sc = below;
+    if (!K1_TIP) sc += spool[op.y * sr_stride + sidx];
+    if (!K2_TIP) sc += spool[op.z * sr_stride + sidx];
+    spool[op.x * sr_stride + sidx] = sc;
+    if (sout) *sout = sc;
+  }
+}
+
 // grid = NT site blocks of TB sites; block = TB * lanes threads: thread t
 // has rate lane t % lanes of site t / lanes.  shared: pool
-// [pool_size][S][threads] f32, then spool [pool_size][SR] i32 (SR = threads
-// per-rate, TB per-site).  ops as for tree_sweep_kernel.
-template <int SMAX>
+// [pool_size][S][threads] of T, then spool [pool_size][SR] i32 (SR =
+// threads per-rate, TB per-site).  ops, export_slots and export_at as for
+// tree_sweep_kernel.
+template <int SMAX, class T>
 __global__ void __launch_bounds__(GENERIC_THREADS)
 tree_sweep_generic_kernel(const int4* __restrict__ ops, int n_ops,
                           const float* __restrict__ pmat,
                           const int* __restrict__ tip_blocked, int tips,
                           const int* __restrict__ export_slots, int n_exp,
+                          const int* __restrict__ export_at,
                           float* __restrict__ clv_out,
                           int* __restrict__ scal_out, int S, int rates,
                           int lane_bits, int pool_size, int per_rate,
@@ -626,19 +835,35 @@ tree_sweep_generic_kernel(const int4* __restrict__ ops, int n_ops,
   const int sidx = per_rate ? t : s0;
   const bool keeps = per_rate || r == 0;
   const size_t slot_words = (size_t)S * nth;
-  float* pool = smem;
-  int* spool = reinterpret_cast<int*>(smem + (size_t)pool_size * slot_words);
+  T* pool = reinterpret_cast<T*>(smem);
+  int* spool = reinterpret_cast<int*>(pool + (size_t)pool_size * slot_words);
   const int* tip_col = tip_blocked + (size_t)blockIdx.x * tips * tb + s0;
   const size_t p_stride = (size_t)R * S * S;
   const int p_rate = min(r, R - 1) * S * S;
+  const int nt = gridDim.x, blk = blockIdx.x;
 
   for (int w = 0; w < n_ops; ++w) {
     const int4 st = __ldg(ops + ROW_INT4 * (size_t)w);
     const int4 op = __ldg(ops + ROW_INT4 * (size_t)w + 1);
+    float* out = nullptr;
+    int* sout = nullptr;
+    if constexpr (IS_BF16<T>) {
+      const int e = __ldg(export_at + w);
+      if (e >= 0 && r < R) {
+        out = clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + s0;
+        if (keeps)
+          sout = scal_out + (((size_t)e * nt + blk) * (per_rate ? R : 1) +
+                             (per_rate ? r : 0)) * tb + s0;
+      }
+    }
+#define LIBPLL_GENERIC_ARGS                                                   \
+  st, op, tip_col, tb, pmat, p_stride, p_rate, S, pool, slot_words, nth, t,   \
+      spool, sr_stride, sidx, keeps, lanes, per_rate, thresh, factor
 #define LIBPLL_GENERIC_OP(T1, T2)                                             \
-  generic_op<SMAX, T1, T2>(st, op, tip_col, tb, pmat, p_stride, p_rate, S,    \
-                           pool, slot_words, nth, t, spool, sr_stride, sidx,  \
-                           keeps, lanes, per_rate, thresh, factor)
+  if constexpr (IS_BF16<T>)                                                   \
+    generic_op_bf16<SMAX, T1, T2>(LIBPLL_GENERIC_ARGS, out, sout);            \
+  else                                                                        \
+    generic_op<SMAX, T1, T2>(LIBPLL_GENERIC_ARGS)
     // the op's case 2 * kinds + keep; kinds (tip, tip), (tip, pool),
     // (tip, handed on), (pool, pool), (pool, handed on)
     switch (op.w >> 1) {
@@ -648,78 +873,69 @@ tree_sweep_generic_kernel(const int4* __restrict__ ops, int n_ops,
       default: LIBPLL_GENERIC_OP(false, false); break;
     }
 #undef LIBPLL_GENERIC_OP
+#undef LIBPLL_GENERIC_ARGS
   }
 
   // export slots are never reused by the schedule; padding lanes write
-  // nothing
-  if (r >= R) return;
-  const int nt = gridDim.x, blk = blockIdx.x;
-  for (int e = 0; e < n_exp; ++e) {
-    const int slot = __ldg(export_slots + e);
-    const float* src = pool + (size_t)slot * slot_words + t;
-    float* dst = clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + s0;
-    for (int i = 0; i < S; ++i) dst[(size_t)i * tb] = src[(size_t)i * nth];
-    if (keeps)
-      scal_out[(((size_t)e * nt + blk) * (per_rate ? R : 1) +
-                (per_rate ? r : 0)) * tb + s0] =
-          spool[slot * sr_stride + sidx];
+  // nothing (a bf16 kernel wrote its exports at their ops)
+  if constexpr (!IS_BF16<T>) {
+    if (r >= R) return;
+    for (int e = 0; e < n_exp; ++e) {
+      const int slot = __ldg(export_slots + e);
+      const float* src = pool + (size_t)slot * slot_words + t;
+      float* dst = clv_out + (((size_t)e * nt + blk) * R + r) * S * tb + s0;
+      for (int i = 0; i < S; ++i) dst[(size_t)i * tb] = src[(size_t)i * nth];
+      if (keeps)
+        scal_out[(((size_t)e * nt + blk) * (per_rate ? R : 1) +
+                  (per_rate ? r : 0)) * tb + s0] =
+            spool[slot * sr_stride + sidx];
+    }
   }
 }
 
-template <int SMAX>
-cudaError_t launch_generic(const int* ops, int n_ops, const float* pmat,
-                           const int* tip_blocked, int tips,
-                           const int* export_slots, int n_exp,
-                           float* clv_out, int* scal_out, int nt, int tb,
-                           int rates, int states, int pool_size, int per_rate,
+template <int SMAX, class T>
+cudaError_t launch_generic(Store<T>, const int* ops, int n_ops,
+                           const float* pmat, const int* tip_blocked,
+                           int tips, const int* export_slots, int n_exp,
+                           const int* export_at, float* clv_out,
+                           int* scal_out, int nt, int tb, int rates,
+                           int states, int pool_size, int per_rate,
                            float thresh, float factor, cudaStream_t stream) {
   int lane_bits = 0;
   while ((1 << lane_bits) < rates) ++lane_bits;
   const int nth = tb << lane_bits;
   if (nth > GENERIC_THREADS || nth % 32) return cudaErrorInvalidValue;
   const int sr = per_rate ? nth : tb;
-  const size_t smem =
-      (size_t)pool_size * ((size_t)states * nth + sr) * sizeof(float);
+  const size_t smem = (size_t)pool_size *
+                      ((size_t)states * nth * sizeof(T) + (size_t)sr * 4);
   cudaError_t err = cudaFuncSetAttribute(
-      tree_sweep_generic_kernel<SMAX>,
+      tree_sweep_generic_kernel<SMAX, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  tree_sweep_generic_kernel<SMAX><<<nt, nth, smem, stream>>>(
+  tree_sweep_generic_kernel<SMAX, T><<<nt, nth, smem, stream>>>(
       reinterpret_cast<const int4*>(ops), n_ops, pmat, tip_blocked, tips,
-      export_slots, n_exp, clv_out, scal_out, states, rates, lane_bits,
-      pool_size, per_rate, thresh, factor);
+      export_slots, n_exp, export_at, clv_out, scal_out, states, rates,
+      lane_bits, pool_size, per_rate, thresh, factor);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch the sweep on `stream`; returns the cudaError_t of the launch.
-// ops: [n_ops][8] int32, 16-byte aligned (partials_tree.fma_device_table).
-// rates <= 32; tb * (rates rounded up to a power of two) / H threads (H = 2
-// sites a thread up to 4 states, else 1), a multiple of 32, at most 256 for
-// 1 and 4 rates, 1024 otherwise.  states 2, 4, 10, 16 and 20 run their own
-// instantiations; any other count from 2 to 32 the generic form (H = 1, at
-// most 1024 threads).  The kernel allocates nothing and does not
-// synchronise.
-int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
-                      const int* tip_blocked, int tips,
-                      const int* export_slots, int n_exp, float* clv_out,
-                      int* scal_out, int nt, int tb, int rates, int states,
-                      int pool_size, int per_rate, float thresh, float factor,
-                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_ops <= 0 || tb <= 0 || rates <= 0 || rates > 32 ||
-      reinterpret_cast<uintptr_t>(ops) % 16 ||
-      reinterpret_cast<uintptr_t>(pmat) % 16)
-    return (int)cudaErrorInvalidValue;
+// Every state count 2..32 and rate count 1..32 for pool type T: the
+// specialised instantiations at 2, 4, 10, 16 and 20 states, the generic
+// one otherwise.
+template <class T>
+cudaError_t launch_states(Store<T> store, const int* ops, int n_ops,
+                          const float* pmat, const int* tip_blocked, int tips,
+                          const int* export_slots, int n_exp,
+                          const int* export_at, float* clv_out,
+                          int* scal_out, int nt, int tb, int rates,
+                          int states, int pool_size, int per_rate,
+                          float thresh, float factor, cudaStream_t s) {
 #define TREE_SWEEP_CASE(S_)                                                  \
   case S_:                                                                   \
-    return (int)launch_rates<S_>(ops, n_ops, pmat, tip_blocked, tips,        \
-                                 export_slots, n_exp, clv_out, scal_out, nt, \
-                                 tb, rates, pool_size, per_rate, thresh,     \
-                                 factor, s);
+    return launch_rates<S_>(store, ops, n_ops, pmat, tip_blocked, tips,      \
+                            export_slots, n_exp, export_at, clv_out,         \
+                            scal_out, nt, tb, rates, pool_size, per_rate,    \
+                            thresh, factor, s);
   switch (states) {
     TREE_SWEEP_CASE(2)
     TREE_SWEEP_CASE(4)
@@ -731,15 +947,54 @@ int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
   }
 #undef TREE_SWEEP_CASE
 #define TREE_SWEEP_GENERIC(SMAX)                                             \
-  return (int)launch_generic<SMAX>(ops, n_ops, pmat, tip_blocked, tips,      \
-                                   export_slots, n_exp, clv_out, scal_out,   \
-                                   nt, tb, rates, states, pool_size,         \
-                                   per_rate, thresh, factor, s)
-  if (states < 2 || states > 32) return (int)cudaErrorInvalidValue;
+  return launch_generic<SMAX>(store, ops, n_ops, pmat, tip_blocked, tips,    \
+                              export_slots, n_exp, export_at, clv_out,       \
+                              scal_out, nt, tb, rates, states, pool_size,    \
+                              per_rate, thresh, factor, s)
+  if (states < 2 || states > 32) return cudaErrorInvalidValue;
   if (states <= 8) TREE_SWEEP_GENERIC(8);
   if (states <= 16) TREE_SWEEP_GENERIC(16);
   TREE_SWEEP_GENERIC(32);
 #undef TREE_SWEEP_GENERIC
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the sweep on `stream`; returns the cudaError_t of the launch.
+// ops: [n_ops][8] int32, 16-byte aligned (partials_tree.fma_device_table).
+// pmat: f32 [P][rates][states][states], 16-byte aligned, whatever the pool's
+// type.  export_slots [n_exp]: the slots the f32 kernel copies out after
+// the sweep; export_at [n_ops]: the export row of each op (-1: none), which
+// the bf16 kernel writes out at the op (partials_tree.export_rows).
+// bf16: the pool's type, 0 f32 or 1 bf16.  rates <= 32; tb * (rates
+// rounded up to a power of two) / H threads (H = 2 sites a thread up to 4
+// states, else 1), a multiple of 32, at most 256 for 1 and 4 rates, 1024
+// otherwise.  states 2, 4, 10, 16 and 20 run their own instantiations; any
+// other count from 2 to 32 the generic form (H = 1, at most 1024 threads).
+// The kernel allocates nothing and does not synchronise.
+int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
+                      const int* tip_blocked, int tips,
+                      const int* export_slots, int n_exp,
+                      const int* export_at, float* clv_out, int* scal_out,
+                      int nt, int tb, int rates, int states, int pool_size,
+                      int per_rate, int bf16, float thresh, float factor,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_ops <= 0 || tb <= 0 || rates <= 0 || rates > 32 ||
+      reinterpret_cast<uintptr_t>(ops) % 16 ||
+      reinterpret_cast<uintptr_t>(pmat) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return (int)launch_states(Store<__nv_bfloat16>{}, ops, n_ops, pmat,
+                              tip_blocked, tips, export_slots, n_exp,
+                              export_at, clv_out, scal_out, nt, tb, rates,
+                              states, pool_size, per_rate, thresh, factor, s);
+  return (int)launch_states(Store<float>{}, ops, n_ops, pmat, tip_blocked,
+                            tips, export_slots, n_exp, export_at, clv_out,
+                            scal_out, nt, tb, rates, states, pool_size,
+                            per_rate, thresh, factor, s);
 }
 
 // Dynamic shared memory a block may opt in to on `device`, in bytes.

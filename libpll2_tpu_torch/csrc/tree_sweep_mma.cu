@@ -93,6 +93,27 @@
 // (probes/variants.py clocks) put mostly before the first tile's products
 // are done; neither fewer products per op, nor fetching two ops ahead, nor
 // 16 sites a warp moved it.
+//
+// bf16 pools (BF16; cfg.dtype bfloat16), the counterpart of
+// _tree_kernel_splitk at one split part: both operands are bf16 and each
+// child is one mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 per
+// output tile, f32 accumulators, no split (a bf16 x bf16 product is exact in
+// f32).  The rescue is decided on the f32 parent; the parent is rounded to
+// the nearest even bf16 where it is stored, and where it is handed on (at
+// the consuming op, with the same rounding, so the carry on and off stay
+// bit-equal); an exported parent goes to device memory in f32 at the op
+// that makes it (the slot holds the rounded one).
+//   * small span (16): one k16 step covers the span.  A is the child's
+//     16-site tile over all 16 states, B_j = P^T's n-tile j (half of it
+//     zero: rates do not meet).  The C fragments of n-tiles 0 and 1 ARE the
+//     A fragment of the next product (rows g, g + 8; columns 2q, 2q + 1 and
+//     2q + 8, 2q + 9), packed to bf16x2: a lane's pool entry of a tile is
+//     that fragment, one 16-byte word.
+//   * general (span 80): the block-diagonal P in 16 x 16 tiles is A, five
+//     k16 steps, the 13 of 25 tile pairs that meet a rate block; the child
+//     tile [16 rows, 8 sites] is B, its pool slot laid out [TB/8][span/2][8]
+//     words of two rows, so that b0 and b1 are one 32-bit load each.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,20 +126,22 @@ constexpr int WARP_TILES = 4;  // tiles per warp: 32 sites
 constexpr unsigned FULL = 0xffffffffu;
 
 // Does the block-diagonal P have a nonzero entry in rows [16mt, 16mt+15],
-// columns [8ks, 8ks+7]?  (Do the rates of the rows meet those of the
-// columns.)
-__host__ __device__ constexpr bool pair_nonzero(int S, int mt, int ks) {
-  return (16 * mt) / S <= (8 * ks + 7) / S &&
-         (8 * ks) / S <= (16 * mt + 15) / S;
+// columns [K ks, K ks + K - 1]?  (Do the rates of the rows meet those of
+// the columns.)  K: the k-step, 8 (TF32) or 16 (bf16).
+__host__ __device__ constexpr bool pair_nonzero(int S, int mt, int ks,
+                                                int K = 8) {
+  return (16 * mt) / S <= (K * ks + K - 1) / S &&
+         (K * ks) / S <= (16 * mt + 15) / S;
 }
 
 // Position of pair (mt, ks) among the nonzero pairs in row-major order;
 // pair_index(S, KS, MT - 1, KS) is their number.
-__host__ __device__ constexpr int pair_index(int S, int KS, int mt, int ks) {
+__host__ __device__ constexpr int pair_index(int S, int KS, int mt, int ks,
+                                             int K = 8) {
   int n = 0;
   for (int m = 0; m <= mt; ++m)
     for (int k = 0; k < (m == mt ? ks : KS); ++k)
-      if (pair_nonzero(S, m, k)) ++n;
+      if (pair_nonzero(S, m, k, K)) ++n;
   return n;
 }
 
@@ -143,6 +166,29 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// d += a[16x16] . b[16x8], bf16 operands (two a register, the lower index
+// in the low half), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to nearest even bf16, as one bf16x2 register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A tip's entries at states s0 and s1 of the packed mask `code` as one
+// bf16x2 register: 1.0 (0x3f80) where the mask has the state, else 0.
+__device__ __forceinline__ uint32_t tip_pair(int code, int s0, int s1) {
+  return (((code >> s0) & 1) ? 0x3f80u : 0u) |
+         (((code >> s1) & 1) ? 0x3f800000u : 0u);
 }
 
 // acc[mt] = (Pbd . child)[16mt .. 16mt+15][8 sites of this tile] in C
@@ -185,6 +231,35 @@ __device__ __forceinline__ void child_product(float (&acc)[R * S / 16][4],
         if constexpr (!TIP) mma_tf32(acc[mt], a_hi, bl[ks][0], bl[ks][1]);
         mma_tf32(acc[mt], a_hi, bh[ks][0], bh[ks][1]);
       }
+    });
+  });
+}
+
+// The same at bf16 (the general kernel): acc[mt] = (Pbd . child) over
+// k16 steps.  TIP: the child is a tip (this lane's site g); else b_of(ks, h)
+// gives this lane's B register h of k-step ks, rows 16ks + 8h + 2q and + 1
+// at site g.  a_of(p) gives this lane's A fragment of nonzero pair p.
+template <int S, int R, bool TIP, class BF, class AF>
+__device__ __forceinline__ void child_product_bf16(
+    float (&acc)[R * S / 16][4], int code, BF&& b_of, AF&& a_of, int q) {
+  constexpr int SPAN = R * S, MT = SPAN / 16, KS = SPAN / 16;
+  uint32_t b[KS][2];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * ks + 8 * h + 2 * q;
+      b[ks][h] = TIP ? tip_pair(code, k % S, (k + 1) % S) : b_of(ks, h);
+    }
+  }
+  static_for<0, MT>([&](auto mi) {
+    constexpr int mt = decltype(mi)::value;
+    acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.0f;
+    static_for<0, KS>([&](auto ki) {
+      constexpr int ks = decltype(ki)::value;
+      if constexpr (pair_nonzero(S, mt, ks, 16))
+        mma_bf16(acc[mt], a_of(pair_index(S, KS, mt, ks, 16)), b[ks][0],
+                 b[ks][1]);
     });
   });
 }
@@ -281,16 +356,119 @@ __device__ __forceinline__ OpRow load_row(const int4* __restrict__ ops,
   return OpRow{__ldg(row), __ldg(row + 1), __ldg(row + 2)};
 }
 
+// The general kernel's scalers of sites `site` and `site` + 1, once per
+// site (lanes 0-3 carry sites 2q, 2q+1 of a tile): the rescues s plus the
+// children's counts, stored to the parent's slot and returned.
+__device__ __forceinline__ int2 tile_scalers(int2 s, const OpRow& op,
+                                             int* spool, int tb, int site) {
+  if (!op.is_tip1()) {
+    const int2 x = *reinterpret_cast<const int2*>(
+        spool + (size_t)op.slot1() * tb + site);
+    s.x += x.x;
+    s.y += x.y;
+  }
+  if (!op.is_tip2()) {
+    const int2 x = *reinterpret_cast<const int2*>(
+        spool + (size_t)op.slot2() * tb + site);
+    s.x += x.x;
+    s.y += x.y;
+  }
+  *reinterpret_cast<int2*>(spool + (size_t)op.parent() * tb + site) = s;
+  return s;
+}
+
+// One op of the general kernel at bf16, for the warp's WARP_TILES tiles of
+// 8 sites.  A pool slot is [TB/8][span/2][8] words: rows 2k and 2k + 1 of
+// site s in word k * 8 + s of its tile, the lower row in the low half.
+// The parent is stored rounded; an exported one (export_at[w] >= 0) also
+// goes out in f32.
+template <int S, int R>
+__device__ __forceinline__ void general_op_bf16(
+    const OpRow& op, int w, const uint4* __restrict__ pfrag,
+    __nv_bfloat16* poolb, int* spool, size_t slot_stride, int warp_off,
+    int code1, int code2, const int* __restrict__ export_at,
+    float* __restrict__ clv_out, int* __restrict__ scal_out, int tb,
+    float thresh, float factor) {
+  constexpr int SPAN = R * S, MT = SPAN / 16;
+  constexpr int NP16 = pair_index(S, SPAN / 16, MT - 1, SPAN / 16, 16);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const bool tip1 = op.is_tip1(), tip2 = op.is_tip2();
+  const uint4* A1 = pfrag + (size_t)op.pm1() * (NP16 * 32) + lane;
+  const uint4* A2 = pfrag + (size_t)op.pm2() * (NP16 * 32) + lane;
+  auto a1 = [&](int p) { return __ldg(A1 + p * 32); };
+  auto a2 = [&](int p) { return __ldg(A2 + p * 32); };
+  const uint32_t* c1 = reinterpret_cast<const uint32_t*>(
+      poolb + op.slot1() * slot_stride + warp_off);
+  const uint32_t* c2 = reinterpret_cast<const uint32_t*>(
+      poolb + op.slot2() * slot_stride + warp_off);
+  __nv_bfloat16* par = poolb + op.parent() * slot_stride + warp_off;
+  const int e = __ldg(export_at + w);
+  const int nt = gridDim.x, blk = blockIdx.x;
+#pragma unroll 1
+  for (int tile = 0; tile < WARP_TILES; ++tile) {
+    const int t1 = __shfl_sync(FULL, code1, tile * TILE + g);
+    const int t2 = __shfl_sync(FULL, code2, tile * TILE + g);
+    const int tile_words = tile * SPAN * TILE / 2;
+    // rows 16ks + 8h + 2q, + 1 of site g: word (8ks + 4h + q) * 8 + g
+    auto b1 = [&](int ks, int h) {
+      return c1[tile_words + (8 * ks + 4 * h + q) * TILE + g];
+    };
+    auto b2 = [&](int ks, int h) {
+      return c2[tile_words + (8 * ks + 4 * h + q) * TILE + g];
+    };
+    float left[MT][4], right[MT][4];
+    if (tip1)
+      child_product_bf16<S, R, true>(left, t1, b1, a1, q);
+    else
+      child_product_bf16<S, R, false>(left, 0, b1, a1, q);
+    if (tip2)
+      child_product_bf16<S, R, true>(right, t2, b2, a2, q);
+    else
+      child_product_bf16<S, R, false>(right, 0, b2, a2, q);
+    int2 s = multiply_rescue<MT>(left, right, thresh, factor);
+    // C layout: rows 16mt + g (+ 8), sites 2q, 2q + 1 of the tile
+    __nv_bfloat16* out = par + tile * SPAN * TILE;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 16 * mt + g + (i >> 1) * 8, site = 2 * q + (i & 1);
+        out[((row >> 1) * TILE + site) * 2 + (row & 1)] =
+            __float2bfloat16_rn(left[mt][i]);
+      }
+    }
+    const int site = warp * 32 + tile * TILE + 2 * q;
+    if (g == 0) s = tile_scalers(s, op, spool, tb, site);
+    if (e >= 0) {
+      float* dst = clv_out + ((size_t)e * nt + blk) * SPAN * tb + site;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dst[(size_t)(16 * mt + g + (i >> 1) * 8) * tb + (i & 1)] =
+              left[mt][i];
+      }
+      if (g == 0)
+        *reinterpret_cast<int2*>(scal_out + ((size_t)e * nt + blk) * tb +
+                                 site) = s;
+    }
+  }
+}
+
 // The general kernel: any (S, R) whose span fills whole m-tiles; every parent
 // goes through its pool slot (columns 9-11 of the table are not read).
 // grid = NT site blocks, block = TB threads: warp w owns sites 32w..32w+31.
-// shared: pool [pool_size][TB/8][span][8] f32, spool [pool_size][TB] i32.
-template <int S, int R>
+// shared: pool [pool_size][TB/8][span][8] f32 or, BF16, [pool_size][TB/8]
+// [span/2][8] words of two rows; spool [pool_size][TB] i32.  export_at as
+// in tree_sweep.cu (read by the BF16 kernel only).
+template <int S, int R, bool BF16>
 __global__ void __launch_bounds__(256)
 tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
                       const uint4* __restrict__ pfrag,
                       const int* __restrict__ tip_blocked, int tips,
                       const int* __restrict__ export_slots, int n_exp,
+                      const int* __restrict__ export_at,
                       float* __restrict__ clv_out, int* __restrict__ scal_out,
                       int pool_size, float thresh, float factor) {
   constexpr int SPAN = R * S, MT = SPAN / 16, KS = SPAN / 8;
@@ -300,9 +478,11 @@ tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
   const int tb = blockDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const size_t slot_stride = (size_t)SPAN * tb;
+  const size_t slot_stride = (size_t)SPAN * tb;   // entries
   float* pool = smem;
-  int* spool = reinterpret_cast<int*>(smem + (size_t)pool_size * slot_stride);
+  __nv_bfloat16* poolb = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* spool = BF16 ? reinterpret_cast<int*>(poolb + pool_size * slot_stride)
+                    : reinterpret_cast<int*>(pool + pool_size * slot_stride);
   const int warp_off = warp * WARP_TILES * SPAN * TILE;
   // tip i at this lane's site: tip_col[i * tb]
   const int* tip_col =
@@ -313,61 +493,54 @@ tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
     const bool tip1 = op.is_tip1(), tip2 = op.is_tip2();
     const int code1 = tip1 ? __ldg(tip_col + (size_t)op.tip1() * tb) : 0;
     const int code2 = tip2 ? __ldg(tip_col + (size_t)op.tip2() * tb) : 0;
-    const uint4* A1 = pfrag + (size_t)op.pm1() * (NP * 2 * 32) + lane;
-    const uint4* A2 = pfrag + (size_t)op.pm2() * (NP * 2 * 32) + lane;
-    auto a1 = [&](int p, int h) { return __ldg(A1 + (2 * p + h) * 32); };
-    auto a2 = [&](int p, int h) { return __ldg(A2 + (2 * p + h) * 32); };
-    const float* c1 = pool + op.slot1() * slot_stride + warp_off;
-    const float* c2 = pool + op.slot2() * slot_stride + warp_off;
-    float* par = pool + op.parent() * slot_stride + warp_off;
+    if constexpr (BF16) {
+      general_op_bf16<S, R>(op, w, pfrag, poolb, spool, slot_stride,
+                            warp_off, code1, code2, export_at, clv_out,
+                            scal_out, tb, thresh, factor);
+    } else {
+      const uint4* A1 = pfrag + (size_t)op.pm1() * (NP * 2 * 32) + lane;
+      const uint4* A2 = pfrag + (size_t)op.pm2() * (NP * 2 * 32) + lane;
+      auto a1 = [&](int p, int h) { return __ldg(A1 + (2 * p + h) * 32); };
+      auto a2 = [&](int p, int h) { return __ldg(A2 + (2 * p + h) * 32); };
+      const float* c1 = pool + op.slot1() * slot_stride + warp_off;
+      const float* c2 = pool + op.slot2() * slot_stride + warp_off;
+      float* par = pool + op.parent() * slot_stride + warp_off;
 
-    // one tile at a time: at span 80 one tile's accumulators and B
-    // fragments fill the registers
+      // one tile at a time: at span 80 one tile's accumulators and B
+      // fragments fill the registers
 #pragma unroll 1
-    for (int tile = 0; tile < WARP_TILES; ++tile) {
-      // the B fragment's site is lane/4 of this tile
-      const int t1 = __shfl_sync(FULL, code1, tile * TILE + g);
-      const int t2 = __shfl_sync(FULL, code2, tile * TILE + g);
-      const int tile_off = tile * SPAN * TILE;
-      auto b1 = [&](int ks, int h) {
-        return c1[tile_off + (8 * ks + 4 * h + q) * TILE + g];
-      };
-      auto b2 = [&](int ks, int h) {
-        return c2[tile_off + (8 * ks + 4 * h + q) * TILE + g];
-      };
-      float left[MT][4], right[MT][4];
-      if (tip1)
-        child_product<S, R, true>(left, t1, b1, a1, q);
-      else
-        child_product<S, R, false>(left, 0, b1, a1, q);
-      if (tip2)
-        child_product<S, R, true>(right, t2, b2, a2, q);
-      else
-        child_product<S, R, false>(right, 0, b2, a2, q);
-      int2 s = multiply_rescue<MT>(left, right, thresh, factor);
-      store_tile<MT>(par + tile_off, left, g, q);
-      if (g == 0) {  // once per site: lanes 0-3 carry sites 2q, 2q+1
-        const int site = warp * 32 + tile * TILE + 2 * q;
-        if (!tip1) {
-          const int2 x = *reinterpret_cast<const int2*>(
-              spool + (size_t)op.slot1() * tb + site);
-          s.x += x.x;
-          s.y += x.y;
-        }
-        if (!tip2) {
-          const int2 x = *reinterpret_cast<const int2*>(
-              spool + (size_t)op.slot2() * tb + site);
-          s.x += x.x;
-          s.y += x.y;
-        }
-        *reinterpret_cast<int2*>(spool + (size_t)op.parent() * tb + site) = s;
+      for (int tile = 0; tile < WARP_TILES; ++tile) {
+        // the B fragment's site is lane/4 of this tile
+        const int t1 = __shfl_sync(FULL, code1, tile * TILE + g);
+        const int t2 = __shfl_sync(FULL, code2, tile * TILE + g);
+        const int tile_off = tile * SPAN * TILE;
+        auto b1 = [&](int ks, int h) {
+          return c1[tile_off + (8 * ks + 4 * h + q) * TILE + g];
+        };
+        auto b2 = [&](int ks, int h) {
+          return c2[tile_off + (8 * ks + 4 * h + q) * TILE + g];
+        };
+        float left[MT][4], right[MT][4];
+        if (tip1)
+          child_product<S, R, true>(left, t1, b1, a1, q);
+        else
+          child_product<S, R, false>(left, 0, b1, a1, q);
+        if (tip2)
+          child_product<S, R, true>(right, t2, b2, a2, q);
+        else
+          child_product<S, R, false>(right, 0, b2, a2, q);
+        int2 s = multiply_rescue<MT>(left, right, thresh, factor);
+        store_tile<MT>(par + tile_off, left, g, q);
+        if (g == 0)
+          tile_scalers(s, op, spool, tb, warp * 32 + tile * TILE + 2 * q);
       }
     }
     // stores in C layout above, loads in B layout in a later op
     __syncwarp();
   }
-  export_rows<SPAN>(pool, spool, slot_stride, tb, export_slots, n_exp,
-                    clv_out, scal_out);
+  if constexpr (!BF16)
+    export_rows<SPAN>(pool, spool, slot_stride, tb, export_slots, n_exp,
+                      clv_out, scal_out);
 }
 
 // ---- the small-span kernel: sites on the M side of the product, operands
@@ -395,18 +568,24 @@ enum class Child { TIP, POOL, CARRIED };
 
 // What an op reads from device memory besides its row.  M: m-tiles a warp
 // owns; NT: n-tiles (= k-steps) of the span.
-template <int M, int NT>
+template <int M, int NT, bool BF16 = false>
 struct Fetched {
   int code1[M][2], code2[M][2];  // the tips' packed states at sites g, g + 8
-  float4 b1[NT], b2[NT];         // this lane's B fragments of both P-matrices:
-                                 // (b0, b1) TF32 heads, (b0, b1) remainders
+  // this lane's B fragments of both P-matrices: f32, per n-tile (b0, b1)
+  // TF32 heads, (b0, b1) remainders; bf16, (b0, b1) of n-tile 0, then of
+  // n-tile 1, in one word
+  std::conditional_t<BF16, uint4, float4> b1[BF16 ? 1 : NT], b2[BF16 ? 1 : NT];
 };
 
-template <int M, int NT>
-__device__ __forceinline__ void fetch(Fetched<M, NT>& f, const OpRow& op,
-                                      const float4* __restrict__ pfrag_lane,
-                                      const int* __restrict__ tip_col,
-                                      int tb) {
+// The P fragments' element type: float4 (f32) or uint4 (bf16).
+template <bool BF16>
+using PFrag = std::conditional_t<BF16, uint4, float4>;
+
+template <int M, int NT, bool BF16>
+__device__ __forceinline__ void fetch(
+    Fetched<M, NT, BF16>& f, const OpRow& op,
+    const PFrag<BF16>* __restrict__ pfrag_lane,
+    const int* __restrict__ tip_col, int tb) {
 #pragma unroll
   for (int m = 0; m < M; ++m) {
 #pragma unroll
@@ -418,11 +597,38 @@ __device__ __forceinline__ void fetch(Fetched<M, NT>& f, const OpRow& op,
                           ? __ldg(tip_col + (size_t)op.tip2() * tb + site) : 0;
     }
   }
+  if constexpr (BF16) {
+    f.b1[0] = __ldg(pfrag_lane + (size_t)op.pm1() * 32);
+    f.b2[0] = __ldg(pfrag_lane + (size_t)op.pm2() * 32);
+  } else {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    f.b1[j] = __ldg(pfrag_lane + ((size_t)op.pm1() * NT + j) * 32);
-    f.b2[j] = __ldg(pfrag_lane + ((size_t)op.pm2() * NT + j) * 32);
+    for (int j = 0; j < NT; ++j) {
+      f.b1[j] = __ldg(pfrag_lane + ((size_t)op.pm1() * NT + j) * 32);
+      f.b2[j] = __ldg(pfrag_lane + ((size_t)op.pm2() * NT + j) * 32);
+    }
   }
+}
+
+// bf16, span 16: the A fragment of a child's 16-site tile over the whole
+// span (registers: rows g, g + 8 at columns 2q, 2q + 1; the same at
+// 2q + 8, 2q + 9) ...
+// ... of a tip, from its packed states at sites g and g + 8;
+template <int S>
+__device__ __forceinline__ uint4 tip_fragment(int code_g, int code_g8,
+                                              int q) {
+  const int k = 2 * q, k8 = 2 * q + 8;
+  return make_uint4(tip_pair(code_g, k % S, (k + 1) % S),
+                    tip_pair(code_g8, k % S, (k + 1) % S),
+                    tip_pair(code_g, k8 % S, (k8 + 1) % S),
+                    tip_pair(code_g8, k8 % S, (k8 + 1) % S));
+}
+
+// ... and of a parent from its accumulators (n-tiles 0 and 1 in C order),
+// rounded to nearest even: how it is stored, and how a handed-on one is
+// read.
+__device__ __forceinline__ uint4 parent_fragment(const float (&y)[2][4]) {
+  return make_uint4(pack_bf16(y[0][0], y[0][1]), pack_bf16(y[0][2], y[0][3]),
+                    pack_bf16(y[1][0], y[1][1]), pack_bf16(y[1][2], y[1][3]));
 }
 
 // A tip's entries at one n-tile, in C order, as f32 bit patterns: 1.0f where
@@ -475,15 +681,22 @@ __device__ __forceinline__ void site_product(float (&d)[4],
 // wrote itself (pool4: [slot][16-site tile][n-tile][lane] float4 in C
 // order; spool: [slot][site], the lanes with q == 0), so nothing orders
 // the warp's lanes against each other.
-template <int S, int R, int M, Child K1, Child K2, bool KEEP>
+// BF16: the pool is uint4 [slot][tile][lane], a lane's A fragment of the
+// tile (parent_fragment), and an exported parent (e >= 0) also goes out to
+// clv_out / scal_out in f32 at this op.
+template <int S, int R, int M, Child K1, Child K2, bool KEEP, bool BF16>
 __device__ __forceinline__ void op_tiles(
-    const OpRow& op, const Fetched<M, R * S / 8>& f, float4* pool4,
+    const OpRow& op, const Fetched<M, R * S / 8, BF16>& f, void* pool,
     int* spool, int tb, int warp, int lane, float thresh, float factor,
-    float (&held)[M][R * S / 8][4], int2 (&held_scal)[M]) {
+    float (&held)[M][R * S / 8][4], int2 (&held_scal)[M], int e,
+    float* __restrict__ clv_out, int* __restrict__ scal_out) {
   constexpr int NT = R * S / 8;
   static_assert(K1 != Child::CARRIED, "the host puts a carried child second");
+  static_assert(!BF16 || NT == 2, "bf16: one k16 step, span 16");
   const int g = lane >> 2, q = lane & 3;
   const int tiles = tb / M_SITES;      // 16-site tiles of the CTA
+  float4* pool4 = static_cast<float4*>(pool);
+  uint4* poolb = static_cast<uint4*>(pool);
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const int tile = warp * M + m;
@@ -492,29 +705,59 @@ __device__ __forceinline__ void op_tiles(
     const float4* c2 = pool4 + ((size_t)op.slot2() * tiles + tile) * NT * 32
                        + lane;
     float y[NT][4];
+    if constexpr (BF16) {
+      uint4 a1, a2;
+      if constexpr (K1 == Child::TIP)
+        a1 = tip_fragment<S>(f.code1[m][0], f.code1[m][1], q);
+      else
+        a1 = poolb[((size_t)op.slot1() * tiles + tile) * 32 + lane];
+      if constexpr (K2 == Child::TIP)
+        a2 = tip_fragment<S>(f.code2[m][0], f.code2[m][1], q);
+      else if constexpr (K2 == Child::CARRIED)
+        a2 = parent_fragment(held[m]);
+      else
+        a2 = poolb[((size_t)op.slot2() * tiles + tile) * 32 + lane];
+      const uint4 b1 = f.b1[0], b2 = f.b2[0];
+      float right[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float x1[4], x2[4], right[4];
-      const int st = (8 * j + 2 * q) % S;   // state 8j + 2q within its rate
-      if constexpr (K1 == Child::TIP) {
-        tip_entries(x1, f.code1[m][0], f.code1[m][1], st);
-      } else {
-        const float4 v = c1[j * 32];
-        x1[0] = v.x, x1[1] = v.y, x1[2] = v.z, x1[3] = v.w;
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) y[j][i] = right[j][i] = 0.0f;
       }
-      if constexpr (K2 == Child::TIP) {
-        tip_entries(x2, f.code2[m][0], f.code2[m][1], st);
-      } else if constexpr (K2 == Child::CARRIED) {
+      mma_bf16(y[0], a1, b1.x, b1.y);
+      mma_bf16(y[1], a1, b1.z, b1.w);
+      mma_bf16(right[0], a2, b2.x, b2.y);
+      mma_bf16(right[1], a2, b2.z, b2.w);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x2[i] = held[m][j][i];
-      } else {
-        const float4 v = c2[j * 32];
-        x2[0] = v.x, x2[1] = v.y, x2[2] = v.z, x2[3] = v.w;
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) y[j][i] *= right[j][i];
       }
-      site_product<K1 == Child::TIP>(y[j], x1, f.b1[j]);
-      site_product<K2 == Child::TIP>(right, x2, f.b2[j]);
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) y[j][i] *= right[i];
+      for (int j = 0; j < NT; ++j) {
+        float x1[4], x2[4], right[4];
+        const int st = (8 * j + 2 * q) % S;   // state 8j + 2q within its rate
+        if constexpr (K1 == Child::TIP) {
+          tip_entries(x1, f.code1[m][0], f.code1[m][1], st);
+        } else {
+          const float4 v = c1[j * 32];
+          x1[0] = v.x, x1[1] = v.y, x1[2] = v.z, x1[3] = v.w;
+        }
+        if constexpr (K2 == Child::TIP) {
+          tip_entries(x2, f.code2[m][0], f.code2[m][1], st);
+        } else if constexpr (K2 == Child::CARRIED) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x2[i] = held[m][j][i];
+        } else {
+          const float4 v = c2[j * 32];
+          x2[0] = v.x, x2[1] = v.y, x2[2] = v.z, x2[3] = v.w;
+        }
+        site_product<K1 == Child::TIP>(y[j], x1, f.b1[j]);
+        site_product<K2 == Child::TIP>(right, x2, f.b2[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) y[j][i] *= right[i];
+      }
     }
     // the rescue: a site's 16 entries sit in the four lanes of its quad
     float ma = 0.0f, mb = 0.0f;  // CLV entries are >= 0
@@ -562,14 +805,38 @@ __device__ __forceinline__ void op_tiles(
       }
       held_scal[m] = s;
     } else {
-      float4* par = pool4 + ((size_t)op.parent() * tiles + tile) * NT * 32
-                    + lane;
+      if constexpr (BF16) {
+        poolb[((size_t)op.parent() * tiles + tile) * 32 + lane] =
+            parent_fragment(y);
+      } else {
+        float4* par = pool4 + ((size_t)op.parent() * tiles + tile) * NT * 32
+                      + lane;
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        par[j * 32] = make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+        for (int j = 0; j < NT; ++j)
+          par[j * 32] = make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+      }
       if (q == 0) {
         spool[(size_t)op.parent() * tb + site] = s.x;
         spool[(size_t)op.parent() * tb + site + 8] = s.y;
+      }
+      if constexpr (BF16) {
+        // an exported parent is never handed on
+        if (e >= 0) {
+          const size_t row0 = (size_t)e * gridDim.x + blockIdx.x;
+          float* dst = clv_out + row0 * (R * S) * tb + site;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            float* row = dst + (size_t)(8 * j + 2 * q) * tb;
+            row[0] = y[j][0];
+            row[tb] = y[j][1];
+            row[8] = y[j][2];
+            row[tb + 8] = y[j][3];
+          }
+          if (q == 0) {
+            scal_out[row0 * tb + site] = s.x;
+            scal_out[row0 * tb + site + 8] = s.y;
+          }
+        }
       }
     }
   }
@@ -577,15 +844,17 @@ __device__ __forceinline__ void op_tiles(
 
 // grid = NT site blocks of TB sites; block = TB threads: a warp owns WARP_M
 // tiles of 16 sites, whose chains overlap.  shared: pool4 and spool as
-// op_tiles says, TB * (span + 1) * 4 bytes a slot, the general kernel's
-// footprint.  A parent is either stored or handed on, never both
-// (partials_tree.carry_flags).
-template <int S, int R>
+// op_tiles says, TB * (span * item + 4) bytes a slot (item 4, or 2 at
+// BF16), the general kernel's footprint.  A parent is either stored or
+// handed on, never both (partials_tree.carry_flags).  export_at as in
+// tree_sweep.cu (read by the BF16 kernel only).
+template <int S, int R, bool BF16>
 __global__ void __launch_bounds__(256)
 tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
-                            const float4* __restrict__ pfrag,
+                            const PFrag<BF16>* __restrict__ pfrag,
                             const int* __restrict__ tip_blocked, int tips,
                             const int* __restrict__ export_slots, int n_exp,
+                            const int* __restrict__ export_at,
                             float* __restrict__ clv_out,
                             int* __restrict__ scal_out, int pool_size,
                             float thresh, float factor) {
@@ -596,11 +865,13 @@ tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   float4* pool4 = smem4;
-  int* spool = reinterpret_cast<int*>(smem4 + (size_t)pool_size * tb * SPAN / 4);
+  const size_t pool_bytes = (size_t)pool_size * tb * SPAN * (BF16 ? 2 : 4);
+  int* spool = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) +
+                                      pool_bytes);
   // the tips at this lane's sites g (+ 8) of the warp's first tile
   const int* tip_col = tip_blocked + (size_t)blockIdx.x * tips * tb +
                        warp * M * M_SITES + g;
-  const float4* pfrag_lane = pfrag + lane;
+  const PFrag<BF16>* pfrag_lane = pfrag + lane;
 
   float held[M][NT][4];   // the previous parent, as its accumulators left it
   int2 held_scal[M];      // its scaler counts (lanes with q == 0)
@@ -619,14 +890,17 @@ tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
   // the last row is fetched again and not used.
   const int last = n_ops - 1;
   OpRow op = load_row(ops, 0), next_op = load_row(ops, min(1, last));
-  Fetched<M, NT> f, next_f;
-  fetch<M, NT>(f, op, pfrag_lane, tip_col, tb);
+  Fetched<M, NT, BF16> f, next_f;
+  fetch<M, NT, BF16>(f, op, pfrag_lane, tip_col, tb);
   for (int w = 0; w < n_ops; ++w) {
     const OpRow after = load_row(ops, min(w + 2, last));
-    fetch<M, NT>(next_f, next_op, pfrag_lane, tip_col, tb);
+    fetch<M, NT, BF16>(next_f, next_op, pfrag_lane, tip_col, tb);
+    int e = -1;  // the export row of this op's parent (BF16 only)
+    if constexpr (BF16) e = __ldg(export_at + w);
 #define LIBPLL_OP(K1, K2, KEEP)                                          \
-  op_tiles<S, R, M, Child::K1, Child::K2, KEEP>(                         \
-      op, f, pool4, spool, tb, warp, lane, thresh, factor, held, held_scal)
+  op_tiles<S, R, M, Child::K1, Child::K2, KEEP, BF16>(                   \
+      op, f, pool4, spool, tb, warp, lane, thresh, factor, held, held_scal, \
+      e, clv_out, scal_out)
     switch (2 * op.kinds() + (op.keep() ? 1 : 0)) {
       case 0: LIBPLL_OP(TIP, TIP, false); break;
       case 1: LIBPLL_OP(TIP, TIP, true); break;
@@ -646,7 +920,9 @@ tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
   }
 
   // Export slots are never reused by the schedule, and an exported parent is
-  // always stored.  Every lane writes out the entries it holds.
+  // always stored.  Every lane writes out the entries it holds.  (The BF16
+  // kernel wrote its exports at their ops.)
+  if constexpr (BF16) return;
   const int nt = gridDim.x, blk = blockIdx.x;
   const int tiles = tb / M_SITES;
   for (int e = 0; e < n_exp; ++e) {
@@ -699,19 +975,35 @@ __global__ void pmatrix_fragments_kernel(const float* __restrict__ pmat,
   out[run] = lo;
 }
 
+// The bf16 P operand: element i of a slot's `words` entries is pmat[idx[i]]
+// (idx[i] == pm_words: zero), 16-bit patterns copied as they are.
+__global__ void pmatrix_gather_kernel(const uint16_t* __restrict__ pmat,
+                                      const int* __restrict__ idx,
+                                      uint16_t* __restrict__ pfrag,
+                                      int n_slots, int words, int pm_words) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)n_slots * words) return;
+  const int slot = (int)(i / words), j = (int)(i % words);
+  const int k = __ldg(idx + j);
+  pfrag[i] = k < pm_words ? pmat[(size_t)slot * pm_words + k] : uint16_t(0);
+}
+
+// item: bytes of a pool entry (4 f32, 2 bf16)
 template <class K, class F>
-cudaError_t launch(K kernel, int span, const int* ops, int n_ops,
+cudaError_t launch(K kernel, int span, int item, const int* ops, int n_ops,
                    const F* pfrag, const int* tip_blocked, int tips,
-                   const int* export_slots, int n_exp, float* clv_out,
-                   int* scal_out, int nt, int tb, int pool_size, float thresh,
-                   float factor, cudaStream_t stream) {
-  const size_t smem = (size_t)pool_size * (span + 1) * tb * 4;
+                   const int* export_slots, int n_exp, const int* export_at,
+                   float* clv_out, int* scal_out, int nt, int tb,
+                   int pool_size, float thresh, float factor,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)pool_size * (span * item + 4) * tb;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<nt, tb, smem, stream>>>(
       reinterpret_cast<const int4*>(ops), n_ops, pfrag, tip_blocked, tips,
-      export_slots, n_exp, clv_out, scal_out, pool_size, thresh, factor);
+      export_slots, n_exp, export_at, clv_out, scal_out, pool_size, thresh,
+      factor);
   return cudaGetLastError();
 }
 
@@ -719,49 +1011,75 @@ cudaError_t launch(K kernel, int span, const int* ops, int n_ops,
 
 extern "C" {
 
-// tree_sweep_mma_fragments: split P [n_slots][pm_words] into TF32 (hi, lo)
-// in fragment order, by the index table idx [words] int32 and its run length
-// (partials_tree.mma_fragment_index), on `stream`.
+// tree_sweep_mma_fragments: the P operand of this case in fragment order,
+// by the index table idx [words] int32 (partials_tree.mma_fragment_index),
+// on `stream`: f32 P [n_slots][pm_words] split into TF32 (hi, lo) in runs
+// of `run`; bf16 P (bf16 = 1) gathered as it is.
 //
 // tree_sweep_mma_launch: the tensor-core sweep on `stream`.  ops: [n_ops][12]
 // int32, 16-byte aligned (partials_tree.mma_device_table).  pfrag: the
-// output of tree_sweep_mma_fragments for this case.  tb is a multiple of 32
-// up to 256.  (states, rates) (4, 4): the small-span kernel; (20, 4): the
-// general kernel, which never hands a parent on and always stores.  Both
-// return the cudaError_t of the launch.
-int tree_sweep_mma_fragments(const float* pmat, const int* idx, float* pfrag,
+// output of tree_sweep_mma_fragments for this case.  export_slots [n_exp]
+// (copied out after the sweep, f32) and export_at [n_ops] (each op's export
+// row, -1: none; written out at the op, bf16) as in tree_sweep.cu.  bf16:
+// the pool's type, 0 f32 or 1 bf16.  tb is a multiple of 32 up to 256.
+// (states, rates) (4, 4): the small-span kernel; (20, 4): the general
+// kernel, which never hands a parent on and always stores.  Both return
+// the cudaError_t of the launch.
+int tree_sweep_mma_fragments(const void* pmat, const int* idx, void* pfrag,
                              int n_slots, int words, int run, int pm_words,
-                             void* stream) {
+                             int bf16, void* stream) {
   const size_t total = (size_t)n_slots * words;
   if (total == 0) return (int)cudaSuccess;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    pmatrix_gather_kernel<<<blocks, 256, 0, s>>>(
+        static_cast<const uint16_t*>(pmat), idx,
+        static_cast<uint16_t*>(pfrag), n_slots, words, pm_words);
+    return (int)cudaGetLastError();
+  }
   if (run <= 0 || words % run) return (int)cudaErrorInvalidValue;
-  pmatrix_fragments_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      pmat, idx, pfrag, n_slots, words, run, pm_words);
+  pmatrix_fragments_kernel<<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(pmat), idx, static_cast<float*>(pfrag),
+      n_slots, words, run, pm_words);
   return (int)cudaGetLastError();
 }
 
 int tree_sweep_mma_launch(const int* ops, int n_ops, const void* pfrag,
                           const int* tip_blocked, int tips,
-                          const int* export_slots, int n_exp, float* clv_out,
-                          int* scal_out, int nt, int tb, int rates, int states,
-                          int pool_size, float thresh, float factor,
+                          const int* export_slots, int n_exp,
+                          const int* export_at, float* clv_out, int* scal_out,
+                          int nt, int tb, int rates, int states,
+                          int pool_size, int bf16, float thresh, float factor,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_ops <= 0 || tb <= 0 || tb % 32 || tb > 256 ||
       reinterpret_cast<uintptr_t>(ops) % 16 ||
       reinterpret_cast<uintptr_t>(pfrag) % 16)
     return (int)cudaErrorInvalidValue;
-  if (states == 4 && rates == 4)
-    return (int)launch(tree_sweep_mma_small_kernel<4, 4>, 16, ops, n_ops,
-                       static_cast<const float4*>(pfrag), tip_blocked, tips,
-                       export_slots, n_exp, clv_out, scal_out, nt, tb,
-                       pool_size, thresh, factor, s);
-  if (states == 20 && rates == 4)
-    return (int)launch(tree_sweep_mma_kernel<20, 4>, 80, ops, n_ops,
-                       static_cast<const uint4*>(pfrag), tip_blocked, tips,
-                       export_slots, n_exp, clv_out, scal_out, nt, tb,
-                       pool_size, thresh, factor, s);
+#define TREE_SWEEP_MMA_ARGS                                                  \
+  ops, n_ops, static_cast<const PF*>(pfrag), tip_blocked, tips,              \
+      export_slots, n_exp, export_at, clv_out, scal_out, nt, tb, pool_size,  \
+      thresh, factor, s
+  if (states == 4 && rates == 4) {
+    if (bf16) {
+      using PF = uint4;
+      return (int)launch(tree_sweep_mma_small_kernel<4, 4, true>, 16, 2,
+                         TREE_SWEEP_MMA_ARGS);
+    }
+    using PF = float4;
+    return (int)launch(tree_sweep_mma_small_kernel<4, 4, false>, 16, 4,
+                       TREE_SWEEP_MMA_ARGS);
+  }
+  if (states == 20 && rates == 4) {
+    using PF = uint4;
+    if (bf16)
+      return (int)launch(tree_sweep_mma_kernel<20, 4, true>, 80, 2,
+                         TREE_SWEEP_MMA_ARGS);
+    return (int)launch(tree_sweep_mma_kernel<20, 4, false>, 80, 4,
+                       TREE_SWEEP_MMA_ARGS);
+  }
+#undef TREE_SWEEP_MMA_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,8 +34,9 @@ carry on or off).  Two forms of the kernel exist, picked by
     count at run time and holds O(1) registers in it;
   * "mma" (csrc/tree_sweep_mma.cu): the propagation as one product with the
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
-    split of both operands.  It is the counterpart of the runtime-ops
-    kernels' "mxu" and "splitk" modes (`_tree_kernel`, `_tree_kernel_splitk`).
+    split of both operands (bf16 operands at a bf16 pool).  It is the
+    counterpart of the runtime-ops kernels' "mxu" and "splitk" modes
+    (`_tree_kernel`, `_tree_kernel_splitk`).
 
 Both forms take the site block that fills the card (`pick_site_block` with
 the SM count).  `choose()` picks the form by the times measured on an H100
@@ -98,6 +99,8 @@ FMA_STAGE_P_MAX_STATES = 4
 # whole 16-row tensor-core tiles, and it keeps per-site scalers only.
 MMA_CASES = ((4, 4), (20, 4))
 MODES = ("fma", "mma")
+# The pool types both forms take: cfg.dtype, the storage of the CLV pool.
+DTYPES = (torch.float32, torch.bfloat16)
 # Columns of the "mma" kernel's device table (`mma_device_table`): the nine
 # above, the op's case by the kinds of its children, whether the parent is
 # stored to its slot, whether it is handed on to the next op in registers.
@@ -127,6 +130,11 @@ MMA_SMALL_BLOCK = 64
 # with fewer sites an SM holds one or two CTAs and the "fma" form, whose op
 # waits less, wins (times in `choose`).
 MMA_MIN_SITES = 65536
+# At bf16, (states, rate_cats) where `choose` takes "mma" at any site count:
+# the general kernel's bf16 products (13 k16 tile pairs, one product each)
+# replace 22 pairs of three TF32 products, and it won from 2,048 to 16,384
+# sites (times in `choose`).
+MMA_BF16_CASES = ((20, 4),)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -147,18 +155,30 @@ class TreeVmemProgram:
 
     def device_tables(self, device: torch.device, mode: str = "fma",
                       carry: bool = True):
-        """(op table int32, export slots [E] int32) on `device`: for "fma"
-        `fma_device_table` [OPS, 8], for "mma" `mma_device_table` [OPS, 12];
-        with carry=False nothing is handed on and every parent is stored."""
+        """(op table int32, export slots [E] int32, export rows [OPS]
+        int32) on `device`: for "fma" `fma_device_table` [OPS, 8], for
+        "mma" `mma_device_table` [OPS, 12]; with carry=False nothing is
+        handed on and every parent is stored.  The f32 kernels copy the
+        export slots out after the sweep; the bf16 ones write the f32
+        parent of each op that `export_rows` marks as it is made."""
         key = (str(device), mode, carry)
         if key not in self._device:
             table = fma_device_table(self, carry) if mode == "fma" \
                 else mma_device_table(self, carry)
             slots = np.asarray([s for _, s in self.exports], np.int32)
-            self._device[key] = (
-                torch.as_tensor(table, device=device),
-                torch.as_tensor(slots, device=device).contiguous())
+            self._device[key] = tuple(
+                torch.as_tensor(a, device=device).contiguous()
+                for a in (table, slots, export_rows(self)))
         return self._device[key]
+
+
+def export_rows(prog: TreeVmemProgram) -> np.ndarray:
+    """[OPS] int32: the export row each op's parent goes to, -1 for an op
+    that exports nothing (an exported parent is made by one op)."""
+    rows = np.full(prog.n_ops, -1, dtype=np.int32)
+    for e, (op_index, _slot) in enumerate(prog.exports):
+        rows[op_index] = e
+    return rows
 
 
 def carry_flags(prog: TreeVmemProgram, enabled: bool = True) -> np.ndarray:
@@ -369,6 +389,12 @@ def _scaler_rows(cfg: PartitionConfig) -> int:
     return cfg.rate_cats if cfg.per_rate_scalers else 1
 
 
+def pool_itemsize(cfg: PartitionConfig) -> int:
+    """Bytes of one CLV entry in the kernels' pools: 2 for bf16 storage,
+    4 for f32 (scaler entries are int32 either way)."""
+    return 2 if cfg.dtype == torch.bfloat16 else 4
+
+
 def rate_lanes(rate_cats: int) -> int:
     """Threads a site has in the "fma" kernel: one per rate category,
     rounded up to a power of two (the padding lanes repeat the last rate)."""
@@ -422,17 +448,19 @@ def ring_words(cfg: PartitionConfig) -> int:
 def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
                mode: str = "fma") -> int:
     """Dynamic shared memory of one CTA at site-block size tb.  "fma": the
-    CLV pool [pool_size, S, tb * L] f32, the scaler pool [pool_size,
-    tb * L or tb] int32 (per-rate or per-site), L = rate_lanes(R) (at a
-    power-of-two R the pools [pool_size, R*S, tb] and [pool_size, SR, tb]),
-    and one staging ring a warp (`ring_words`).  "mma": the CLV pool tiled
-    as [tb/8, R*S, 8] and one scaler row."""
+    CLV pool [pool_size, S, tb * L] in cfg.dtype (f32 or bf16,
+    `pool_itemsize`), the scaler pool [pool_size, tb * L or tb] int32
+    (per-rate or per-site), L = rate_lanes(R) (at a power-of-two R the
+    pools [pool_size, R*S, tb] and [pool_size, SR, tb]), and one staging
+    ring a warp (`ring_words`).  "mma": the CLV pool tiled as [tb/8, R*S,
+    8] in cfg.dtype and one scaler row."""
+    item = pool_itemsize(cfg)
     if mode == "mma":
-        return prog.pool_size * (cfg.span + 1) * tb * 4
+        return prog.pool_size * (cfg.span * item + 4) * tb
     lanes = rate_lanes(cfg.rate_cats)
     sr = lanes if cfg.per_rate_scalers else 1
-    return (prog.pool_size * (lanes * cfg.states + sr) * tb
-            + fma_threads(cfg, tb) // 32 * ring_words(cfg)) * 4
+    return (prog.pool_size * (lanes * cfg.states * item + sr * 4) * tb
+            + fma_threads(cfg, tb) // 32 * ring_words(cfg) * 4)
 
 
 def site_blocks(cfg: PartitionConfig, mode: str = "fma") -> tuple:
@@ -488,9 +516,10 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
         return f"unknown sweep mode {mode!r}, not one of {MODES}"
     if prog is None or prog.n_ops == 0:
         return "the operation list is not a full forest of new CLVs"
-    if cfg.dtype != torch.float32:
-        return (f"the tree-sweep kernels ({mode!r} included) are f32 only, "
-                f"got {cfg.dtype}")
+    if cfg.dtype not in DTYPES:
+        return (f"the tree-sweep kernels ({mode!r} included) store CLVs in "
+                f"f32 or bf16 (torch.float32, torch.bfloat16), got "
+                f"{cfg.dtype}")
     if mode == "fma" and not MIN_STATES <= cfg.states <= MAX_STATES:
         return (f"the 'fma' tree-sweep kernel takes {MIN_STATES} to "
                 f"{MAX_STATES} states (an int32 tip mask), got {cfg.states}")
@@ -539,12 +568,25 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     The JAX package's rule (the static kernels up to 4,096 ops) follows a
     limit of Mosaic's compile time that the CUDA kernels, which read the
     op table at run time, do not have.  None for an empty schedule or a
-    dtype other than f32."""
-    if prog is None or prog.n_ops == 0 or cfg.dtype != torch.float32:
+    dtype outside DTYPES (f32, bf16).
+
+    At bf16 the same rule, and "mma" at MMA_BF16_CASES (20 states, four
+    rates) with per-site scalers at any site count.  Both forms' times at
+    bf16 on an NVIDIA H100 80GB HBM3 at 700 W, calls back to back, two
+    runs in one call (chip_smoke.phase_sweep_times; PERF.md): at
+    256 x 65,536 "mma" 0.2568-0.2570 ms, "fma" 0.4853-0.4855; at 1,024 x
+    16,384 "fma" 0.6954-0.6956 against 0.7107-0.7116; at 8,192 x 8,192
+    "fma" 4.3372-4.3735 against 5.5888-5.5895; at 128 protein taxa x
+    16,384 sites "mma" 0.5525-0.5530 against 2.2031-2.2034; at fewer
+    20-state sites, where either form runs 64-128 CTAs of 32 sites, "mma"
+    0.3275 against 0.4225 at 64 LG4X taxa x 2,048 sites and 0.6734
+    against 0.8510 at 128 LG taxa x 4,096."""
+    if prog is None or prog.n_ops == 0 or cfg.dtype not in DTYPES:
         return None
     modes = MODES
-    if (cfg.states, cfg.rate_cats) in MMA_CARRY_CASES \
-            and cfg.sites_padded >= MMA_MIN_SITES:
+    case = (cfg.states, cfg.rate_cats)
+    if (case in MMA_CARRY_CASES and cfg.sites_padded >= MMA_MIN_SITES) or \
+            (cfg.dtype == torch.bfloat16 and case in MMA_BF16_CASES):
         modes = ("mma", "fma")
     for mode in modes:
         if unsupported(prog, cfg, smem_limit, mode) is None:
@@ -566,26 +608,67 @@ def split_tf32(x):
 
 
 @functools.cache
-def mma_fragment_index(states: int, rate_cats: int) -> np.ndarray:
+def mma_fragment_index(states: int, rate_cats: int,
+                       bf16: bool = False) -> np.ndarray:
     """Where every register of the "mma" kernel's P operand comes from: an
     int64 index into P's flattened [R, S, S] (R*S*S = the zero outside the
     rate blocks), per nonzero tile pair and lane (g = lane / 4,
-    q = lane % 4) of mma.m16n8k8.row.col.tf32.
+    q = lane % 4).
 
+    f32 (mma.m16n8k8.row.col.tf32):
     MMA_CARRY_CASES (the small-span kernel; P^T is the B operand) ->
     [SPAN/8, 32, 2]: for n-tile j the registers b0, b1 = Pbd[8j + g,
     8j + 2q (+ 1)]: output state 8j + g, and the contraction index permuted
     so that k-index q is state 8j + 2q and q + 4 is state 8j + 2q + 1.  Only
     the pairs with k-step == n-tile are nonzero there (8 % S == 0).
-
     Other cases (the general kernel; the block-diagonal P is the A operand)
     -> [NP, 32, 4]: for every nonzero (m-tile, k-step) pair in row-major
     order the registers a0 (row g, col q), a1 (g + 8, q), a2 (g, q + 4),
-    a3 (g + 8, q + 4)."""
+    a3 (g + 8, q + 4).
+
+    bf16 (mma.m16n8k16.row.col.bf16, two bf16 a 32-bit register, the
+    lower index in the low half; the contraction in its natural order):
+    MMA_CARRY_CASES -> [32, SPAN/8, 2, 2]: lane, n-tile j, register b0
+    (k = 2q, 2q + 1) or b1 (k = 2q + 8, 2q + 9), half: Pbd[8j + g, k], one
+    k16 step over the whole span of 16.  Other cases -> [NP, 32, 4, 2]: for
+    every nonzero (m-tile, k-step) pair of 16 x 16 tiles in row-major
+    order, lane, register a0 (row g, cols 2q, 2q + 1), a1 (g + 8, the
+    same), a2 (g, 2q + 8, 2q + 9), a3 (g + 8, the same), half."""
     S, R = states, rate_cats
     span = R * S
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
+
+    def index(rows, cols):
+        same = rows // S == cols // S
+        idx = (rows // S) * S * S + (rows % S) * S + cols % S
+        return np.where(same, idx, R * S * S)
+
+    if bf16:
+        half = np.array([0, 1])
+        if (S, R) in MMA_CARRY_CASES:
+            if span != 16:
+                raise ValueError(f"the bf16 small-span layout is one k16 "
+                                 f"step, span 16, got {span}")
+            j = np.arange(span // 8)
+            reg = np.array([0, 1])
+            rows = 8 * j[None, :, None, None] + g[:, None, None, None]
+            cols = (2 * q[:, None, None, None] + 8 * reg[None, None, :, None]
+                    + half[None, None, None, :])
+            rows, cols = np.broadcast_arrays(rows, cols)
+            return index(rows, cols).astype(np.int64)     # [32, NT, 2, 2]
+        reg = np.arange(4)
+        pairs = []
+        for mt in range(span // 16):
+            for ks in range(span // 16):
+                rows = (16 * mt + g[:, None, None]
+                        + 8 * (reg[None, :, None] % 2) + 0 * half)
+                cols = (16 * ks + 2 * q[:, None, None]
+                        + 8 * (reg[None, :, None] // 2) + half[None, None, :])
+                if not (rows // S == cols // S).any():
+                    continue
+                pairs.append(index(rows, cols))             # [32, 4, 2]
+        return np.stack(pairs).astype(np.int64)
     pairs = []
     if (S, R) in MMA_CARRY_CASES:
         if 8 % S:
@@ -594,19 +677,15 @@ def mma_fragment_index(states: int, rate_cats: int) -> np.ndarray:
         for j in range(span // 8):
             rows = 8 * j + g[:, None] + np.array([0, 0])           # [32, 2]
             cols = 8 * j + 2 * q[:, None] + np.array([0, 1])
-            same = rows // S == cols // S
-            idx = (rows // S) * S * S + (rows % S) * S + cols % S
-            pairs.append(np.where(same, idx, R * S * S))
+            pairs.append(index(rows, cols))
         return np.stack(pairs).astype(np.int64)
     for mt in range(span // 16):
         for ks in range(span // 8):
             rows = 16 * mt + g[:, None] + np.array([0, 8, 0, 8])   # [32, 4]
             cols = 8 * ks + q[:, None] + np.array([0, 0, 4, 4])
-            same = rows // S == cols // S
-            if not same.any():
+            if not (rows // S == cols // S).any():
                 continue
-            idx = (rows // S) * S * S + (rows % S) * S + cols % S
-            pairs.append(np.where(same, idx, R * S * S))
+            pairs.append(index(rows, cols))
     return np.stack(pairs).astype(np.int64)
 
 
@@ -620,47 +699,57 @@ def _fragment_run(index: np.ndarray) -> int:
 
 @functools.cache
 def _fragment_index_tensor(states: int, rate_cats: int, device_key: str,
-                           dtype=torch.int64):
-    return torch.as_tensor(mma_fragment_index(states, rate_cats), dtype=dtype,
-                           device=torch.device(device_key))
+                           dtype=torch.int64, bf16: bool = False):
+    return torch.as_tensor(mma_fragment_index(states, rate_cats, bf16),
+                           dtype=dtype, device=torch.device(device_key))
 
 
 def pmatrix_fragments_reference(pmatrix, cfg: PartitionConfig):
     """Plain PyTorch version of pmatrix_fragments (same output): one
-    gather and a few elementwise ops."""
+    gather and, for f32, a few elementwise ops."""
     P = pmatrix.shape[0]
+    bf16 = pmatrix.dtype == torch.bfloat16
     idx = _fragment_index_tensor(cfg.states, cfg.rate_cats,
-                                 str(pmatrix.device))
+                                 str(pmatrix.device), bf16=bf16)
     flat = torch.cat([pmatrix.reshape(P, -1),
                       pmatrix.new_zeros((P, 1))], dim=1)
-    frag = flat[:, idx]                        # [P, NP, 32, 4] or [.., 2]
+    frag = flat[:, idx]                 # [P, *mma_fragment_index's shape]
+    if bf16:
+        return frag.contiguous()
     dim = 3 if idx.shape[-1] == 2 else 2
     return torch.stack(split_tf32(frag), dim=dim).contiguous()
 
 
 def pmatrix_fragments(pmatrix, cfg: PartitionConfig):
-    """[P, R, S, S] f32 -> the "mma" kernel's P operand: the block-diagonal
-    P of every slot split into TF32 (hi, lo) and laid out in fragment order
-    (mma_fragment_index): [P, SPAN/8, 32, 2 (hi, lo), 2] for
-    MMA_CARRY_CASES, [P, NP, 2 (hi, lo), 32, 4] otherwise.  Once per call,
-    not per op: a small CUDA kernel of csrc/tree_sweep_mma.cu on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """[P, R, S, S] -> the "mma" kernel's P operand in fragment order
+    (mma_fragment_index).  f32: the block-diagonal P of every slot split
+    into TF32 (hi, lo): [P, SPAN/8, 32, 2 (hi, lo), 2] for MMA_CARRY_CASES,
+    [P, NP, 2 (hi, lo), 32, 4] otherwise.  bf16: the entries as they are,
+    [P, 32, SPAN/8, 2, 2] or [P, NP, 32, 4, 2] bf16 (a lane's registers
+    are one 16-byte load).  Once per call, not per op: a small CUDA kernel
+    of csrc/tree_sweep_mma.cu on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if pmatrix.device.type != "cuda":
         return pmatrix_fragments_reference(pmatrix, cfg)
     from .. import _build
-    if pmatrix.dtype != torch.float32 or not pmatrix.is_contiguous():
-        raise ValueError("pmatrix must be contiguous f32")
+    bf16 = pmatrix.dtype == torch.bfloat16
+    if pmatrix.dtype not in DTYPES or not pmatrix.is_contiguous():
+        raise ValueError(f"pmatrix must be contiguous f32 or bf16, got "
+                         f"{pmatrix.dtype}")
     idx = _fragment_index_tensor(cfg.states, cfg.rate_cats,
-                                 str(pmatrix.device), torch.int32)
+                                 str(pmatrix.device), torch.int32, bf16)
     P, regs = pmatrix.shape[0], idx.shape[-1]
-    shape = (P, idx.shape[0], 32, 2, 2) if regs == 2 \
-        else (P, idx.shape[0], 2, 32, 4)
-    out = torch.empty(shape, dtype=torch.float32, device=pmatrix.device)
+    if bf16:
+        shape, run = (P,) + tuple(idx.shape), 1
+    else:
+        shape = (P, idx.shape[0], 32, 2, 2) if regs == 2 \
+            else (P, idx.shape[0], 2, 32, 4)
+        run = _fragment_run(idx)
+    out = torch.empty(shape, dtype=pmatrix.dtype, device=pmatrix.device)
     with torch.cuda.device(pmatrix.device):
         err = _build.library().tree_sweep_mma_fragments(
             pmatrix.data_ptr(), idx.data_ptr(), out.data_ptr(), P,
-            idx.numel(), _fragment_run(idx),
-            cfg.rate_cats * cfg.states ** 2,
+            idx.numel(), run, cfg.rate_cats * cfg.states ** 2, int(bf16),
             torch.cuda.current_stream(pmatrix.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pmatrix_fragments kernel launch failed: CUDA "
@@ -692,13 +781,19 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
     over all site blocks at once.  carry=True honours `carry_flags` as the
     kernels do: a carried child is taken from the value the previous
     op handed on, not from its pool slot, and a parent whose store is
-    dropped never reaches the pool.  Returns (clv_rows [E, NT, R, S, TB],
-    scaler_rows [E, NT, SR, TB] int32) in prog.exports order."""
+    dropped never reaches the pool.  The pool holds pmatrix.dtype; at bf16
+    the arithmetic is f32 (P and the children widened exactly), the rescue
+    is decided on the f32 parent, and the parent is rounded to bf16 where
+    it is stored or handed on.  Returns (clv_rows [E, NT, R, S, TB] in the
+    arithmetic's type, the parents unrounded; scaler_rows [E, NT, SR, TB]
+    int32) in prog.exports order."""
     _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
     nt = tip_blocked.shape[0]
     R, S = cfg.rate_cats, cfg.states
     sr = _scaler_rows(cfg)
     dev, dtype = tip_blocked.device, pmatrix.dtype
+    acc = torch.float32 if dtype == torch.bfloat16 else dtype
+    pm = pmatrix.to(acc)
     pool = torch.zeros((prog.pool_size, nt, R, S, tb), dtype=dtype,
                        device=dev)
     spool = torch.zeros((prog.pool_size, nt, sr, tb), dtype=torch.int32,
@@ -707,20 +802,22 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
 
     def child(tip, slot, is_tip, carried):
         if is_tip:
-            bits = ((tip_blocked[:, tip, None, :] >> shifts) & 1).to(dtype)
+            bits = ((tip_blocked[:, tip, None, :] >> shifts) & 1).to(acc)
             return bits[:, None].expand(nt, R, S, tb), 0      # [NT,R,S,TB]
         if carried:
             return held
-        return pool[slot], spool[slot]
+        return pool[slot].to(acc), spool[slot]
 
     flags = carry_flags(prog, enabled=carry).tolist()
+    exports = export_rows(prog).tolist()
+    rows = [None] * len(prog.exports)
     held = None          # (CLV, scalers) the previous op handed on
-    for (p_slot, t1, s1, f1, t2, s2, f2, pm1, pm2), (took, store, keep) \
-            in zip(prog.ops.tolist(), flags):
+    for (p_slot, t1, s1, f1, t2, s2, f2, pm1, pm2), (took, store, keep), e \
+            in zip(prog.ops.tolist(), flags, exports):
         c1, sc1 = child(t1, s1, f1, took == 1)
         c2, sc2 = child(t2, s2, f2, took == 2)
-        left = torch.einsum("rij,nrjt->nrit", pmatrix[pm1], c1)
-        right = torch.einsum("rij,nrjt->nrit", pmatrix[pm2], c2)
+        left = torch.einsum("rij,nrjt->nrit", pm[pm1], c1)
+        right = torch.einsum("rij,nrjt->nrit", pm[pm2], c2)
         parent = left * right                                 # [NT,R,S,TB]
         below = parent < cfg.scale_threshold
         if cfg.per_rate_scalers:
@@ -733,10 +830,12 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
         if store:
             pool[p_slot] = parent
             spool[p_slot] = scal
-        held = (parent, scal) if keep else None
+        held = (parent.to(dtype).to(acc), scal) if keep else None
+        if e >= 0:
+            rows[e] = parent
 
     slots = [slot for _, slot in prog.exports]
-    return pool[slots], spool[slots]
+    return torch.stack(rows), spool[slots]
 
 
 def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
@@ -745,7 +844,7 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     version (sweep_reference) on CPU tensors, an error on anything else.
 
     tip_blocked: [NT, tips, TB] int32 packed state bitmasks (block-major)
-    pmatrix:     [P, R, S, S] f32
+    pmatrix:     [P, R, S, S] in cfg.dtype (f32, or bf16: the pool's type)
     mode:        "fma" (csrc/tree_sweep.cu; the counterpart of the JAX
                  package's static kernels and of its runtime-ops "vpu"
                  mode) or "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
@@ -759,6 +858,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  generic instantiation store every parent.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
+    At bf16 the rows are the f32 parents before their rounding to the
+    pool's bf16 (the JAX static kernels' exports at one split part).
     """
     mode = "fma" if mode is None else mode
     if mode not in MODES:
@@ -789,8 +890,9 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
         raise ValueError(f"site block {tb} at {cfg.rate_cats} rates needs "
                          f"{fma_threads(cfg, tb)} threads in mode 'fma', not "
                          f"a multiple of 32 up to {max_threads(cfg)}")
-    if pmatrix.dtype != torch.float32:
-        raise TypeError(f"pmatrix must be f32, got {pmatrix.dtype}")
+    if pmatrix.dtype != cfg.dtype:
+        raise TypeError(f"pmatrix must be the config's {cfg.dtype}, got "
+                        f"{pmatrix.dtype}")
     if not (tip_blocked.is_contiguous() and pmatrix.is_contiguous()):
         raise ValueError("tree sweep inputs must be contiguous")
     if pmatrix.data_ptr() % 16:
@@ -799,7 +901,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     nt = tip_blocked.shape[0]
     R, S = cfg.rate_cats, cfg.states
     sr = _scaler_rows(cfg)
-    ops_dev, slots_dev = prog.device_tables(device, mode, carry)
+    bf16 = cfg.dtype == torch.bfloat16
+    ops_dev, slots_dev, export_dev = prog.device_tables(device, mode, carry)
     n_exp = slots_dev.shape[0]
     clv_rows = torch.empty((n_exp, nt, R, S, tb), dtype=torch.float32,
                            device=device)
@@ -813,16 +916,20 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
             err = lib.tree_sweep_mma_launch(
                 ops_dev.data_ptr(), prog.n_ops, pfrag.data_ptr(),
                 tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
-                n_exp, clv_rows.data_ptr(), scal_rows.data_ptr(),
-                nt, tb, R, S, prog.pool_size,
-                ctypes.c_float(cfg.scale_threshold),
+                n_exp, export_dev.data_ptr(), clv_rows.data_ptr(),
+                scal_rows.data_ptr(), nt, tb, R, S, prog.pool_size,
+                int(bf16), ctypes.c_float(cfg.scale_threshold),
                 ctypes.c_float(cfg.scale_factor), stream)
         else:
+            # the bf16 P-matrices widened to f32 (exact): the kernel stages
+            # and reads f32 P rows whatever its pool's type
+            pmat = pmatrix.float() if bf16 else pmatrix
             err = lib.tree_sweep_launch(
-                ops_dev.data_ptr(), prog.n_ops, pmatrix.data_ptr(),
+                ops_dev.data_ptr(), prog.n_ops, pmat.data_ptr(),
                 tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
-                n_exp, clv_rows.data_ptr(), scal_rows.data_ptr(),
-                nt, tb, R, S, prog.pool_size, int(cfg.per_rate_scalers),
+                n_exp, export_dev.data_ptr(), clv_rows.data_ptr(),
+                scal_rows.data_ptr(), nt, tb, R, S, prog.pool_size,
+                int(cfg.per_rate_scalers), int(bf16),
                 ctypes.c_float(cfg.scale_threshold),
                 ctypes.c_float(cfg.scale_factor), stream)
     if err != 0:
@@ -832,14 +939,18 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     sweep.launches_by_mode[mode] += 1
     if mode == "fma" and generic(cfg):
         sweep.launches_generic += 1
+    if bf16:
+        sweep.launches_bf16[mode] += 1
     return clv_rows, scal_rows
 
 
 # kernel launches by this wrapper (plain runs excluded), in all, per mode,
-# and of the "fma" form's generic instantiation (within the "fma" count)
+# of the "fma" form's generic instantiation and per mode with a bf16 pool
+# (both within the per-mode counts)
 sweep.launches = 0
 sweep.launches_by_mode = {mode: 0 for mode in MODES}
 sweep.launches_generic = 0
+sweep.launches_bf16 = {mode: 0 for mode in MODES}
 
 
 def unblock_clv_row(row_blocked):

@@ -1,14 +1,16 @@
-"""The CUDA kernels (both tree-sweep forms and the "fma" form's generic
-instantiation, edge scorer and its generic-state form, matrix-unit
-probe, build-cache probe, construct probe: k0-k3 and c0-c4) against their
-plain PyTorch versions, on the card; one multi-partition round and one fit
-step on the kernel paths.
+"""The CUDA kernels (both tree-sweep forms with f32 and bf16 pools and the
+"fma" form's generic instantiation, edge scorer and its generic-state
+form, matrix-unit probe, build-cache probe, construct probe: k0-k3 and
+c0-c4) against their plain PyTorch versions, on the card; one
+multi-partition round and one fit step on the kernel paths.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -84,6 +86,53 @@ def test_fma_carry_on_and_off_bit_equal(cuda_device, shape, tb, per_rate):
     torch.testing.assert_close(on[1], plain[1], rtol=0, atol=0)
     torch.testing.assert_close(on[0], plain[0], rtol=1e-5, atol=0)
     assert int(plain[1].max()) > 0
+
+
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("states", [2, 4, 5, 10, 16, 20, 32])
+def test_bf16_kernels_match_plain(cuda_device, states, per_rate):
+    """Both forms with a bf16 pool (every form that takes the case) against
+    the plain version at bf16 on a scale-heavy caterpillar: rows within
+    2^-7 of each site's largest entry (compensated where a rescue
+    flipped), the register carry on and off bit-equal, f32 exports."""
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        chip_smoke.caterpillar(64), 2048, states, cuda_device,
+        states=states, per_rate=per_rate, bl_scale=30.0, random_model=True,
+        dtype=torch.bfloat16)
+    prog = program.vmem_prog
+    plain = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+    modes = [m for m in partials_tree.MODES
+             if partials_tree.unsupported(prog, cfg, mode=m) is None]
+    assert "fma" in modes
+    for mode in modes:
+        before = partials_tree.sweep.launches_bf16[mode]
+        on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode=mode)
+        off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, mode=mode,
+                                  carry=False)
+        torch.cuda.synchronize()
+        assert partials_tree.sweep.launches_bf16[mode] == before + 2
+        assert on[0].dtype == torch.float32
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+        rel, _, comp, _ = chip_smoke.compare_rows_site(on[0], plain[0],
+                                                       on[1], plain[1])
+        assert rel <= chip_smoke.BF16_ROW_BOUND
+        assert comp <= chip_smoke.BF16_ROW_BOUND
+    assert int(plain[1].max()) > 0
+
+
+def test_loglikelihood_bf16_vs_dense_bf16(cuda_device):
+    """The bf16 forward step through the form `choose` picks against the
+    dense bf16 path on the same inputs: within chip_smoke.BF16_SLICE_RTOL
+    (1e-6) relative."""
+    cfg, program, model, *args = engine.build_case(
+        128, 8192, dtype=torch.bfloat16, device=cuda_device)
+    before = sum(partials_tree.sweep.launches_bf16.values())
+    got = engine.loglikelihood(program, cfg, model, *args).item()
+    assert sum(partials_tree.sweep.launches_bf16.values()) == before + 1
+    dense = dataclasses.replace(cfg, use_kernel=False)
+    want = engine.loglikelihood(program, dense, model, *args).item()
+    assert np.isfinite(got)
+    assert abs(got - want) / abs(want) < chip_smoke.BF16_SLICE_RTOL
 
 
 def test_loglikelihood_kernel_vs_dense_f64(cuda_device):
