@@ -119,16 +119,21 @@ Phases (any failure exits non-zero):
      kernel;
  25. the generic-state forms of the tree sweep and the edge scorer (the
      state counts without an instantiation of their own) against their
-     plain versions: the sweep at 3, 5, 6, 7, 8, 12 and 32 states, with
-     per-rate scalers and a scale-heavy case at 5 and 32; the scorer over
-     a round at 5 and 32 states ([generic] lines);
+     plain versions (the sweep's row-group form,
+     csrc/tree_sweep_generic.cu, and the scorer's with pass 0's columns in
+     registers): the sweep at 3, 5, 6, 7, 8, 12 and 32 states, with
+     per-rate scalers and a scale-heavy case at 5 and 32, and where a
+     site's row groups span warps at 9 states x 32 rates, 12 x 20, 17 x 16,
+     32 x 12 and 32 x 32 (f32 and bf16); the scorer over a round at 5 and
+     32 states ([generic] lines);
  26. 5 states at full width: GTR-5 + Gamma4 f32 at 256 x 65,536,
      loglikelihood against dense f64, 10 optimize_root_branch steps, the
      generic sweep's times; one SPR round at 256 x 4,096, radius 5, with
      5-state tips, its scores held to the plain scorer's and timed, then
      spr_round on the kernel against dense f64;
- 27. 32 states at full width: Mk-32 + Gamma4 f32 at 128 x 16,384,
-     loglikelihood against dense f64, the generic sweep's times;
+ 27. 32 states at full width: Mk-32 + Gamma4 f32 at 128 x 16,384 and
+     Mk-32 + Gamma12 (a site's row groups over two warps), loglikelihood
+     against dense f64, the generic sweep's times;
  28. bf16 CLV storage (`[bf16]` lines): both sweep forms with a bf16 pool
      against the plain version at bf16 ("fma" at 2, 4, 5, 10, 16, 20 and
      32 states, per-rate and per-site scalers, "mma" at its two cases, on
@@ -140,7 +145,14 @@ Phases (any failure exits non-zero):
      each against the port's dense bf16 path on the card and beside the
      dense f64 path; both forms' times at bf16 at the four shapes of
      phase 14, at phase 11's LG4X case and at LG 128 x 4,096 (`[choose]`
-     lines at bf16).
+     lines at bf16);
+ 29. the default config on the card (f64, use_kernel None, which the
+     tree-sweep kernel does not take): engine.loglikelihood,
+     optimize_root_branch, the forward of loglikelihood_analytic,
+     fit.loglikelihood_fn without a FullTreeProgram and
+     multipartition.loglikelihood on two partitions at 256 taxa, each on
+     the dense path, equal to the explicit dense call, warned, and with
+     no tree-sweep launch (`[default]` lines).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -161,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -396,11 +409,12 @@ def log_ptxas(text: str, only: str = "", tag: str = "") -> None:
 
 
 def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
-                 bl_scale=1.0, random_model=False, rates=4, dtype=None):
+                 bl_scale=1.0, random_model=False, rates=4, dtype=None,
+                 tb=None):
     """(cfg, program, pmatrix, tip_blocked, tb) for one sweep case; tb is
     the site block `choose` gives the "fma" form (the "mma" form's
-    footprint is no larger, so it can run at the same block).  dtype: the
-    pool's type (f32 by default; the P buffer is made at it)."""
+    footprint is no larger, so it can run at the same block) unless given.
+    dtype: the pool's type (f32 by default; the P buffer is made at it)."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -431,9 +445,20 @@ def sweep_inputs(newick, sites, seed, device, states=4, per_rate=False,
     bl = torch.as_tensor(program.default_branch_lengths * bl_scale,
                          dtype=torch.float32, device=device)
     pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
-    tb, _ = engine.kernel_choice(
-        program, dataclasses.replace(cfg, sweep_mode="fma"), tipchars.device)
+    if tb is None:
+        tb, _ = kernel_form(program, dataclasses.replace(
+            cfg, sweep_mode="fma"), tipchars.device)
     return cfg, program, pmatrix, engine.block_tips(tipchars, cfg, tb), tb
+
+
+def kernel_form(program, cfg, device):
+    """(site block, mode) the tree sweep takes for this case: kernel_choice
+    under use_kernel=True, which raises with the reason where no form
+    takes it.  (Under the default use_kernel=None such a case runs the
+    dense path on the card, warned, and kernel_choice gives None.)"""
+    from libpll2_tpu_torch import engine
+    return engine.kernel_choice(
+        program, dataclasses.replace(cfg, use_kernel=True), device)
 
 
 def compare_rows(got, want, got_s, want_s):
@@ -1240,7 +1265,7 @@ def phase_wide_path(name, case, expect_mode, device, card, train):
     from libpll2_tpu_torch import engine
 
     cfg, program, model, *args = case
-    choice = engine.kernel_choice(program, cfg, device)
+    choice = kernel_form(program, cfg, device)
     log(f"[{name}] {cfg.tips} taxa x {cfg.sites} sites S={cfg.states}: "
         f"ops={program.vmem_prog.n_ops} pool={program.vmem_prog.pool_size}; "
         f"choose picks site block {choice[0]}, mode {choice[1]!r}")
@@ -1511,11 +1536,10 @@ def phase_sweep_times(cases, card, f32_times=None):
         tag = "bf16 " if bf16 else ""
         prog = program.vmem_prog
         pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
-        blocks = {mode: engine.kernel_choice(
+        blocks = {mode: kernel_form(
             program, dataclasses.replace(cfg, sweep_mode=mode),
             tipchars.device)[0] for mode in partials_tree.MODES}
-        chosen_tb, chosen = engine.kernel_choice(program, cfg,
-                                                 tipchars.device)
+        chosen_tb, chosen = kernel_form(program, cfg, tipchars.device)
         tips = {tb: engine.block_tips(tipchars, cfg, tb)
                 for tb in set(blocks.values()) | {PLAIN_BLOCK, 256}
                 if cfg.sites_padded % tb == 0}
@@ -1724,7 +1748,7 @@ def phase_multi_linked(device, card):
     args = (mp, models, bl, tips, pws, invs)
     torch.cuda.synchronize()
     for k, (cfg, program, *_rest) in enumerate(cases):
-        tb, mode = engine.kernel_choice(program, cfg, device)
+        tb, mode = kernel_form(program, cfg, device)
         log(f"[multi] partition {k}: S={cfg.states} {cfg.tips} taxa x "
             f"{cfg.sites} sites, ops={program.vmem_prog.n_ops}: choose picks "
             f"site block {tb}, mode {mode!r}")
@@ -2220,14 +2244,31 @@ def phase_fit(full_case, device, card):
                              f"gradient by {worst} >= {GRAD_RTOL}")
     del leaves, logl, res, ref_grads
     torch.cuda.empty_cache()
+    # without a FullTreeProgram: the dense path on the card under
+    # use_kernel=None, with one warning (R13); use_kernel=True raises
+    dense_value, msgs, counts = default_call(lambda: fit.loglikelihood_fn(
+        program, cfg, params0, rates, *site, fit_alpha=True))
+    asked = fit.loglikelihood_fn(
+        program, dataclasses.replace(cfg, use_kernel=False), params0, rates,
+        *site, fit_alpha=True)
+    check(len(msgs) == 1 and "autograd" in msgs[0]
+          and counts["tree_sweep"] + counts["tree_sweep_mma"] == 0
+          and torch.equal(dense_value.detach(), asked.detach()),
+          f"a fit on the card with no FullTreeProgram: warnings {msgs}, "
+          f"launches {counts}, {dense_value.item()} against the dense "
+          f"call's {asked.item()}")
+    del dense_value, asked
     try:
-        fit.loglikelihood_fn(program, cfg, params0, rates, *site,
-                             fit_alpha=True)
+        fit.loglikelihood_fn(program, dataclasses.replace(cfg,
+                                                          use_kernel=True),
+                             params0, rates, *site, fit_alpha=True)
         refused = False
     except ValueError:
         refused = True
-    check(refused, "a fit on the card with no FullTreeProgram took the dense "
-                   "path without being asked to")
+    check(refused, "use_kernel=True with no FullTreeProgram did not raise")
+    log(f"[fit] without a FullTreeProgram: use_kernel None ran the dense "
+        f"path on the card with one warning, equal to use_kernel=False; "
+        f"use_kernel=True raised")
 
     reset_counts()
     torch.cuda.synchronize()
@@ -3160,6 +3201,7 @@ ODD_TIPS, ODD_SITES = 40, 2048          # the small sweep cases, random trees
 ODD_SEARCH_TIPS, ODD_SEARCH_SITES = 20, 512   # the small scorer cases
 ODD5_TIPS, ODD5_SITES = 256, 65536      # GTR-5 + Gamma4, dna_256's size
 ODD32_TIPS, ODD32_SITES = 128, 16384    # Mk-32 + Gamma4, protein_128's size
+ODD32_WARPS_RATES = 12                  # phase 27's second case
 ODD_TRAIN_STEPS = 10
 ODD_SEED = 5
 
@@ -3176,16 +3218,16 @@ def odd_model(states, seed=ODD_SEED):
 
 
 def odd_case(tips, sites, states, device, dtype, use_kernel=None,
-             seed=ODD_SEED):
+             seed=ODD_SEED, rates=4):
     """engine.build_case's forward case at `states` states under
-    odd_model: a balanced tree, Gamma(1) four rates, one-hot random tips
-    from `seed`.  Returns (cfg, program, model, branch_lengths, tipchars,
-    pattern_weights, invariant)."""
+    odd_model: a balanced tree, Gamma(1) `rates` rates, one-hot random
+    tips from `seed`.  Returns (cfg, program, model, branch_lengths,
+    tipchars, pattern_weights, invariant)."""
     from libpll2_tpu_torch import engine
     subst, freqs = odd_model(states, seed)
-    return engine.build_case(tips, sites, dtype=dtype, device=device,
-                             seed=seed, use_kernel=use_kernel, states=states,
-                             subst=subst, freqs=freqs)
+    return engine.build_case(tips, sites, rate_cats=rates, dtype=dtype,
+                             device=device, seed=seed, use_kernel=use_kernel,
+                             states=states, subst=subst, freqs=freqs)
 
 
 def odd_search_inputs(device, states, tips=SEARCH_TIPS, sites=SEARCH_SITES,
@@ -3197,15 +3239,34 @@ def odd_search_inputs(device, states, tips=SEARCH_TIPS, sites=SEARCH_SITES,
     return search_case(device, tips, sites, seed, subst=subst, freqs=freqs)
 
 
+# phase 25's cases where a site's row groups span warps (G * lanes > 32:
+# many rates at many states), the per-site rescue an AND across them
+# (partials_tree.generic_spans_warps): (name, states, sweep_inputs
+# keywords)
+WARPS_CASES = (
+    ("S12_R20_per_rate_warps", 12, {"rates": 20, "per_rate": True,
+                                    "bl_scale": 30.0}),
+    ("S32_R12_scale_heavy_warps", 32, {"rates": 12, "bl_scale": 30.0}),
+    ("S32_R32_warps", 32, {"rates": 32}),
+    ("S32_R32_bf16_scale_heavy_warps", 32, {"rates": 32, "bl_scale": 30.0,
+                                            "dtype": "bf16"}),
+    ("S17_R16_bf16_per_rate_warps", 17, {"rates": 16, "per_rate": True,
+                                         "bl_scale": 30.0, "dtype": "bf16"}),
+    ("S9_R32_scale_heavy_warps", 9, {"rates": 32, "bl_scale": 30.0}))
+
+
 def phase_generic_vs_plain(device):
     """Phase 25: the generic-state forms against their plain versions at
     small sizes.  The tree sweep at every count of ODD_STATES on a random
     ODD_TIPS-taxon tree x ODD_SITES sites under a random model, and per-rate
     scalers and a scale-heavy case (branch lengths x 30) at 5 and 32
-    states: rows at CLV_RTOL, no scaler mismatch, one launch of the generic
-    form each.  The edge scorer at 5 and 32 states over every ball group of
-    a radius-3 round of ODD_SEARCH_TIPS x ODD_SEARCH_SITES, both forms where
-    the resident one is planned.  Returns the sweep's max abs err."""
+    states, and WARPS_CASES (a site's row groups over two or four warps,
+    f32 and bf16, the carry on and off bit-equal): f32 rows at CLV_RTOL
+    and no scaler mismatch, bf16 rows within BF16_ROW_BOUND of each site's
+    largest entry, one launch of the generic sweep a call.  The edge
+    scorer at 5 and 32 states over every ball group of a radius-3 round of
+    ODD_SEARCH_TIPS x ODD_SEARCH_SITES, both forms where the resident one
+    is planned.  Returns the sweep's max abs err."""
     import torch
 
     from libpll2_tpu_torch import search_fast as sf
@@ -3218,31 +3279,57 @@ def phase_generic_vs_plain(device):
         cases += [(f"S{s}_per_rate", s, {"per_rate": True,
                                           "bl_scale": 30.0}),
                   (f"S{s}_scale_heavy", s, {"bl_scale": 30.0})]
+    cases += list(WARPS_CASES)
     worst = 0.0
     for i, (name, states, kw) in enumerate(cases):
+        kw = dict(kw, dtype=torch.bfloat16 if kw.get("dtype") == "bf16"
+                  else torch.float32)
         cfg, program, pmatrix, tip_b, tb = sweep_inputs(
             random_newick(ODD_TIPS, rng), ODD_SITES, 100 + i, device,
             states=states, random_model=True, **kw)
         prog = program.vmem_prog
+        groups = partials_tree.generic_groups(cfg)
+        warps = groups * partials_tree.rate_lanes(cfg.rate_cats) > 32
+        check(warps == name.endswith("_warps"),
+              f"{name}: {groups} row groups at {cfg.rate_cats} rates")
         before = partials_tree.sweep.launches_generic
         got = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+        off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                  carry=False) if warps else got
         want = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
         torch.cuda.synchronize()
         launched = partials_tree.sweep.launches_generic - before
-        abs_err, mism, rel = compare_rows(got[0], want[0], got[1], want[1])
+        same = torch.equal(got[0], off[0]) and torch.equal(got[1], off[1])
+        if cfg.dtype == torch.bfloat16:
+            rel, mism, comp, abs_err = compare_rows_site(got[0], want[0],
+                                                         got[1], want[1])
+            err = f"site-rel {rel:.3e} compensated {comp:.3e}"
+            close = rel <= BF16_ROW_BOUND and comp <= BF16_ROW_BOUND
+        else:
+            abs_err, mism, rel = compare_rows(got[0], want[0], got[1],
+                                              want[1])
+            err = f"compensated_rel_err={rel:.3e}"
+            close = mism == 0 and rel <= CLV_RTOL
         rescues = int(want[1].max().item())
+        calls = 2 if warps else 1
         log(f"[generic] sweep {name}: ops={prog.n_ops} pool={prog.pool_size} "
             f"tb={tb} threads={partials_tree.fma_threads(cfg, tb)} smem/cta="
             f"{partials_tree.smem_bytes(prog, cfg, tb)} sites={ODD_SITES} "
-            f"per_rate={cfg.per_rate_scalers} generic launches {launched}; "
-            f"max_abs_err={abs_err:.3e} compensated_rel_err={rel:.3e} "
-            f"scaler_mismatches={mism} max_scaler={rescues}")
-        check(launched == 1, f"{name}: the generic sweep ran {launched} times")
-        check(mism == 0, f"{name}: {mism} scaler mismatches")
-        check(rel <= CLV_RTOL, f"{name}: CLV rel err {rel} > {CLV_RTOL}")
+            f"rates={cfg.rate_cats} {str(cfg.dtype).replace('torch.', '')} "
+            f"per_rate={cfg.per_rate_scalers} groups={groups} rescue across "
+            f"warps {partials_tree.generic_spans_warps(cfg)}; generic "
+            f"launches {launched}; max_abs_err={abs_err:.3e} {err} "
+            f"scaler_mismatches={mism} max_scaler={rescues}"
+            + (f"; carry on and off bit-equal: {same}" if warps else ""))
+        check(launched == calls,
+              f"{name}: the generic sweep ran {launched} times")
+        check(same, f"{name}: rows differ between carry on and off")
+        check(close, f"{name}: rows off plain ({err}, {mism} scaler "
+                     f"mismatches)")
         if "bl_scale" in kw:
             check(rescues > 0, f"{name}: scale-heavy case did not rescue")
         worst = max(worst, abs_err)
+        del got, off, want, pmatrix, tip_b
     for states in (5, 32):
         _truth, start, chars, cfg, model = odd_search_inputs(
             device, states, ODD_SEARCH_TIPS, ODD_SEARCH_SITES)
@@ -3274,8 +3361,7 @@ def generic_sweep_times(name, case, card):
     cfg, program, model, bl, tipchars, *_ = case
     prog = program.vmem_prog
     pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
-    tb, mode = engine.kernel_choice(
-        program, dataclasses.replace(cfg, use_kernel=True), tipchars.device)
+    tb, mode = kernel_form(program, cfg, tipchars.device)
     check(mode == "fma" and partials_tree.generic(cfg),
           f"{name}: kernel_choice gave {mode!r} at {cfg.states} states")
     tips = engine.block_tips(tipchars, cfg, tb)
@@ -3325,7 +3411,8 @@ def generic_sweep_times(name, case, card):
                 max_abs_err=abs_err)
 
 
-def forward_vs_dense(name, case, tips, sites, states, device, card):
+def forward_vs_dense(name, case, tips, sites, states, device, card,
+                     rates=4):
     """engine.loglikelihood at full width through the kernel (by launch
     count, the generic sweep), against the dense f64 path on the same
     inputs; the dense f32 path's time beside the kernel path's.  Returns
@@ -3353,13 +3440,14 @@ def forward_vs_dense(name, case, tips, sites, states, device, card):
         call()
         ms[label] = statistics.median(cuda_ms(call, 5))
     cfg64, program64, model64, *args64 = odd_case(
-        tips, sites, states, device, torch.float64, use_kernel=False)
+        tips, sites, states, device, torch.float64, use_kernel=False,
+        rates=rates)
     ref = engine.loglikelihood(program64, cfg64, model64, *args64).item()
     del args64
     torch.cuda.empty_cache()
     gap = abs(logl - ref) / abs(ref)
-    log(f"[generic] forward {name} {tips}x{sites} S={states}: logL kernel "
-        f"f32 {logl!r} dense f64 {ref!r} rel gap {gap:.3e} (bound "
+    log(f"[generic] forward {name} {tips}x{sites} S={states} R={rates}: logL "
+        f"kernel f32 {logl!r} dense f64 {ref!r} rel gap {gap:.3e} (bound "
         f"{LOGL_RTOL}); generic sweep launches {counts['tree_sweep_generic']}"
         f"; first call {cold:.3f} ms")
     log(f"[time] loglikelihood {name} {tips}x{sites} S={states}: kernel "
@@ -3463,21 +3551,124 @@ def phase_generic_5(device, card):
 
 
 def phase_generic_32(device, card):
-    """Phase 27: 32 states at full width.  Mk-32 + Gamma4 f32 at
-    ODD32_TIPS x ODD32_SITES: loglikelihood against dense f64, and the
-    generic sweep's times.  Returns (launch counts, the sweep's times)."""
+    """Phase 27: 32 states at full width, ODD32_TIPS x ODD32_SITES f32:
+    Mk-32 + Gamma4 and Mk-32 + Gamma(ODD32_WARPS_RATES) (a site's row
+    groups over two warps, its rescue an AND across them), each
+    loglikelihood against dense f64 and the generic sweep's times.
+    Returns (launch counts, the times at four rates, at
+    ODD32_WARPS_RATES)."""
     import torch
 
+    from libpll2_tpu_torch.ops import partials_tree
+
     t_phase = time.perf_counter()
-    case = odd_case(ODD32_TIPS, ODD32_SITES, 32, device, torch.float32)
-    counts = forward_vs_dense("odd32", case, ODD32_TIPS, ODD32_SITES, 32,
-                              device, card)
-    times = generic_sweep_times("odd32", case, card)
-    del case
-    torch.cuda.empty_cache()
+    found = {}
+    for name, rates in (("odd32", 4), (f"odd32_r{ODD32_WARPS_RATES}",
+                                       ODD32_WARPS_RATES)):
+        case = odd_case(ODD32_TIPS, ODD32_SITES, 32, device, torch.float32,
+                        rates=rates)
+        check(partials_tree.generic_spans_warps(case[0]) == (rates > 8),
+              f"{name}: the rescue spans warps "
+              f"{partials_tree.generic_spans_warps(case[0])}")
+        counts = forward_vs_dense(name, case, ODD32_TIPS, ODD32_SITES, 32,
+                                  device, card, rates=rates)
+        found[rates] = counts, generic_sweep_times(name, case, card)
+        del case
+        torch.cuda.empty_cache()
     log(f"[generic] phase 27 {time.perf_counter() - t_phase:.3f} s")
-    return {"tree_sweep_generic": counts["tree_sweep_generic"],
-            "edge_score_generic": 0}, times
+    (c4, times), (cw, warps_times) = found[4], found[ODD32_WARPS_RATES]
+    return {"tree_sweep_generic": c4["tree_sweep_generic"]
+            + cw["tree_sweep_generic"], "edge_score_generic": 0}, times, \
+        warps_times
+
+
+DEFAULT_TIPS, DEFAULT_SITES = 256, 16384   # phase 29's f64 cases
+DEFAULT_MULTI_SITES = (8192, 4096)
+
+
+def default_call(fn):
+    """Run fn() under the default config's gate: (result, the UserWarning
+    messages it raised, the launch counts of the call)."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    return out, [str(w.message) for w in caught
+                 if issubclass(w.category, UserWarning)], counts
+
+
+def phase_default_f64(device, card):
+    """Phase 29: the default config on the card (f64, use_kernel None,
+    which the tree-sweep kernel does not take): engine.loglikelihood,
+    optimize_root_branch, the forward of loglikelihood_analytic,
+    fit.loglikelihood_fn without a FullTreeProgram, and
+    multipartition.loglikelihood on two partitions each run the dense path
+    on the card: equal to the explicit dense call (use_kernel=False) bit
+    for bit, one UserWarning naming the reason, no tree-sweep launch."""
+    import torch
+
+    from libpll2_tpu_torch import engine, fit, multipartition
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.tree.generate import balanced_newick
+
+    t_phase = time.perf_counter()
+    newick = balanced_newick(DEFAULT_TIPS)
+    case = engine.build_case(DEFAULT_TIPS, DEFAULT_SITES,
+                             dtype=torch.float64, device=device,
+                             newick=newick)
+    cfg, program, model, bl, *site = case
+    check(cfg.use_kernel is None and cfg.dtype == torch.float64,
+          f"phase 29 wants the default config, got {cfg}")
+    dense = dataclasses.replace(cfg, use_kernel=False)
+    tree = T.parse_newick_string(newick)
+    full = engine.compile_tree_full(tree, cfg)
+    params = fit.pack([[1.0, 2.0, 1.0, 1.0, 2.0, 1.0]], [[0.25] * 4], bl,
+                      dtype=torch.float64, device=device)
+    rates = model.rates
+    calls = {
+        "loglikelihood": lambda c: engine.loglikelihood(
+            program, c, model, bl, *site),
+        "optimize_root_branch": lambda c: torch.cat(
+            [x.reshape(-1) for x in engine.optimize_root_branch(
+                program, c, model, bl, *site)]),
+        "loglikelihood_analytic": lambda c: engine.loglikelihood_analytic(
+            program, full, c, model, bl, *site),
+        "fit.loglikelihood_fn": lambda c: fit.loglikelihood_fn(
+            program, c, params, rates, *site)}
+    # two DNA partitions on one topology, the default config each
+    mcases = [engine.build_case(DEFAULT_TIPS, sites, dtype=torch.float64,
+                                device=device, newick=newick, seed=k)
+              for k, sites in enumerate(DEFAULT_MULTI_SITES)]
+    mp = multipartition.compile_multipartition(tree, [c[0] for c in mcases])
+    margs = ([c[2] for c in mcases], mcases[0][3], [c[4] for c in mcases],
+             [c[5] for c in mcases], [c[6] for c in mcases])
+    mp_dense = multipartition.compile_multipartition(
+        tree, [dataclasses.replace(c[0], use_kernel=False) for c in mcases])
+    calls["multipartition.loglikelihood"] = lambda c: \
+        multipartition.loglikelihood(mp if c is cfg else mp_dense, *margs)
+    for name, fn in calls.items():
+        got, msgs, counts = default_call(lambda: fn(cfg))
+        want, dense_msgs, _ = default_call(lambda: fn(dense))
+        sweeps = counts["tree_sweep"] + counts["tree_sweep_mma"]
+        same = torch.equal(got.detach(), want.detach())
+        log(f"[default] {name} f64 {DEFAULT_TIPS}x{DEFAULT_SITES} "
+            f"(use_kernel=None) on {device}: "
+            f"{got.detach().reshape(-1)[-1].item()!r} "
+            f"equal to the dense call {same}; tree-sweep launches {sweeps}; "
+            f"warnings {len(msgs)} (dense call {len(dense_msgs)}): "
+            f"{msgs[:1]}")
+        check(same, f"{name}: the default f64 call differs from dense")
+        check(sweeps == 0, f"{name}: the default f64 call launched {sweeps} "
+                           f"tree sweeps")
+        check(len(msgs) >= 1 and not dense_msgs,
+              f"{name}: warnings {msgs}, dense {dense_msgs}")
+        check(all("f32 or bf16" in m or "autograd" in m for m in msgs),
+              f"{name}: a warning without the reason: {msgs}")
+    log(f"[default] phase 29 {time.perf_counter() - t_phase:.3f} s ({card})")
 
 
 BF16_ROW_BOUND = 2.0 ** -7   # bf16 kernel rows against plain, of each site's
@@ -3621,13 +3812,13 @@ def phase_bf16_path(device, card):
         case = engine.build_case(**kw, dtype=torch.bfloat16, device=device)
         cfg, program, model, bl, *args = case
         prog = program.vmem_prog
-        chosen = engine.kernel_choice(program, cfg, device)[1]
+        chosen = kernel_form(program, cfg, device)[1]
         modes = [chosen] + [m for m in partials_tree.MODES if m != chosen
                             and partials_tree.unsupported(prog, cfg, limit,
                                                           m) is None]
         configs = {m: cfg if m == chosen
                    else dataclasses.replace(cfg, sweep_mode=m) for m in modes}
-        blocks = {m: engine.kernel_choice(program, c, device)[0]
+        blocks = {m: kernel_form(program, c, device)[0]
                   for m, c in configs.items()}
         torch.cuda.synchronize()
         reset_counts()
@@ -3753,7 +3944,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     generic_err = phase_generic_vs_plain(device)
     odd5, odd5_times, odd5_edge = phase_generic_5(device, card)
-    odd32, odd32_times = phase_generic_32(device, card)
+    odd32, odd32_times, warps_times = phase_generic_32(device, card)
     for k in ("tree_sweep_generic", "edge_score_generic"):
         launches[k] = odd5[k] + odd32[k]
     bf16_err = phase_bf16_vs_plain(device)
@@ -3761,6 +3952,7 @@ def main() -> int:
     times16 = phase_sweep_times(bf16_timed, card, f32_times=times)
     del bf16_timed
     torch.cuda.empty_cache()
+    phase_default_f64(device, card)
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
@@ -3803,13 +3995,14 @@ def main() -> int:
         "shape": "one 256 x 4096 round, radius 5",
     }, {
         "name": "tree_sweep_generic", "route": "cuda",
-        "source": "libpll2_tpu_torch/csrc/tree_sweep.cu",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep_generic.cu",
         "replaces": f"{ppt}:808 (_tree_kernel_static); :1136 "
                     f"(_tree_kernel_static_seg); :410 (_tree_kernel, vpu), "
                     f"at the state counts without an instantiation",
         "launches": launches["tree_sweep_generic"],
         "max_abs_err": max(generic_err, odd5_times["max_abs_err"],
-                           odd32_times["max_abs_err"]),
+                           odd32_times["max_abs_err"],
+                           warps_times["max_abs_err"]),
         **{k: odd5_times[k] for k in ("ms", "single_call_ms", "plain_ms",
                                       "bound_ms", "bound_by", "smem_ms")},
         "library_ms": None,
@@ -3817,6 +4010,8 @@ def main() -> int:
         "ms_32_states": odd32_times["ms"],
         "plain_ms_32_states": odd32_times["plain_ms"],
         "bound_ms_32_states": odd32_times["bound_ms"],
+        **{f"{k}_32_states_{ODD32_WARPS_RATES}_rates": warps_times[k]
+           for k in ("ms", "plain_ms", "bound_ms")},
     }, {
         "name": "edge_score_generic", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/edge_score.cu",

@@ -26,8 +26,9 @@ import torch
 
 PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = PACKAGE / "csrc"
-SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_mma.cu", "edge_score.cu",
-                "mma_probe.cu", "cache_probe.cu", "construct_probe.cu")
+SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_generic.cu", "tree_sweep_mma.cu",
+                "edge_score.cu", "mma_probe.cu", "cache_probe.cu",
+                "construct_probe.cu")
 SOURCES = tuple(SOURCE_DIR / name for name in SOURCE_NAMES)
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,16 +136,20 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_sweep_launch.argtypes = [
         p, i,          # ops, n_ops
-        p,             # pmat
+        p, i, p,       # pmat, n_pmat, pg
         p, i,          # tip_blocked, tips
         p, i, p,       # export_slots, n_exp, export_at
         p, p,          # clv_out, scal_out
         i, i, i, i,    # nt, tb, rates, states
-        i, i, i,       # pool_size, per_rate, bf16
+        i, i, i, i,    # pool_size, per_rate, bf16, groups
         f, f,          # thresh, factor
         p,             # stream
     ]
     lib.tree_sweep_launch.restype = ctypes.c_int
+    lib.tree_sweep_generic_matrix_floats.argtypes = [i, i, i]
+    lib.tree_sweep_generic_matrix_floats.restype = ctypes.c_int
+    lib.tree_sweep_generic_staged.argtypes = [i, i, i]
+    lib.tree_sweep_generic_staged.restype = ctypes.c_int
     lib.tree_sweep_mma_launch.argtypes = [
         p, i,          # ops, n_ops
         p,             # pfrag

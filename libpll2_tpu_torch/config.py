@@ -48,14 +48,16 @@ class PartitionConfig:
     dtype: torch.dtype = torch.float64
     site_block: int = 128
     # None: the CUDA kernels for CUDA tensors — the tree sweep (f32 or bf16
-    # CLV storage; any case it cannot take, f64 among them, raises) and the
-    # search's edge scorer (where its contract holds, else the plain
-    # scorer) — and the plain paths for CPU tensors.
+    # CLV storage; a case it cannot take, f64 among them, runs the dense
+    # path on the card with a warning) and the search's edge scorer (where
+    # its contract holds, else the plain scorer) — and the plain paths for
+    # CPU tensors.
     # True: the kernels or raise (their plain versions on CPU tensors).
     # False: the plain paths (ops/partials.py, the plain scorer).
     use_kernel: Optional[bool] = None
     # Form of the tree-sweep kernel: None lets ops/partials_tree.choose pick
-    # by op count; "fma" or "mma" forces one (a case it cannot take raises).
+    # by op count; "fma" or "mma" forces one (a case it cannot take raises
+    # under use_kernel=True and runs the dense path, warned, under None).
     sweep_mode: Optional[str] = None
 
     def __post_init__(self):

@@ -64,6 +64,18 @@
 // share an SM: with one (142 registers a thread) a full-width round took
 // 11.7 ms, with three (80, spilling) 9.2 ms, with two (128) 7.5 ms on an
 // H100 at 700 W (probes/variants.py registers).
+// The generic-state form (every state count without an instantiation of
+// its own, S at run time up to SMAX 8, 16 or 32) was first one site a
+// thread in every pass, with pass 0's site columns staged in shared memory
+// (3 S words a thread: 96 KB a CTA at 32 states) and no register bound:
+// 28.4-29.5 ms for a full-width 5-state round on an H100 at 700 W.  Now
+// pass 0 holds the columns in registers (site_lk_regs, [SMAX] arrays), the
+// later passes read the sumtable four sites a thread where the alignment
+// allows, and the resident kernel's registers are bounded for four CTAs
+// an SM (plan budgets shared memory for three; two above 8 states).
+// probes/variants.py "generic_scorer" times each choice undone (its patch
+// texts hold the first form's shared-memory pass 0), and the variants
+// that were dropped are in PERF.md.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,6 +87,17 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
+// The generic-state form (the state counts without an instantiation of
+// their own): pass 0 holds a site's columns in registers (site_lk_regs);
+// the resident form's later passes, which read only the sumtable, run four
+// sites a thread wherever the alignment allows (else one); the resident
+// kernel's registers are bounded for RESIDENT_CTAS_GENERIC CTAs an SM at
+// up to 8 states (at least the three ops/edge_score.py:plan budgets shared
+// memory for; four ran a 5-state round 5 % faster than three, spilling 40
+// bytes), for RESIDENT_CTAS above.  probes/variants.py "generic_scorer"
+// undoes each choice in a variant of its own.
+constexpr int RESIDENT_CTAS = 2;
+constexpr int RESIDENT_CTAS_GENERIC = 4;
 // score-op columns (libpll2_tpu_torch/search_fast.py BOP_*)
 constexpr int OP_COLS = 12;
 constexpr int OP_PARENT = 0;
@@ -260,65 +283,71 @@ __device__ __forceinline__ void site_lk(const float* __restrict__ away,
   }
 }
 
-// The generic-state form of site_lk at one site (V = 1): the state count S
-// at run time, up to SMAX, and registers O(1) in S.  Each thread stages its
-// site's columns of a rate category in its own words of shared memory,
-// scratch[k * THREADS] for k < 3 * S (the away and facing rows, then the
-// sub row over the away row, and the product of the two half-branch
-// messages), so that every sum over j reads them from there.  The sums run
-// over j in the order site_lk's do.
+// The generic-state form of site_lk at one site with the site's columns in
+// registers: a, o [SMAX] (the away and facing rows of a rate category), c
+// [SMAX] their half-branch product, then the sub row over a; the state
+// count S at run time, every loop unrolled to SMAX with S as its bound.
+// The sums run over j (and k) in the order site_lk's do, so the values are
+// theirs to the bit.
 template <int SMAX, bool KEEP>
-__device__ __forceinline__ void site_lk_any(
+__device__ __forceinline__ void site_lk_regs(
     const float* __restrict__ away, const float* __restrict__ other,
     const float* __restrict__ sub, size_t T, int R, int S, const float* sH,
     const float* sL, const float* sE, const float4* se, bool derivs,
-    float* scratch, float* st, int st_stride, float& lk0, float& lk1,
-    float& lk2) {
+    float* st, int st_stride, float& lk0, float& lk1, float& lk2) {
   lk0 = lk1 = lk2 = 0.0f;
-  float* A = scratch;                 // away, then sub
-  float* O = scratch + S * THREADS;   // facing
-  float* C = O + S * THREADS;         // (H away) * (H facing)
   for (int r = 0; r < R; ++r) {
-    for (int j = 0; j < S; ++j) {
-      const size_t off = (size_t)(r * S + j) * T;
-      A[j * THREADS] = __ldg(away + off);
-      O[j * THREADS] = __ldg(other + off);
+    float a[SMAX], o[SMAX], c[SMAX];
+#pragma unroll
+    for (int j = 0; j < SMAX; ++j) {
+      if (j < S) {
+        const size_t off = (size_t)(r * S + j) * T;
+        a[j] = __ldg(away + off);
+        o[j] = __ldg(other + off);
+      }
     }
     const float* H = sH + r * S * S;
-    for (int i = 0; i < S; ++i) {
-      float ta = 0.0f, tb = 0.0f;
 #pragma unroll
-      for (int j = 0; j < SMAX; ++j) {
-        if (j < S) {
-          const float h = H[i * S + j];
-          ta = fmaf(h, A[j * THREADS], ta);
-          tb = fmaf(h, O[j * THREADS], tb);
+    for (int i = 0; i < SMAX; ++i) {
+      if (i < S) {
+        float ta = 0.0f, tb = 0.0f;
+#pragma unroll
+        for (int j = 0; j < SMAX; ++j) {
+          if (j < S) {
+            const float h = H[i * S + j];
+            ta = fmaf(h, a[j], ta);
+            tb = fmaf(h, o[j], tb);
+          }
         }
+        c[i] = ta * tb;
       }
-      C[i * THREADS] = ta * tb;
     }
-    for (int k = 0; k < S; ++k)
-      A[k * THREADS] = __ldg(sub + (size_t)(r * S + k) * T);
+#pragma unroll
+    for (int k = 0; k < SMAX; ++k)
+      if (k < S) a[k] = __ldg(sub + (size_t)(r * S + k) * T);
     const float* L = sL + r * S * S;
     const float* E = sE + r * S * S;
-    for (int j = 0; j < S; ++j) {
-      float lef = 0.0f, rig = 0.0f;
 #pragma unroll
-      for (int k = 0; k < SMAX; ++k) {
-        if (k < S) {
-          lef = fmaf(L[j * S + k], C[k * THREADS], lef);
-          rig = fmaf(E[j * S + k], A[k * THREADS], rig);
+    for (int j = 0; j < SMAX; ++j) {
+      if (j < S) {
+        float lef = 0.0f, rig = 0.0f;
+#pragma unroll
+        for (int k = 0; k < SMAX; ++k) {
+          if (k < S) {
+            lef = fmaf(L[j * S + k], c[k], lef);
+            rig = fmaf(E[j * S + k], a[k], rig);
+          }
         }
+        const int q = r * S + j;
+        const float4 e = se[q];
+        const float val = lef * rig;
+        lk0 = fmaf(val, e.x, lk0);
+        if (derivs) {
+          lk1 = fmaf(val, e.y, lk1);
+          lk2 = fmaf(val, e.z, lk2);
+        }
+        if constexpr (KEEP) st[(size_t)q * st_stride] = val;
       }
-      const int q = r * S + j;
-      const float4 e = se[q];
-      const float val = lef * rig;
-      lk0 = fmaf(val, e.x, lk0);
-      if (derivs) {
-        lk1 = fmaf(val, e.y, lk1);
-        lk2 = fmaf(val, e.z, lk2);
-      }
-      if constexpr (KEEP) st[(size_t)q * st_stride] = val;
     }
   }
 }
@@ -438,18 +467,9 @@ constexpr int SUM_FLOATS = 2 * MAX_CLUSTER * NWARPS * 2;
 __host__ __device__ constexpr int resident_head_floats(int R, int S) {
   return (SUM_FLOATS + 4 * NWARPS * R * S + const_floats(R, S) + 3) / 4 * 4;
 }
-// The generic-state form's staging words (site_lk_any), after the head of
-// either form: 3 * S a thread.  A multiple of 4 floats.
-__host__ __device__ constexpr int specialised(int S) {
-  return S == 2 || S == 4 || S == 10 || S == 16 || S == 20;
-}
-__host__ __device__ constexpr int scratch_floats(int S) {
-  return specialised(S) ? 0 : 3 * S * THREADS;
-}
 
 // The "reread" form.  grid = cb * vg slots, block = THREADS.  SMAX > 0: the
-// generic-state form, S = a.states at run time (S = 0 in the template), its
-// staging words (scratch_floats) after the constants.
+// generic-state form, S = a.states at run time (S = 0 in the template).
 template <int S, int SMAX = 0>
 __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
   extern __shared__ float4 smem4[];
@@ -480,7 +500,6 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
   float* sE = sL + R * ss;
   float* sx = sE + R * ss;
   float* sw = sx + span;
-  float* scratch = smem + reread_floats(R, Sn) + tid;
   load_constants(a, op, sH, Sn);
   const Rows rows = slot_rows(a, op, c, span);
   if (tid == 0) s_t = t0;
@@ -497,10 +516,9 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
       load_sites<1>(a.pw + site, w);
       if (!any_live(w)) continue;      // padding: weight 0, inert
       if constexpr (SMAX > 0)
-        site_lk_any<SMAX, false>(rows.away + site, rows.other + site,
-                                 rows.sub + site, T, R, Sn, sH, sL, sE, se,
-                                 !last, scratch, nullptr, 0, lk0[0], lk1[0],
-                                 lk2[0]);
+        site_lk_regs<SMAX, false>(rows.away + site, rows.other + site,
+                                  rows.sub + site, T, R, Sn, sH, sL, sE, se,
+                                  !last, nullptr, 0, lk0[0], lk1[0], lk2[0]);
       else
         site_lk<S, 1, 0, false>(rows.away + site, rows.other + site,
                                 rows.sub + site, T, R, sH, sL, sE, se, !last,
@@ -532,10 +550,14 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
 // x, block = THREADS.  V sites per thread and step (4: 16-byte loads; the
 // host checks the alignment), RC as in site_lk.  shared: the head as above,
 // then the CTA's stripe of the sumtable, st [R*S][stripe] f32.  SMAX > 0:
-// the generic-state form (S = 0, V = 1, RC = 0), with its staging words
-// (scratch_floats) between the head and the stripe.
+// the generic-state form (S = 0, RC = 0): pass 0 at one site a thread and
+// step (site_lk_regs), the later passes at V.
 template <int S, int V, int RC, int SMAX = 0>
-__global__ void __launch_bounds__(THREADS, V == 4 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, SMAX > 0 && SMAX <= 8
+                                               ? RESIDENT_CTAS_GENERIC
+                                           : V == 4 || SMAX > 0
+                                               ? RESIDENT_CTAS
+                                               : 1)
 edge_score_resident_kernel(Args a, int stripe) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -567,8 +589,7 @@ edge_score_resident_kernel(Args a, int stripe) {
   float* sE = sL + R * ss;
   float* sx = sE + R * ss;
   float* sw = sx + span;
-  float* scratch = smem + resident_head_floats(R, Sn) + tid;
-  float* st = smem + resident_head_floats(R, Sn) + scratch_floats(Sn);
+  float* st = smem + resident_head_floats(R, Sn);
   load_constants(a, op, sH, Sn);
   const Rows rows = slot_rows(a, op, c, span);
   const size_t first = (size_t)rank * stripe;
@@ -584,25 +605,52 @@ edge_score_resident_kernel(Args a, int stripe) {
     for (int q = lane; q < span; q += 32) se[q] = e_term(sx[q], sw[q], t);
     __syncwarp();
     float acc1 = 0.0f, acc2 = 0.0f;
-    for (int ls = tid * V; ls < mine; ls += THREADS * V) {
-      const size_t site = first + ls;
-      float w[V], lk0[V], lk1[V], lk2[V];
-      load_sites<V>(a.pw + site, w);
-      if (!any_live(w)) continue;      // padding: weight 0, inert
+    // the passes that read the sumtable (and the specialised forms' pass
+    // 0), V sites a thread and step
+    auto v_pass = [&]() {
+      for (int ls = tid * V; ls < mine; ls += THREADS * V) {
+        const size_t site = first + ls;
+        float w[V], lk0[V], lk1[V], lk2[V];
+        load_sites<V>(a.pw + site, w);
+        if (!any_live(w)) continue;      // padding: weight 0, inert
+        if constexpr (SMAX == 0) {
+          if (it == 0)
+            site_lk<S, V, RC, true>(rows.away + site, rows.other + site,
+                                    rows.sub + site, T, R, sH, sL, sE, se,
+                                    !last, st + ls, stripe, lk0, lk1, lk2);
+          else
+            site_lk_resident<V>(st + ls, stripe, span, se, !last, lk0, lk1,
+                                lk2);
+        } else {
+          site_lk_resident<V>(st + ls, stripe, span, se, !last, lk0, lk1,
+                              lk2);
+        }
+        accumulate<V>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh,
+                      acc1, acc2);
+      }
+    };
+    if constexpr (SMAX > 0) {
       if (it == 0) {
-        if constexpr (SMAX > 0)
-          site_lk_any<SMAX, true>(rows.away + site, rows.other + site,
-                                  rows.sub + site, T, R, Sn, sH, sL, sE, se,
-                                  !last, scratch, st + ls, stripe, lk0[0],
-                                  lk1[0], lk2[0]);
-        else
-          site_lk<S, V, RC, true>(rows.away + site, rows.other + site,
-                                  rows.sub + site, T, R, sH, sL, sE, se,
-                                  !last, st + ls, stripe, lk0, lk1, lk2);
-      } else
-        site_lk_resident<V>(st + ls, stripe, span, se, !last, lk0, lk1, lk2);
-      accumulate<V>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh, acc1,
-                    acc2);
+        // the generic form's pass 0, one site a thread and step: a padding
+        // site's sumtable column stays unwritten, and the later passes
+        // skip it by its weight
+        for (int ls = tid; ls < mine; ls += THREADS) {
+          const size_t site = first + ls;
+          float w[1], lk0[1], lk1[1], lk2[1];
+          load_sites<1>(a.pw + site, w);
+          if (!any_live(w)) continue;
+          site_lk_regs<SMAX, true>(rows.away + site, rows.other + site,
+                                   rows.sub + site, T, R, Sn, sH, sL, sE, se,
+                                   !last, st + ls, stripe, lk0[0], lk1[0],
+                                   lk2[0]);
+          accumulate<1>(last, w, lk0, lk1, lk2, rows, site, a.log_thresh,
+                        acc1, acc2);
+        }
+      } else {
+        v_pass();
+      }
+    } else {
+      v_pass();
     }
     // every warp pushes its sum into every CTA of the cluster (remote
     // stores; the barrier makes them visible); the shuffles also bring the
@@ -648,13 +696,12 @@ cudaError_t allow_shared(K kernel, size_t smem) {
 
 size_t resident_bytes(int rates, int S, int sites, int cluster) {
   const int stripe = (sites + cluster - 1) / cluster;
-  return ((size_t)resident_head_floats(rates, S) + scratch_floats(S) +
+  return ((size_t)resident_head_floats(rates, S) +
           (size_t)rates * S * stripe) * sizeof(float);
 }
 
 size_t reread_bytes(int rates, int S) {
-  return ((size_t)reread_floats(rates, S) + scratch_floats(S)) *
-         sizeof(float);
+  return (size_t)reread_floats(rates, S) * sizeof(float);
 }
 
 template <class K>
@@ -689,7 +736,10 @@ bool aligned16(const void* p) {
 // `cluster` CTAs: four sites per thread and step where the state count is
 // small enough for the registers, there are four rate categories and every
 // row and stripe starts on 16 bytes, else one.  SMAX > 0 (S = 0): the
-// generic-state form of either, one site per thread and step.
+// generic-state form of either, pass 0 at one site per thread and step,
+// the resident form's later passes at four where the sites, the stripe,
+// the pattern weights and the scaler rows are 16-byte aligned (pass 0
+// reads the message rows one site at a time, at any alignment), else one.
 template <int S, int SMAX = 0>
 cudaError_t launch(const Args& a, int n_slots, int cluster,
                    cudaStream_t stream) {
@@ -708,6 +758,13 @@ cudaError_t launch(const Args& a, int n_slots, int cluster,
         aligned16(a.away_scal) && aligned16(a.base_scal))
       return launch_resident(edge_score_resident_kernel<S, 4, 4>, a, n_slots,
                              S, cluster, stream);
+  }
+  if constexpr (SMAX > 0) {
+    const int stripe = (a.sites + cluster - 1) / cluster;
+    if (a.sites % 4 == 0 && stripe % 4 == 0 && aligned16(a.pw) &&
+        aligned16(a.away_scal) && aligned16(a.base_scal))
+      return launch_resident(edge_score_resident_kernel<0, 4, 0, SMAX>, a,
+                             n_slots, Sn, cluster, stream);
   }
   return launch_resident(edge_score_resident_kernel<S, 1, 0, SMAX>, a,
                          n_slots, Sn, cluster, stream);

@@ -15,13 +15,16 @@ passes the whole partition's `cfg` and its slices of the site-indexed
 inputs, and gets the whole partition's results.  The forward CLV sweep runs in a hand-written CUDA
 tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
 tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
-level-batched path (ops/partials.py) on CPU tensors or when
-`cfg.use_kernel` is False; the message sweep is the dense path.  PyTorch
+level-batched path (ops/partials.py) on CPU tensors, when
+`cfg.use_kernel` is False, or, under the default None, where no sweep form
+takes the case (f64 among them: `kernel_choice_for` warns); the message
+sweep is the dense path.  PyTorch
 runs eagerly, so there is no jit and no static-argument hashing.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -188,19 +191,32 @@ def pad_tipchars(tipchars: np.ndarray, cfg: PartitionConfig) -> np.ndarray:
 def kernel_choice(program: TreeProgram, cfg: PartitionConfig,
                   device: torch.device) -> Optional[tuple]:
     """(site block, mode) of the tree-sweep kernel for this call, or None
-    for the dense path.  See PartitionConfig.use_kernel and .sweep_mode; a
-    case the kernel cannot take raises with the reason unless the dense
-    path was asked for."""
-    if cfg.use_kernel is False:
-        return None
-    if cfg.use_kernel is None and device.type == "cpu":
-        return None
+    for the dense path.  See PartitionConfig.use_kernel and .sweep_mode;
+    `kernel_choice_for` decides, from `device`'s shared-memory limit and SM
+    count (an H100's limit, and no SM count, off the card)."""
     limit, sm_count = partials_tree.SMEM_LIMIT, None
-    if device.type == "cuda":
+    if device.type == "cuda" and cfg.use_kernel is not False:
         from . import _build
         limit = _build.max_shared_memory(device)
         sm_count = torch.cuda.get_device_properties(
             device).multi_processor_count
+    return kernel_choice_for(program, cfg, device, limit, sm_count)
+
+
+def kernel_choice_for(program: TreeProgram, cfg: PartitionConfig,
+                      device: torch.device, limit: int,
+                      sm_count: Optional[int] = None) -> Optional[tuple]:
+    """The decision of `kernel_choice` at a shared-memory limit and SM
+    count, made on the host before any launch.  use_kernel False, or None
+    on the CPU: None (the dense path).  A case that no form takes
+    (`partials_tree.unsupported`: f64, more than 32 rates, a pool above
+    the limit, ...): under use_kernel=None the dense path computes it on
+    `device`, with one UserWarning naming the reason, as the JAX package
+    leaves such a case to XLA; under use_kernel=True it raises."""
+    if cfg.use_kernel is False:
+        return None
+    if cfg.use_kernel is None and device.type == "cpu":
+        return None
     prog = program.vmem_prog
     if cfg.sweep_mode is None:
         choice = partials_tree.choose(prog, cfg, limit, sm_count)
@@ -213,6 +229,11 @@ def kernel_choice(program: TreeProgram, cfg: PartitionConfig,
                                                     sm_count), mode)
     if choice is None:
         reason = partials_tree.unsupported(prog, cfg, limit, mode)
+        if cfg.use_kernel is None:
+            warnings.warn(f"the dense path computes this call on {device}: "
+                          f"the tree-sweep kernel cannot take it: {reason}",
+                          UserWarning, stacklevel=3)
+            return None
         raise ValueError(f"tree-sweep kernel cannot take this case: {reason}"
                          f" (use_kernel=False selects the dense path)")
     return choice

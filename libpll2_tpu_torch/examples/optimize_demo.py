@@ -44,7 +44,7 @@ def main(argv=None) -> None:
     cfg = PartitionConfig(
         tips=7, clv_buffers=tree.inner_count, states=4, sites=sites,
         rate_matrices=1, prob_matrices=11, rate_cats=4,
-        scale_buffers=tree.inner_count, dtype=dtype, use_kernel=False)
+        scale_buffers=tree.inner_count, dtype=dtype)
     program = engine.compile_tree(tree, cfg)
     full = engine.compile_tree_full(tree, cfg)
 

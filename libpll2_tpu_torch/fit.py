@@ -18,10 +18,11 @@ With a FullTreeProgram (engine.compile_tree_full) gradients come from the
 analytic message-based reverse pass (engine.loglikelihood_analytic), which
 lets the FORWARD pass run the CUDA tree sweep — fitting on the fast path.
 Without one the fit runs on the dense plain path, which autograd
-differentiates as it stands; that is the route of CPU tensors and of
-cfg.use_kernel=False, and it is never taken quietly: on CUDA tensors a
-config that asks for the kernel (use_kernel None or True) and no
-FullTreeProgram raises.
+differentiates as it stands, as the JAX package forces XLA there
+(`_xla_cfg`): under cfg.use_kernel None on CUDA tensors with one warning
+(`dense_config`), on CPU tensors and under use_kernel=False without one.  A
+config that insists on the kernel (use_kernel=True) and no FullTreeProgram
+raises: the kernel has no graph for autograd.
 
 The eigendecomposition and the gamma discretization are tiny scalar
 computations: they run in f64 on the parameters' device whatever cfg.dtype
@@ -29,6 +30,8 @@ is, and their results are cast to cfg.dtype.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -134,6 +137,31 @@ def _rates(params: FitParams, rates, cfg: PartitionConfig, fit_alpha: bool):
     return compute_gamma_cats_torch(alpha, len(rates)).to(cfg.dtype)
 
 
+def dense_config(cfg: PartitionConfig, device: torch.device
+                 ) -> PartitionConfig:
+    """The config a fit without a FullTreeProgram runs at on `device`: the
+    dense plain path, which autograd differentiates.  use_kernel=False
+    stays; None on a CUDA device becomes False with one UserWarning (the
+    JAX package's `_xla_cfg`), on the CPU stays (the dense path already);
+    True raises."""
+    if cfg.use_kernel is False:
+        return cfg
+    if cfg.use_kernel:
+        raise ValueError(
+            "this config takes the tree-sweep kernel, which autograd cannot "
+            "differentiate: pass full_program=engine.compile_tree_full(tree, "
+            "cfg) to fit on the kernel path, or a config with "
+            "use_kernel=False for the dense plain path")
+    if device.type == "cpu":
+        return cfg
+    warnings.warn(f"the dense path computes this fit's likelihood on "
+                  f"{device}: without a FullTreeProgram autograd cannot "
+                  f"differentiate the tree-sweep kernel (pass full_program="
+                  f"engine.compile_tree_full(tree, cfg) for the kernel path)",
+                  UserWarning, stacklevel=3)
+    return dataclasses.replace(cfg, use_kernel=False)
+
+
 def loglikelihood_fn(program, cfg: PartitionConfig, params: FitParams,
                      rates, tipchars, pattern_weights, invariant,
                      fit_alpha: bool = False, full_program=None):
@@ -142,18 +170,13 @@ def loglikelihood_fn(program, cfg: PartitionConfig, params: FitParams,
     With a FullTreeProgram (engine.compile_tree_full), the gradient uses
     the analytic message-based reverse pass
     (engine.loglikelihood_analytic), so the forward pass may run the CUDA
-    tree sweep.  Without one the likelihood must be on the dense plain
-    path, which autograd walks (CPU tensors, or cfg.use_kernel=False): a
-    call that would reach the sweep kernel raises, since the kernel has no
-    graph for autograd."""
+    tree sweep.  Without one the likelihood runs on the dense plain path,
+    which autograd walks (`dense_config`: on CUDA tensors under
+    use_kernel=None with a warning; use_kernel=True raises, since the
+    kernel has no graph for autograd)."""
     subst, freqs, bl = unpack(params)
-    if full_program is None and cfg.use_kernel is not False and (
-            cfg.use_kernel or tipchars.device.type != "cpu"):
-        raise ValueError(
-            "this config takes the tree-sweep kernel, which autograd cannot "
-            "differentiate: pass full_program=engine.compile_tree_full(tree, "
-            "cfg) to fit on the kernel path, or a config with "
-            "use_kernel=False for the dense plain path")
+    if full_program is None:
+        cfg = dense_config(cfg, tipchars.device)
     model = make_model_traced(subst, freqs,
                               _rates(params, rates, cfg, fit_alpha),
                               dtype=cfg.dtype)
@@ -182,9 +205,9 @@ def fit_model(program, cfg: PartitionConfig, params0: FitParams, rates,
     package's optax.adam at its defaults).
 
     full_program (engine.compile_tree_full): use the analytic reverse pass
-    so the forward pass rides the CUDA tree sweep.  Without one, only a
-    dense-path call is taken: CPU tensors or cfg.use_kernel=False (see
-    loglikelihood_fn).
+    so the forward pass rides the CUDA tree sweep.  Without one the dense
+    path computes every step (see loglikelihood_fn and dense_config;
+    use_kernel=True raises).
     logl[i] is the logL at the parameters before step i."""
     leaves = [x.detach().clone().requires_grad_() for x in params0]
     params = FitParams(*leaves)

@@ -40,8 +40,9 @@ and the device's shared memory:
 
 Both forms take every state count from 2 to 32 (an int32 tip mask), as
 the Pallas kernel does: 2, 4, 10, 16 and 20 states have instantiations of
-their own, every other count a generic-state one that stages each
-thread's site columns in shared memory (`scratch_floats`).  `unsupported`
+their own, every other count a generic-state one whose pass 0 holds each
+thread's site columns in registers and whose later passes (resident form)
+read four sites a thread where the alignment allows.  `unsupported`
 says where neither form fits the device's shared memory; the wrapper and
 the SPR search's gate (search_fast.use_edge_kernel) both ask it.
 
@@ -81,37 +82,28 @@ RESIDENT_CTAS_PER_SM = 3
 THREADS = 256
 
 
-def scratch_floats(states: int) -> int:
-    """f32 words of the generic-state form's staging area, 3 * S a thread
-    (csrc/edge_score.cu:scratch_floats); 0 for the state counts with an
-    instantiation of their own (partials_tree.FMA_STATES)."""
-    return 0 if states in FMA_STATES else 3 * states * THREADS
-
-
 def resident_smem_bytes(rate_cats: int, states: int, sites: int,
                         cluster: int) -> int:
     """Dynamic shared memory of one CTA of the resident form at `cluster`
     CTAs per slot (csrc/edge_score.cu:edge_score_resident_smem): the sums
     of every warp of the cluster [2, 8 CTAs, 8 warps, 2], the e-terms
     [8 warps, R*S, 4], the constants H, ML, EV [R, S, S] and x, w0 [R*S],
-    rounded up to 16 bytes, the generic-state form's staging area
-    (`scratch_floats`), then the stripe of the sumtable
+    rounded up to 16 bytes, then the stripe of the sumtable
     [R*S, ceil(sites / cluster)], all f32."""
     span = rate_cats * states
     head = 256 + 32 * span + 3 * rate_cats * states * states + 2 * span
     head = -(-head // 4) * 4
     stripe = -(-sites // cluster)
-    return 4 * (head + scratch_floats(states) + span * stripe)
+    return 4 * (head + span * stripe)
 
 
 def reread_smem_bytes(rate_cats: int, states: int) -> int:
     """Dynamic shared memory of one CTA of the re-reading form
     (csrc/edge_score.cu:edge_score_reread_smem): the warp sums [8, 2], the
     e-terms [R*S, 4], the constants H, ML, EV [R, S, S] and x, w0 [R*S],
-    then the generic-state form's staging area, all f32."""
+    all f32."""
     span = rate_cats * states
-    return 4 * (16 + 4 * span + 3 * rate_cats * states * states + 2 * span
-                + scratch_floats(states))
+    return 4 * (16 + 4 * span + 3 * rate_cats * states * states + 2 * span)
 
 
 def plan(rate_cats: int, states: int, sites: int,
@@ -134,7 +126,7 @@ def unsupported(rate_cats: int, states: int,
                 smem_limit: int = SMEM_LIMIT) -> Optional[str]:
     """Why the edge scorer's kernel cannot take this shape, or None if it
     can: a state count outside 2..32, or the re-reading form's constants
-    and staging area above `smem_limit` bytes of shared memory.  A CTA of
+    above `smem_limit` bytes of shared memory.  A CTA of
     the resident form always needs more than one of the re-reading form,
     so the site count cannot change the answer: where no stripe fits,
     `plan` picks the re-reading form."""

@@ -30,8 +30,10 @@ carry on or off).  Two forms of the kernel exist, picked by
     runtime-ops kernel's "vpu" mode (`_tree_kernel` with broadcast FMAs).
     The state counts of FMA_STATES have instantiations of their own; every
     other count from 2 to 32 (odd counts, Dayhoff-6, multistate
-    morphology) runs its generic instantiation, which takes the state
-    count at run time and holds O(1) registers in it;
+    morphology) runs its generic instantiation
+    (csrc/tree_sweep_generic.cu), which takes the state count at run time:
+    a column's rows split over `generic_groups` threads, each child entry
+    read once an op, the P-matrices staged in shared memory;
   * "mma" (csrc/tree_sweep_mma.cu): the propagation as one product with the
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
     split of both operands (bf16 operands at a bf16 pool).  It is the
@@ -81,6 +83,20 @@ SMEM_LIMIT = 232448
 # For the rate counts in FMA_RATE_LANES R is a compile-time constant of the
 # specialised instantiations and a CTA has at most FMA_THREADS threads;
 # other counts, and the generic instantiation, at most FMA_THREADS_ANY.
+# The generic instantiation's row-group form (`generic_groups`) gives a
+# thread at most GENERIC_ROWS of a column's rows, and stages an op's two
+# P-matrices in shared memory where two buffers of both take at most
+# GENERIC_STAGE_BYTES (`generic_staged`): the names GROUP_ROWS and
+# GENERIC_STAGE_BYTES of csrc/tree_sweep_generic.cu, which a test holds
+# equal.
+GENERIC_ROWS = 8
+GENERIC_STAGE_BYTES = 73728
+# Up to GENERIC_SITES_STATES states a thread of the row-group form holds
+# GENERIC_SITES_A_THREAD sites (one P load feeds that many times the FMAs)
+# and a CTA at most GENERIC_SITES_THREADS threads: the .cu's GROUP_SITES,
+# GROUP_SITES_THREADS and sites_of<SMAX>, SMAX 8.
+GENERIC_SITES_A_THREAD, GENERIC_SITES_STATES = 2, 8
+GENERIC_SITES_THREADS = 256
 MIN_STATES, MAX_STATES = 2, 32
 FMA_STATES = (2, 4, 10, 16, 20)
 FMA_MAX_RATES = 32
@@ -408,23 +424,78 @@ def generic(cfg: PartitionConfig) -> bool:
     return cfg.states not in FMA_STATES
 
 
+def generic_groups(cfg: PartitionConfig) -> int:
+    """Row groups G of a (site, rate lane) column in the generic
+    instantiation's row-group form (csrc/tree_sweep_generic.cu): the
+    fewest, a power of two, that leave each thread at most GENERIC_ROWS of
+    the parent's rows (rows g, g + G, ...).  0 for a state count of
+    FMA_STATES."""
+    if not generic(cfg):
+        return 0
+    groups = 1
+    while -(-cfg.states // groups) > GENERIC_ROWS:
+        groups *= 2
+    return groups
+
+
+def generic_spans_warps(cfg: PartitionConfig) -> bool:
+    """Whether a site's G * lanes threads of the row-group form span warps
+    under per-site scalers (9-32 rates at many states), so that its rescue
+    ANDs the warps' words through shared memory, one word a warp
+    (csrc/tree_sweep_generic.cu: `spans`)."""
+    return not cfg.per_rate_scalers and \
+        generic_groups(cfg) * rate_lanes(cfg.rate_cats) > 32
+
+
+def generic_matrix_floats(cfg: PartitionConfig) -> int:
+    """f32 words of one P-matrix in the row-group form's layout
+    [R][G][block] (csrc/tree_sweep_generic.cu:group_matrix_floats): a
+    (rate, group) block holds S columns of the group's rows padded to a
+    multiple of 4, rounded up to an odd count of 16-byte pieces; 0 for a
+    state count of FMA_STATES."""
+    groups = generic_groups(cfg)
+    if not groups:
+        return 0
+    S = cfg.states
+    rows = (-(-S // groups) + 3) & ~3
+    return cfg.rate_cats * groups * ((S * rows // 4) | 1) * 4
+
+
+def generic_staged(cfg: PartitionConfig) -> bool:
+    """Whether the row-group form copies each op's two P-matrices into
+    shared memory (two buffers of both, at most GENERIC_STAGE_BYTES;
+    csrc/tree_sweep_generic.cu:group_staged) rather than read them
+    through L1."""
+    floats = generic_matrix_floats(cfg)
+    return 0 < 2 * 2 * floats * 4 <= GENERIC_STAGE_BYTES
+
+
 def max_threads(cfg: PartitionConfig) -> int:
     """Threads an "fma" CTA may have at this rate and state count."""
+    if generic(cfg):
+        return GENERIC_SITES_THREADS if sites_a_thread(cfg) > 1 \
+            else FMA_THREADS_ANY
     return FMA_THREADS if cfg.rate_cats in FMA_RATE_LANES \
-        and not generic(cfg) else FMA_THREADS_ANY
+        else FMA_THREADS_ANY
 
 
 def sites_a_thread(cfg: PartitionConfig) -> int:
     """Sites one "fma" thread holds: FMA_SITES_A_THREAD up to
-    FMA_SITES_STATES states of a specialised instantiation, else one."""
-    return FMA_SITES_A_THREAD if cfg.states <= FMA_SITES_STATES \
-        and not generic(cfg) else 1
+    FMA_SITES_STATES states of a specialised instantiation,
+    GENERIC_SITES_A_THREAD up to GENERIC_SITES_STATES states of the
+    generic row-group form, else one."""
+    if generic(cfg):
+        return GENERIC_SITES_A_THREAD if generic_groups(cfg) and \
+            cfg.states <= GENERIC_SITES_STATES else 1
+    return FMA_SITES_A_THREAD if cfg.states <= FMA_SITES_STATES else 1
 
 
 def fma_threads(cfg: PartitionConfig, tb: int) -> int:
     """Threads of an "fma" CTA at site block tb: a thread holds one rate
-    lane of `sites_a_thread` sites."""
-    return tb * rate_lanes(cfg.rate_cats) // sites_a_thread(cfg)
+    lane of `sites_a_thread` sites, or in the generic row-group form one
+    of a column's `generic_groups` row groups."""
+    return tb * rate_lanes(cfg.rate_cats) // sites_a_thread(cfg) \
+        * max(generic_groups(cfg), 1)
 
 
 def ring_words(cfg: PartitionConfig) -> int:
@@ -452,15 +523,22 @@ def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
     `pool_itemsize`), the scaler pool [pool_size, tb * L or tb] int32
     (per-rate or per-site), L = rate_lanes(R) (at a power-of-two R the
     pools [pool_size, R*S, tb] and [pool_size, SR, tb]), and one staging
-    ring a warp (`ring_words`).  "mma": the CLV pool tiled as [tb/8, R*S,
-    8] in cfg.dtype and one scaler row."""
+    ring a warp (`ring_words`), or in the generic row-group form two
+    buffers of an op's two P-matrices where it stages them
+    (`generic_staged`) and one word a warp where a site's rescue spans
+    warps (`generic_spans_warps`).  "mma": the CLV pool tiled as [tb/8,
+    R*S, 8] in cfg.dtype and one scaler row."""
     item = pool_itemsize(cfg)
     if mode == "mma":
         return prog.pool_size * (cfg.span * item + 4) * tb
     lanes = rate_lanes(cfg.rate_cats)
     sr = lanes if cfg.per_rate_scalers else 1
+    staged = 2 * 2 * generic_matrix_floats(cfg) * 4 \
+        if generic_staged(cfg) else 0
+    if generic_spans_warps(cfg):
+        staged += fma_threads(cfg, tb) // 32 * 4
     return (prog.pool_size * (lanes * cfg.states * item + sr * 4) * tb
-            + fma_threads(cfg, tb) // 32 * ring_words(cfg) * 4)
+            + fma_threads(cfg, tb) // 32 * ring_words(cfg) * 4 + staged)
 
 
 def site_blocks(cfg: PartitionConfig, mode: str = "fma") -> tuple:
@@ -855,7 +933,8 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  and load every child (the same rows, bit for bit; the card
                  tests and timings hold the two side by side).  The "mma"
                  form's general kernel (span 80) and the "fma" form's
-                 generic instantiation store every parent.
+                 generic instantiation (csrc/tree_sweep_generic.cu) store
+                 every parent.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     At bf16 the rows are the f32 parents before their rounding to the
@@ -922,14 +1001,20 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                 ctypes.c_float(cfg.scale_factor), stream)
         else:
             # the bf16 P-matrices widened to f32 (exact): the kernel stages
-            # and reads f32 P rows whatever its pool's type
+            # and reads f32 P rows whatever its pool's type; the generic
+            # row-group form lays them out first in room the wrapper gives
             pmat = pmatrix.float() if bf16 else pmatrix
+            groups = generic_groups(cfg)
+            pg = torch.empty(pmat.shape[0] * generic_matrix_floats(cfg),
+                             dtype=torch.float32, device=device) \
+                if groups else pmat
             err = lib.tree_sweep_launch(
                 ops_dev.data_ptr(), prog.n_ops, pmat.data_ptr(),
-                tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
-                n_exp, export_dev.data_ptr(), clv_rows.data_ptr(),
+                pmat.shape[0], pg.data_ptr(), tip_blocked.data_ptr(),
+                cfg.tips, slots_dev.data_ptr(), n_exp,
+                export_dev.data_ptr(), clv_rows.data_ptr(),
                 scal_rows.data_ptr(), nt, tb, R, S, prog.pool_size,
-                int(cfg.per_rate_scalers), int(bf16),
+                int(cfg.per_rate_scalers), int(bf16), groups,
                 ctypes.c_float(cfg.scale_threshold),
                 ctypes.c_float(cfg.scale_factor), stream)
     if err != 0:

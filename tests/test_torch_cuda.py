@@ -2,7 +2,8 @@
 "fma" form's generic instantiation, edge scorer and its generic-state
 form, matrix-unit probe, build-cache probe, construct probe: k0-k3 and
 c0-c4) against their plain PyTorch versions, on the card; one
-multi-partition round and one fit step on the kernel paths.
+multi-partition round and one fit step on the kernel paths; the default
+f64 config on the dense path.
 
 Marked `cuda`: each test skips when torch.cuda.is_available() is False
 (decided inside the fixture, never at import).  On a GPU machine:
@@ -293,6 +294,174 @@ def test_generic_edge_scorer_matches_plain(cuda_device, states):
     assert r["t3_excess"] <= 0.0
 
 
+@pytest.mark.parametrize("block", [-1, -2])
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("states", [8, 9, 16, 17, 32])
+def test_generic_row_groups_at_their_edges(cuda_device, states, dtype,
+                                           per_rate, block):
+    """The generic form's row groups where they change (8 | 9 states: one
+    group of two sites a thread to two groups of one and the j loop's
+    bound 8 to 32; 16, specialised, beside 17: two groups to four), at the
+    two smallest site blocks that fit (8 and 16 sites from 9 states on;
+    16 and 32 at 8 states, where a thread holds two sites, and at the
+    specialised 16), f32 and bf16 pools,
+    per-site and per-rate rescues (branch lengths x 30): rows within 1e-5
+    of plain (bf16 within 2^-7 of each site's largest entry), scalers
+    exact, carry on and off bit-equal, and the rows at the other of the two
+    blocks bit for bit (a column's rows do not depend on its CTA)."""
+    newick = random_newick(40, np.random.default_rng(states))
+    cfg, program, pmatrix, tip_b, _tb = chip_smoke.sweep_inputs(
+        newick, 2048, states, cuda_device, states=states, per_rate=per_rate,
+        bl_scale=30.0, random_model=True, dtype=dtype)
+    prog = program.vmem_prog
+    tb = partials_tree.fitting_blocks(prog, cfg)[block]
+    tip_b = engine.block_tips(
+        tip_b.permute(1, 0, 2).reshape(cfg.tips, -1), cfg, tb)
+    on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+    off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, carry=False)
+    want = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+    torch.cuda.synchronize()
+    assert int(want[1].max()) > 0
+    torch.testing.assert_close(on[1], want[1], rtol=0, atol=0)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    if dtype == torch.bfloat16:
+        rel, mism, comp, _ = chip_smoke.compare_rows_site(on[0], want[0],
+                                                          on[1], want[1])
+        assert mism == 0 and rel <= chip_smoke.BF16_ROW_BOUND
+    else:
+        torch.testing.assert_close(on[0], want[0], rtol=1e-5, atol=0)
+    if partials_tree.generic(cfg):
+        assert partials_tree.generic_groups(cfg) == (1 if states <= 8 else
+                                                     2 if states <= 16 else 4)
+        other = partials_tree.fitting_blocks(prog, cfg)[-3 - block]
+        tips_o = engine.block_tips(
+            tip_b.permute(1, 0, 2).reshape(cfg.tips, -1), cfg, other)
+        got = partials_tree.sweep(tips_o, pmatrix, prog, cfg, other)
+        for a, b in zip(got, on):
+            assert torch.equal(unblock_rows(a), unblock_rows(b))
+
+
+def unblock_rows(rows):
+    """Sweep rows [E, NT, ..., TB] as [E, ..., NT * TB]."""
+    moved = rows.movedim(1, -2)
+    return moved.reshape(*moved.shape[:-2], -1)
+
+
+@pytest.mark.parametrize("per_rate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("states,rates", [(9, 32), (12, 20), (17, 16),
+                                          (24, 9), (32, 12), (32, 32)])
+def test_generic_row_groups_across_warps(cuda_device, states, rates, dtype,
+                                         per_rate):
+    """Many rates at many states: a site's G * lanes threads span two or
+    four warps, so a per-site rescue ANDs the warps' words through shared
+    memory (partials_tree.generic_spans_warps); per-rate rescues stay in a
+    warp.  Rows against plain as above (branch lengths x 30), scalers
+    exact, carry on and off bit-equal, one generic launch a call."""
+    newick = random_newick(40, np.random.default_rng(states))
+    cfg, program, pmatrix, tip_b, tb = chip_smoke.sweep_inputs(
+        newick, 2048, states, cuda_device, states=states, per_rate=per_rate,
+        bl_scale=30.0, random_model=True, rates=rates, dtype=dtype)
+    prog = program.vmem_prog
+    lanes = partials_tree.rate_lanes(rates)
+    assert partials_tree.generic_groups(cfg) * lanes > 32
+    assert partials_tree.generic_spans_warps(cfg) == (not per_rate)
+    before = partials_tree.sweep.launches_generic
+    on = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb)
+    off = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb, carry=False)
+    want = partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+    torch.cuda.synchronize()
+    assert partials_tree.sweep.launches_generic == before + 2
+    assert int(want[1].max()) > 0
+    torch.testing.assert_close(on[1], want[1], rtol=0, atol=0)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    if dtype == torch.bfloat16:
+        rel, mism, comp, _ = chip_smoke.compare_rows_site(on[0], want[0],
+                                                          on[1], want[1])
+        assert mism == 0 and rel <= chip_smoke.BF16_ROW_BOUND
+    else:
+        torch.testing.assert_close(on[0], want[0], rtol=1e-5, atol=0)
+
+
+def test_generic_layout_sizes_match_the_host(cuda_device):
+    """The row-group form's P layout and staging rule as the library
+    computes them, against partials_tree's copies."""
+    from libpll2_tpu_torch import _build
+    from libpll2_tpu_torch.config import PartitionConfig
+    lib = _build.library()
+    for states in (3, 5, 9, 12, 17, 24, 32):
+        for rates in (1, 3, 4, 8, 16, 32):
+            cfg = PartitionConfig(tips=4, clv_buffers=2, states=states,
+                                  sites=64, rate_matrices=1, prob_matrices=5,
+                                  rate_cats=rates, scale_buffers=2,
+                                  dtype=torch.float32)
+            groups = partials_tree.generic_groups(cfg)
+            if not groups:
+                continue
+            assert lib.tree_sweep_generic_matrix_floats(rates, states,
+                                                        groups) == \
+                partials_tree.generic_matrix_floats(cfg)
+            assert bool(lib.tree_sweep_generic_staged(rates, states,
+                                                      groups)) == \
+                partials_tree.generic_staged(cfg)
+
+
+@pytest.mark.parametrize("trim", [0, 2])
+def test_generic_scorer_four_sites_and_one(cuda_device, trim):
+    """The scorer's generic form on every chunk of a 5-state round: at the
+    round's own width (the later passes four sites a thread) and with two
+    sites cut off every row (not a multiple of 4: one site a thread),
+    against the plain version at chip_smoke's bounds."""
+    from libpll2_tpu_torch.probes import variants
+    inputs = chip_smoke.odd_search_inputs(cuda_device, 5, tips=24,
+                                          sites=1024)
+    checked = 0
+    for args, log_thresh in variants.round_chunks(cuda_device, inputs):
+        (away, away_s, base, base_s, halves, ops, rows, t0, lbd, rbd, xw,
+         pw) = args
+        T_ = pw.shape[0] - trim
+        args = (away[..., :T_].contiguous(), away_s[..., :T_].contiguous(),
+                base[..., :T_].contiguous(), base_s[..., :T_].contiguous(),
+                halves, ops, rows, t0, lbd, rbd, xw, pw[:T_].contiguous())
+        kw = dict(newton_iters=3, log_thresh=log_thresh)
+        for form in ("resident", "reread"):
+            got = edge_score.edge_scores(*args, form=form, **kw)
+            want = edge_score.edge_scores_reference(*args, **kw)
+            valid = (ops[..., edge_score.OP_VALID] == 1).cpu().numpy()
+            same, fin, err, rel, excess, _ = chip_smoke.compare_scores(
+                got, want, valid)
+            assert same and rel <= chip_smoke.SCORE_RTOL and excess <= 0.0
+            checked += fin
+    assert checked > 100
+
+
+def test_default_f64_runs_dense_on_the_card(cuda_device):
+    """The default config (f64, use_kernel None) on the card: the dense
+    path, equal to the explicit dense call bit for bit, one warning naming
+    the reason, no tree-sweep launch; use_kernel=True still raises."""
+    import warnings
+    cfg, program, model, bl, *site = engine.build_case(
+        64, 4096, dtype=torch.float64, device=cuda_device)
+    assert cfg.use_kernel is None
+    before = partials_tree.sweep.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = engine.loglikelihood(program, cfg, model, bl, *site)
+    torch.cuda.synchronize()
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, UserWarning)]
+    assert len(msgs) == 1 and "f32 or bf16" in msgs[0]
+    assert partials_tree.sweep.launches == before
+    dense = engine.loglikelihood(
+        program, dataclasses.replace(cfg, use_kernel=False), model, bl,
+        *site)
+    assert torch.equal(got, dense) and got.device.type == "cuda"
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        engine.loglikelihood(program, dataclasses.replace(
+            cfg, use_kernel=True), model, bl, *site)
+
+
 def test_generic_spr_round_on_the_kernel(cuda_device):
     """A 5-state round on the card takes the scorer kernel (the gate and
     the kernel agree) and applies moves."""
@@ -567,6 +736,14 @@ def test_fit_step_on_the_kernel_path(cuda_device):
     out = fit.fit_model(program, cfg, params, rates, tipchars, pw, inv,
                         steps=2, lr=0.02, fit_alpha=True, full_program=full)
     assert out.logl[1] > out.logl[0] and bool(torch.isfinite(out.grad_norm))
-    # no FullTreeProgram on the card: refused, not run on the dense path
+    # no FullTreeProgram on the card: the dense path under use_kernel=None,
+    # warned, no sweep launch (R13); refused under use_kernel=True
+    before = partials_tree.sweep.launches
+    with pytest.warns(UserWarning, match="autograd"):
+        dense = fit.fit_model(program, cfg, params, rates, tipchars, pw, inv,
+                              steps=1)
+    assert partials_tree.sweep.launches == before
+    assert bool(torch.isfinite(dense.logl).all())
     with pytest.raises(ValueError, match="full_program"):
-        fit.fit_model(program, cfg, params, rates, tipchars, pw, inv, steps=1)
+        fit.fit_model(program, dataclasses.replace(cfg, use_kernel=True),
+                      params, rates, tipchars, pw, inv, steps=1)

@@ -756,7 +756,9 @@ def test_variant_patches_apply_to_the_sources():
     from libpll2_tpu_torch.probes import variants
     assert set(variants.EXPERIMENTS) == {"blocks", "passes", "registers",
                                          "clocks", "fma_staging",
-                                         "fma_clocks", "static2_smem_a"}
+                                         "fma_clocks", "static2_smem_a",
+                                         "generic_sweep", "generic_blocks",
+                                         "generic_bounds", "generic_scorer"}
     for name, (file, patches) in variants.PATCHES.items():
         original = (_build.SOURCE_DIR / file).read_text()
         text = variants.patched_source(name)
@@ -764,8 +766,25 @@ def test_variant_patches_apply_to_the_sources():
         for old, new in patches:
             assert original.count(old) == 1 and new in text, (name, old)
     assert "clock64" in variants.patched_source("clocks")
-    assert "(THREADS, V == 4 ? 3 : 1)" in variants.patched_source(
+    assert "constexpr int RESIDENT_CTAS = 3;" in variants.patched_source(
         "three_ctas_an_sm")
+    assert "constexpr int RESIDENT_CTAS_GENERIC = 2;" in \
+        variants.patched_source("two_ctas_an_sm")
+    first = variants.patched_source("generic_scorer_first")
+    assert first.count("site_lk_any<SMAX") == 2 and \
+        "site_lk_regs<SMAX" not in first.split("// The \"reread\" form.")[1]
+    assert "scratch_floats(S)) *" in first and "if constexpr (false)" in first
+    assert "(THREADS, V == 4 ? 2 : 1)" in first
+    assert "site_lk_any<SMAX" not in (_build.SOURCE_DIR /
+                                      "edge_score.cu").read_text()
+    p_l1 = variants.patched_source("generic_p_l1")
+    assert "GENERIC_STAGE_BYTES = 0;" in p_l1
+    assert "return launch_scalar<8>(" in p_l1 and \
+        "if constexpr (true)\n    return launch_groups_kernel" in p_l1
+    bounds = variants.patched_source("generic_bounds_cta")
+    assert bounds.count("dbg_smem(") == 13 and "__syncwarp()" not in bounds
+    assert "launch_scalar<8>(" not in (_build.SOURCE_DIR /
+                                       "tree_sweep_generic.cu").read_text()
     assert "constexpr bool A_IN_REGISTERS = false;" in \
         variants.patched_source("static2_smem_a")
     assert variants.main(["no_such_experiment"]) == 2
