@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import spans
 from .config import PartitionConfig
 from .ops import derivatives as derivatives_ops
 from .ops import likelihood as likelihood_ops
@@ -283,17 +284,15 @@ def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
         return _TreeView(clv_rows, scal_rows, program.vmem_prog,
                          tipchars, cfg), pmatrix
 
-    clv = torch.zeros((cfg.num_clvs + 1, R, S, T), dtype=dtype,
-                      device=device)
-    clv[:cfg.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
-    if cfg.per_rate_scalers:
-        scalers = torch.zeros((cfg.scale_buffers + 2, R, T),
-                              dtype=torch.int32, device=device)
-    else:
-        scalers = torch.zeros((cfg.scale_buffers + 2, T), dtype=torch.int32,
-                              device=device)
-    clv, scalers = partials_ops.update_partials(
-        clv, scalers, pmatrix, program.level_ops, cfg)
+    with spans.span("sweep"):
+        clv = torch.zeros((cfg.num_clvs + 1, R, S, T), dtype=dtype,
+                          device=device)
+        clv[:cfg.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
+        sshape = ((cfg.scale_buffers + 2, R, T) if cfg.per_rate_scalers
+                  else (cfg.scale_buffers + 2, T))
+        scalers = torch.zeros(sshape, dtype=torch.int32, device=device)
+        clv, scalers = partials_ops.update_partials(
+            clv, scalers, pmatrix, program.level_ops, cfg)
     return _StandardView(clv, scalers), pmatrix
 
 
@@ -363,20 +362,21 @@ def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
     invariant: [T] int32 (-1 = variant).  With `group`, T is this rank's
     slice and the sum runs over every rank's.
     """
-    cfg = _local(cfg, group, tipchars)
-    view, pmatrix = _sweep(program, cfg, model, branch_lengths,
-                           tipchars, pattern_weights)
-    return likelihood_ops.edge_loglikelihood(
-        view.clv_row(program.root_clv),
-        view.scaler_row(program.root_scaler if program.root_scaler >= 0
-                        else cfg.scaler_zero),
-        view.clv_row(program.root_back_clv),
-        view.scaler_row(program.root_back_scaler
-                        if program.root_back_scaler >= 0
-                        else cfg.scaler_zero),
-        pmatrix[program.root_pmatrix],
-        model.cat_freqs, model.rate_weights, model.cat_pinv,
-        invariant, pattern_weights, cfg, group=group)
+    with spans.span("forward"):
+        cfg = _local(cfg, group, tipchars)
+        view, pmatrix = _sweep(program, cfg, model, branch_lengths,
+                               tipchars, pattern_weights)
+        return likelihood_ops.edge_loglikelihood(
+            view.clv_row(program.root_clv),
+            view.scaler_row(program.root_scaler if program.root_scaler >= 0
+                            else cfg.scaler_zero),
+            view.clv_row(program.root_back_clv),
+            view.scaler_row(program.root_back_scaler
+                            if program.root_back_scaler >= 0
+                            else cfg.scaler_zero),
+            pmatrix[program.root_pmatrix],
+            model.cat_freqs, model.rate_weights, model.cat_pinv,
+            invariant, pattern_weights, cfg, group=group)
 
 
 def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,
@@ -580,14 +580,16 @@ def message_sweep(cfg_ext: PartitionConfig, model: Model, level_ops,
     dtype = cfg_ext.dtype
     R, S, T = cfg_ext.rate_cats, cfg_ext.states, tipchars.shape[-1]
     device = tipchars.device
-    clv = torch.zeros((cfg_ext.num_clvs + 1, R, S, T), dtype=dtype,
-                      device=device)
-    clv[:cfg_ext.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
-    shape = ((cfg_ext.scale_buffers + 2, R, T) if cfg_ext.per_rate_scalers
-             else (cfg_ext.scale_buffers + 2, T))
-    scalers = torch.zeros(shape, dtype=torch.int32, device=device)
-    return partials_ops.update_partials(clv, scalers, pmatrix, level_ops,
-                                        cfg_ext)
+    with spans.span("message_sweep"):
+        clv = torch.zeros((cfg_ext.num_clvs + 1, R, S, T), dtype=dtype,
+                          device=device)
+        clv[:cfg_ext.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
+        shape = ((cfg_ext.scale_buffers + 2, R, T)
+                 if cfg_ext.per_rate_scalers
+                 else (cfg_ext.scale_buffers + 2, T))
+        scalers = torch.zeros(shape, dtype=torch.int32, device=device)
+        return partials_ops.update_partials(clv, scalers, pmatrix,
+                                            level_ops, cfg_ext)
 
 
 def _sweep_all(program: FullTreeProgram, cfg: PartitionConfig, model: Model,

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import PartitionConfig, phantom_columns, site_columns
 from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
                          SCALE_RATE_MAXDIFF)
@@ -218,13 +219,15 @@ def edge_loglikelihood(clvp,             # [R, S, T] parent CLV
     (pll_core_edge_loglikelihood_ii, core_likelihood.c:1191-1496).
     `group`: the process group the sites are sharded over (None: not
     sharded)."""
-    dtype = _acc_dtype(clvp)                    # bf16 CLVs: f32 sums
-    termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype), clvc.to(dtype))
-    terma_r = torch.einsum("rjt,rj,rjt->rt", clvp.to(dtype),
-                           freqs.to(dtype), termb)                # [R, T]
-    return edge_reduce(terma_r, scaler_p, scaler_c, freqs, rate_weights,
-                       prop_invar, invariant, pattern_weights, cfg,
-                       with_persite=with_persite, group=group)
+    with spans.span("root"):
+        dtype = _acc_dtype(clvp)                # bf16 CLVs: f32 sums
+        termb = torch.einsum("rjk,rkt->rjt", pmat.to(dtype),
+                             clvc.to(dtype))
+        terma_r = torch.einsum("rjt,rj,rjt->rt", clvp.to(dtype),
+                               freqs.to(dtype), termb)            # [R, T]
+        return edge_reduce(terma_r, scaler_p, scaler_c, freqs, rate_weights,
+                           prop_invar, invariant, pattern_weights, cfg,
+                           with_persite=with_persite, group=group)
 
 
 def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms

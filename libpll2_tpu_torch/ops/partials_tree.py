@@ -57,6 +57,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import PartitionConfig
 
 OP_COLS = 9
@@ -940,6 +941,15 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     At bf16 the rows are the f32 parents before their rounding to the
     pool's bf16 (the JAX static kernels' exports at one split part).
     """
+    with spans.span("sweep"):
+        return _run_sweep(tip_blocked, pmatrix, prog, cfg, tb, mode,
+                          carry)
+
+
+def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
+               cfg: PartitionConfig, tb: int, mode: Optional[str],
+               carry: bool):
+    """sweep's work, inside its span."""
     mode = "fma" if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
+
 
 def compute_pmatrices(branch_lengths,      # [E]
                       eigenvals,           # [M, S]
@@ -26,29 +28,30 @@ def compute_pmatrices(branch_lengths,      # [E]
                       params_indices,      # [R] int (rate cat -> rate matrix)
                       dtype=torch.float64):
     """Return P-matrices [E, R, S, S] for a batch of branch lengths."""
-    idx = params_indices.long()
-    evals = eigenvals[idx].to(dtype)                        # [R, S]
-    evecs = eigenvecs[idx].to(dtype)                        # [R, S, S]
-    inv_evecs = inv_eigenvecs[idx].to(dtype)                # [R, S, S]
-    pinv = prop_invar[idx].to(dtype)                        # [R]
+    with spans.span("pmatrix"):
+        idx = params_indices.long()
+        evals = eigenvals[idx].to(dtype)                        # [R, S]
+        evecs = eigenvecs[idx].to(dtype)                        # [R, S, S]
+        inv_evecs = inv_eigenvecs[idx].to(dtype)                # [R, S, S]
+        pinv = prop_invar[idx].to(dtype)                        # [R]
 
-    t = torch.as_tensor(branch_lengths, dtype=dtype,
-                        device=evals.device)                # [E]
-    scaled_rates = rates.to(dtype) / (1.0 - pinv)           # [R]
-    exponent = (t[:, None, None] * scaled_rates[None, :, None]
-                * evals[None, :, :])                        # [E, R, S]
-    expd = torch.expm1(exponent)
+        t = torch.as_tensor(branch_lengths, dtype=dtype,
+                            device=evals.device)                # [E]
+        scaled_rates = rates.to(dtype) / (1.0 - pinv)           # [R]
+        exponent = (t[:, None, None] * scaled_rates[None, :, None]
+                    * evals[None, :, :])                        # [E, R, S]
+        expd = torch.expm1(exponent)
 
-    # temp[e,r,j,k] = inv_evecs[r,j,k] * expd[e,r,k];  P = I + temp @ evecs
-    temp = inv_evecs[None, :, :, :] * expd[:, :, None, :]
-    pmat = torch.einsum("erjm,rmk->erjk", temp, evecs)
-    states = evals.shape[-1]
-    eye = torch.eye(states, dtype=dtype, device=evals.device)
-    pmat = pmat + eye
+        # temp[e,r,j,k] = inv_evecs[r,j,k] * expd[e,r,k]; P = I + temp @ evecs
+        temp = inv_evecs[None, :, :, :] * expd[:, :, None, :]
+        pmat = torch.einsum("erjm,rmk->erjk", temp, evecs)
+        states = evals.shape[-1]
+        eye = torch.eye(states, dtype=dtype, device=evals.device)
+        pmat = pmat + eye
 
-    # zero branch length -> exact identity (core_pmatrix.c:239-245)
-    zero = (t <= 0.0)[:, None, None, None]
-    return torch.where(zero, eye, pmat)
+        # zero branch length -> exact identity (core_pmatrix.c:239-245)
+        zero = (t <= 0.0)[:, None, None, None]
+        return torch.where(zero, eye, pmat)
 
 
 def scatter_pmatrices(pmatrix,            # [P, R, S, S] full buffer

@@ -27,11 +27,13 @@ user makes.
            spr_round on the search inputs: the base message sweep, the
            recursion and scoring of every ball group as the round runs
            them (search_fast._score_group) under each edge-scorer form,
-           with the scorer's rows (`matched_ms`), the rest, which is the
-           ball recursion (`recurse_ms`), and the rows of its gathers
-           (`gather_ms`, aten::index) and scatters (`scatter_ms`,
-           aten::index_put_); the whole round with its `timings` phases,
-           and the host's compile_spr.
+           with the scorer's rows (`matched_ms`), the ball recursion
+           (`recurse_ms`: the stream ms of its `libpll2.ball_recursion`
+           spans, spans.py, in `reps` calls more under spans.recording()
+           without the profiler), and the rows of the gathers (`gather_ms`,
+           aten::index) and scatters (`scatter_ms`, aten::index_put_);
+           the whole round with its `timings` phases, and the host's
+           compile_spr.
   search   (profile_search.py)  hill_climb for `rounds` rounds: seconds
            of each round, the logL trace, and the profile of the climb.
   repeats  (repeats_quantify.py)  on a gappy alignment (each taxon covers
@@ -46,7 +48,8 @@ user makes.
 **Idle share** (the one method of the port): idle share = 1 - U / W,
 where U is the union of the intervals of the device rows of a
 torch.profiler trace of the work (CUDA kernels, and the memcpy and memset
-rows the card runs) and W the host wall time between a
+rows the card runs; not the CUDA row that each host range, such as a
+span's, also leaves) and W the host wall time between a
 torch.cuda.synchronize() before the same work and one after it, run
 without the profiler (whose host cost would inflate W: 37.3 ms against
 19.9 ms for one optimize_root_branch call at 256 x 65,536 on an H100
@@ -75,7 +78,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, spans
 from .config import PartitionConfig
 from .models.gamma import compute_gamma_cats
 
@@ -143,16 +146,30 @@ def profile_kernels(fn: Callable[[], object],
     None, one call of `fn` is timed so first).  None where the trace holds
     no device row.  The rows are read from the profiler's raw events
     (each device row's launching CPU op by its correlation id), which
-    costs a small part of building the profiler's event tree."""
-    from torch.autograd import DeviceType
+    costs a small part of building the profiler's event tree.  The spans
+    recorded so far are cleared first, so that spans.records() then holds
+    those of this profile alone."""
     from torch.profiler import ProfilerActivity, profile
 
     if wall_ms is None:
         wall_ms = _wall_ms(fn)
+    spans.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled = _wall_ms(fn)
-    events = prof.profiler.kineto_results.events()
+    return read_events(prof.profiler.kineto_results.events(), wall_ms,
+                       profiled)
+
+
+def read_events(events, wall_ms: float,
+                profiled: float) -> Optional[KernelProfile]:
+    """profile_kernels' walk of the profiler's raw events.  A host range
+    (a span of this package's, spans.py, or any record_function) also
+    shows as a CUDA row spanning the device work launched inside it: such
+    a row is no device work and is left out."""
+    from torch.autograd import DeviceType
+
+    ranges = {e.name() for e in events if e.device_type() == DeviceType.CPU}
     op_of = {e.correlation_id(): e.name() for e in events
              if e.device_type() == DeviceType.CPU
              and e.linked_correlation_id() == 0
@@ -161,7 +178,8 @@ def profile_kernels(fn: Callable[[], object],
     ops: dict = {}
     intervals = []
     for e in events:
-        if e.device_type() != DeviceType.CUDA:
+        if e.device_type() != DeviceType.CUDA or e.name() in ranges \
+                or e.name().startswith(spans.PREFIX):
             continue
         start, ns = e.start_ns(), e.duration_ns()
         intervals.append((start, start + ns))
@@ -260,6 +278,16 @@ def measure(fn: Callable[[], object], device: torch.device,
                            wall_ms=host_s * reps * 1e3)
     out.update(card_fields(prof, _own_launches() - launches, reps, match))
     return out
+
+
+def span_ms(name: str, reps: int) -> Optional[float]:
+    """The summed stream ms of the spans named `name` recorded since the
+    last spans.clear(), per call of `reps`; None where there is none, or
+    one has no CUDA events (the CPU)."""
+    recs = [r for r in spans.records() if r.name == name]
+    if not recs or any(r.stream_ms is None for r in recs):
+        return None
+    return sum(r.stream_ms for r in recs) / reps
 
 
 def card_row(smi: str, uuid: str) -> str:
@@ -522,15 +550,19 @@ def target_round(tips: int = 256, sites: int = 4096, radius: int = 5,
     }
     kernel_on = sf.use_edge_kernel(cfgx, site[2], device)
     for form in edge_score.FORMS if kernel_on else (None,):
-        phase = measure(
-            lambda: _score_groups(prog, model, site, base, (bl, groups),
-                                  kernel_on, form), device, reps,
-            match="edge_score")
-        # with the edge scorer, every other device row is the recursion's
-        # (search_fast._recurse) but for the clamp of each batch's t0
-        phase["recurse_ms"] = None if not kernel_on \
-            or phase["kernel_ms"] is None \
-            else phase["kernel_ms"] - phase["matched_ms"]
+        def score():
+            _score_groups(prog, model, site, base, (bl, groups), kernel_on,
+                          form)
+        phase = measure(score, device, reps, match="edge_score")
+        phase["recurse_ms"] = None
+        if device.type == "cuda":
+            # the spans' own pass, without the profiler's host cost
+            spans.clear()
+            with spans.recording():
+                for _ in range(reps):
+                    score()
+            phase["recurse_ms"] = span_ms("libpll2.ball_recursion", reps)
+            spans.clear()
         phases[f"score[{form or 'plain'}]"] = phase
     timings: list = []
 

@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import engine
+from . import engine, spans
 from .config import PartitionConfig
 from .constants import AB_NONE, gap_state, gap_state_int32
 from .ops import derivatives as derivatives_ops
@@ -170,6 +170,17 @@ def compile_spr(tree: UTree, cfg: PartitionConfig,
                 min_ball_slots: Optional[int] = None
                 ) -> SprProgram:
     """Compile one topology into runtime search arrays + candidate table."""
+    with spans.span("search.compile_spr"):
+        return _compile_spr(tree, cfg, min_level_shape, radius,
+                            min_group_shapes, min_ball_slots)
+
+
+def _compile_spr(tree: UTree, cfg: PartitionConfig,
+                 min_level_shape: Optional[Tuple[int, int]],
+                 radius: Optional[int],
+                 min_group_shapes: Optional[Tuple[tuple, ...]],
+                 min_ball_slots: Optional[int]) -> SprProgram:
+    """compile_spr's work, inside its span."""
     if cfg.per_rate_scalers and cfg.asc_bias != 0:
         raise ValueError("per-rate scalers cannot combine with asc bias "
                          "(reference partition-creation rule)")
@@ -715,18 +726,21 @@ def _score_group(cfg: PartitionConfig, model, base_clv, base_scal,
     scores, t3s = [], []
     for cs in range(0, Cg, cb):
         cands = torch.arange(cs, cs + cb, device=device)
-        _recurse(cfg, model, base_clv, base_scal, pmatrix, branch_lengths,
-                 ball_levels, merge_edges, cands, scratch, sscr)
+        with spans.span("ball_recursion"):
+            _recurse(cfg, model, base_clv, base_scal, pmatrix,
+                     branch_lengths, ball_levels, merge_edges, cands,
+                     scratch, sscr)
         sops = score_ops[cs:cs + cb]                          # [cb, Vg, 12]
         if use_kernel:
             t0 = torch.clamp(branch_lengths[edge_pos[cs:cs + cb]],
                              1e-8, 100.0)
-            s, t3 = edge_score.edge_scores(
-                scratch, sscr, base_clv, base_scal, halves,
-                ops32[cs:cs + cb].contiguous(),
-                rows32[cs:cs + cb].contiguous(), t0, *consts,
-                pattern_weights, newton_iters=newton_iters,
-                log_thresh=cfg.log_scale_threshold, form=form)
+            with spans.span("edge_scorer"):
+                s, t3 = edge_score.edge_scores(
+                    scratch, sscr, base_clv, base_scal, halves,
+                    ops32[cs:cs + cb].contiguous(),
+                    rows32[cs:cs + cb].contiguous(), t0, *consts,
+                    pattern_weights, newton_iters=newton_iters,
+                    log_thresh=cfg.log_scale_threshold, form=form)
         else:
             srows = sub_rows[cs:cs + cb]
             s, t3 = _score_slots(
@@ -1044,17 +1058,6 @@ def plain_scorer_reason(cfg: PartitionConfig, invariant,
     return reason
 
 
-def _marker(timings: Optional[dict]):
-    """mark(key, t0): add the wall seconds since t0 to timings[key] (when a
-    dict was passed) and return the clock."""
-    def mark(key, t0):
-        if timings is not None:
-            timings[key] = timings.get(key, 0.0) + (time.perf_counter()
-                                                    - t0)
-        return time.perf_counter()
-    return mark
-
-
 def _round_args(prog: SprProgram, device) -> tuple:
     """The topology arguments of _spr_round_device for a radius-compiled
     program, on `device`: (level_ops, pmat_slots, branch_lengths,
@@ -1110,14 +1113,12 @@ def _recompile_pins(prog: SprProgram) -> dict:
 def _select_apply_verify(progs: List[SprProgram], models, labels_list,
                          sites, scores, t3_list, cand_of, edge_of,
                          logl0: float, eps: float,
-                         max_moves: Optional[int], timings: Optional[dict],
-                         _t: float):
+                         max_moves: Optional[int], timings: Optional[dict]):
     """The host half of a round after scoring, over K >= 1 programs of one
     topology (scores: the move scores summed over the partitions; t3_list:
     each partition's refined attachment branches): greedy selection, the
     surgery on every partition's tree, and the exact verification ladder.
     Returns (new programs or None when no move was made, logl, moves)."""
-    mark = _marker(timings)
     prog0 = progs[0]
     # greedy improving move selection (flat arrays).  Two region
     # granularities:
@@ -1136,13 +1137,8 @@ def _select_apply_verify(progs: List[SprProgram], models, labels_list,
                                  limit, region_sets,
                                  prog0.edge_endpoints, block_regraft_edge)
 
-    chosen, chosen_idx = select(prog0.cand_hard, block_regraft_edge=False)
-    if timings is not None:
-        imp = scores > logl0 + eps
-        timings["n_improving"] = int(np.sum(imp))
-        timings["n_cand_improving"] = int(len(np.unique(cand_of[imp])))
-        timings["n_chosen"] = len(chosen)
-    _t = mark("select", _t)
+    with spans.span("search.select", timings):
+        chosen, chosen_idx = select(prog0.cand_hard, block_regraft_edge=False)
     if not chosen:
         return None, logl0, 0
 
@@ -1172,12 +1168,12 @@ def _select_apply_verify(progs: List[SprProgram], models, labels_list,
         return tot
 
     best_single = float(scores[chosen_idx[0]])
-    new_progs, applied = apply_all(chosen, chosen_idx)
+    with spans.span("search.apply", timings):
+        new_progs, applied = apply_all(chosen, chosen_idx)
     if timings is not None:
         timings["n_applied"] = len(applied)
     if not applied:
         return None, logl0, 0
-    _t = mark("apply", _t)
 
     if len(applied) == 1:
         # a single move's score is its exact post-move likelihood
@@ -1186,29 +1182,60 @@ def _select_apply_verify(progs: List[SprProgram], models, labels_list,
     # verify the aggressive batch exactly; ladder down to the
     # conservative-region batch, then the single best move — each rung
     # is verified, so the returned logL is exact and monotone
-    logl_batch = total_exact(new_progs)
-    if logl_batch >= best_single - eps:
-        _t = mark("verify", _t)
+    with spans.span("search.verify", timings):
+        logl_batch = total_exact(new_progs)
+        if logl_batch >= best_single - eps:
+            if timings is not None:
+                timings["ladder"] = 0
+            return new_progs, logl_batch, len(applied)
+
+        chosen2, chosen_idx2 = select(prog0.cand_affected,
+                                      block_regraft_edge=True)
+        if len(chosen2) > 1:
+            progs2, applied2 = apply_all(chosen2, chosen_idx2)
+            if progs2 is not None:
+                logl2 = total_exact(progs2)
+                if logl2 >= best_single - eps:
+                    if timings is not None:
+                        timings["ladder"] = 1
+                    return progs2, logl2, len(applied2)
+
+        progs1, _applied1 = apply_all(chosen[:1], chosen_idx[:1])
         if timings is not None:
-            timings["ladder"] = 0
-        return new_progs, logl_batch, len(applied)
+            timings["ladder"] = 2
+        return progs1, best_single, 1
 
-    chosen2, chosen_idx2 = select(prog0.cand_affected, block_regraft_edge=True)
-    if len(chosen2) > 1:
-        progs2, applied2 = apply_all(chosen2, chosen_idx2)
-        if progs2 is not None:
-            logl2 = total_exact(progs2)
-            if logl2 >= best_single - eps:
-                _t = mark("verify", _t)
-                if timings is not None:
-                    timings["ladder"] = 1
-                return progs2, logl2, len(applied2)
 
-    progs1, _applied1 = apply_all(chosen[:1], chosen_idx[:1])
-    _t = mark("verify", _t)
-    if timings is not None:
-        timings["ladder"] = 2
-    return progs1, best_single, 1
+def _score_exhaustive(prog: SprProgram, model, site, newton_iters: int):
+    """The score phase of a program without a radius: every (prune,
+    regraft) pair by one gapped sweep a candidate, in _score_partition's
+    form (no edge-scorer launch)."""
+    device = _device_of(model)
+    cfg = prog.cfg_ext
+    tipchars, pw_d, inv_d = site
+    bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype,
+                         device=device)
+    lops = _long(prog.level_ops, device)
+    erow = _long(prog.edge_rows, device)
+    pslots = _long(prog.pmatrix_slots, device)
+    logl0 = float(_logl_rt(cfg, model, lops, pslots, bl, tipchars,
+                           pw_d, inv_d, erow[prog.root_edge],
+                           pslots[prog.root_edge]))
+    scores2, t3s2 = _spr_all_scores(
+        cfg, model, lops, erow, pslots, bl, tipchars, pw_d, inv_d,
+        _long(prog.cand_edge, device), _long(prog.cand_sub_rows, device),
+        torch.as_tensor(prog.cand_gap_mask, device=device),
+        torch.as_tensor(prog.cand_edge_valid, device=device),
+        newton_iters=newton_iters)
+    scores2, t3s2 = scores2.cpu().numpy(), t3s2.cpu().numpy()
+    C, E = scores2.shape
+    cand_of = np.repeat(np.arange(C, dtype=np.int32), E)
+    edge_of = np.tile(np.arange(E, dtype=np.int32), C)
+    # NaNs (f32 pathologies) sort FIRST under descending argsort
+    scores = scores2.reshape(-1)
+    scores = np.where(np.isnan(scores), -np.inf, scores)
+    return (logl0, scores, t3s2.reshape(-1), cand_of, edge_of, "plain", 0,
+            "the program has no radius: the edge scorer prices ball slots")
 
 
 def spr_round(prog: SprProgram, model,
@@ -1222,59 +1249,30 @@ def spr_round(prog: SprProgram, model,
     device.
 
     timings: if a dict is passed, per-phase wall seconds are accumulated
-    into it ("setup", "score", "select", "apply", "verify"), with the
-    scorer taken ("scorer": "kernel" or "plain") and the edge scorer's
-    kernel launches of this round ("edge_score_launches").
+    into it ("setup", "score", "select", "apply", "verify": the host
+    seconds of the round's phase spans, spans.py), with the scorer taken
+    ("scorer": "kernel" or "plain", and "scorer_reason") and the edge
+    scorer's kernel launches of this round ("edge_score_launches");
+    "n_applied" and "ladder" say how the moves were verified.
 
     Returns (new_program, logl, moves_applied); logl is exact for the
     returned topology and monotone vs. the input's."""
-    mark = _marker(timings)
-    _t = time.perf_counter()
-    device = _device_of(model)
-    cfg = prog.cfg_ext
-    site = _site_arrays(prog, tipchars_by_label, device, pattern_weights,
-                        invariant)
-    _t = mark("setup", _t)
-    if prog.radius is not None:
-        logl0, scores, t3s, cand_of, edge_of, scorer, launches, reason = \
-            _score_partition(prog, model, site, newton_iters)
+    with spans.span("search.round"):
+        with spans.span("search.setup", timings):
+            site = _site_arrays(prog, tipchars_by_label, _device_of(model),
+                                pattern_weights, invariant)
+        score = _score_exhaustive if prog.radius is None \
+            else _score_partition
+        with spans.span("search.score", timings):
+            logl0, scores, t3s, cand_of, edge_of, scorer, launches, \
+                reason = score(prog, model, site, newton_iters)
         if timings is not None:
             timings["scorer"] = scorer
             timings["scorer_reason"] = reason
             timings["edge_score_launches"] = launches
-    else:
-        tipchars, pw_d, inv_d = site
-        bl = torch.as_tensor(prog.branch_lengths, dtype=cfg.dtype,
-                             device=device)
-        lops = _long(prog.level_ops, device)
-        erow = _long(prog.edge_rows, device)
-        pslots = _long(prog.pmatrix_slots, device)
-        logl0 = float(_logl_rt(cfg, model, lops, pslots, bl, tipchars,
-                               pw_d, inv_d, erow[prog.root_edge],
-                               pslots[prog.root_edge]))
-        scores2, t3s2 = _spr_all_scores(
-            cfg, model, lops, erow, pslots, bl, tipchars, pw_d, inv_d,
-            _long(prog.cand_edge, device), _long(prog.cand_sub_rows, device),
-            torch.as_tensor(prog.cand_gap_mask, device=device),
-            torch.as_tensor(prog.cand_edge_valid, device=device),
-            newton_iters=newton_iters)
-        scores2, t3s2 = scores2.cpu().numpy(), t3s2.cpu().numpy()
-        C, E = scores2.shape
-        scores = scores2.reshape(-1)
-        t3s = t3s2.reshape(-1)
-        cand_of = np.repeat(np.arange(C, dtype=np.int32), E)
-        edge_of = np.tile(np.arange(E, dtype=np.int32), C)
-        # NaNs (f32 pathologies) sort FIRST under descending argsort
-        scores = np.where(np.isnan(scores), -np.inf, scores)
-        if timings is not None:
-            timings["scorer"] = "plain"
-            timings["scorer_reason"] = ("the program has no radius: the "
-                                        "edge scorer prices ball slots")
-    _t = mark("score", _t)
-
-    new_progs, logl, applied = _select_apply_verify(
-        [prog], [model], [tipchars_by_label], [site], scores, [t3s],
-        cand_of, edge_of, logl0, eps, max_moves, timings, _t)
+        new_progs, logl, applied = _select_apply_verify(
+            [prog], [model], [tipchars_by_label], [site], scores, [t3s],
+            cand_of, edge_of, logl0, eps, max_moves, timings)
     return (prog if new_progs is None else new_progs[0]), logl, applied
 
 
@@ -1443,9 +1441,7 @@ def hill_climb(tree: UTree, cfg: PartitionConfig, model,
     phase_timings: List[dict] = []
     for r in range(max_rounds):
         t0 = time.perf_counter()
-        tm: dict = {"shapes": tuple(g.shape_key for g in prog.ball_groups)
-                    if prog.ball_groups is not None else None,
-                    "lops": prog.level_ops.shape}
+        tm: dict = {}
         prog, logl, applied = spr_round(
             prog, model, tipchars_by_label, newton_iters=newton_iters,
             eps=eps, pattern_weights=pattern_weights, invariant=invariant,
@@ -1474,8 +1470,8 @@ def hill_climb(tree: UTree, cfg: PartitionConfig, model,
             break
         if smooth_every and (r + 1) % smooth_every == 0:
             ts = time.perf_counter()
-            prog, tm["smooth_kept"] = _smooth_if_better(
-                prog, model, tipchars_by_label, **smooth_kw)
+            prog, _ = _smooth_if_better(prog, model, tipchars_by_label,
+                                        **smooth_kw)
             tm["smooth"] = time.perf_counter() - ts
     if smooth_every:
         prog, _ = _smooth_if_better(prog, model, tipchars_by_label,
@@ -1547,44 +1543,43 @@ def spr_round_multi(progs: List[SprProgram], models,
     K = len(progs)
     if len(models) != K or len(tipchars_by_label_list) != K:
         raise ValueError(f"{K} programs need {K} models and tip tables")
-    mark = _marker(timings)
-    _t = time.perf_counter()
-    sites = []
-    for k, prog in enumerate(progs):
-        if prog.radius is None:
-            raise ValueError("spr_round_multi requires radius-compiled "
-                             "programs")
-        sites.append(_site_arrays(
-            prog, tipchars_by_label_list[k], _device_of(models[k]),
-            _per_partition(pattern_weights_list, k),
-            _per_partition(invariant_list, k)))
-    _t = mark("setup", _t)
-    logl0 = 0.0
-    scores = cand_of = edge_of = None
-    t3_list, scorers, reasons, launches = [], [], [], []
-    for prog, model, site in zip(progs, models, sites):
-        logl0_k, scores_k, t3s_k, cand_k, edge_k, scorer, n, reason = \
-            _score_partition(prog, model, site, newton_iters)
-        logl0 += logl0_k
-        t3_list.append(t3s_k)
-        scorers.append(scorer)
-        reasons.append(reason)
-        launches.append(n)
-        if scores is None:
-            scores, cand_of, edge_of = scores_k, cand_k, edge_k
-        else:
-            np.testing.assert_array_equal(cand_k, cand_of)
-            np.testing.assert_array_equal(edge_k, edge_of)
-            scores = scores + scores_k
-    if timings is not None:
-        timings["scorer"] = scorers
-        timings["scorer_reason"] = reasons
-        timings["edge_score_launches"] = launches
-    _t = mark("score", _t)
-
-    new_progs, logl, applied = _select_apply_verify(
-        progs, models, tipchars_by_label_list, sites, scores, t3_list,
-        cand_of, edge_of, logl0, eps, max_moves, timings, _t)
+    with spans.span("search.round"):
+        with spans.span("search.setup", timings):
+            sites = []
+            for k, prog in enumerate(progs):
+                if prog.radius is None:
+                    raise ValueError("spr_round_multi requires "
+                                     "radius-compiled programs")
+                sites.append(_site_arrays(
+                    prog, tipchars_by_label_list[k], _device_of(models[k]),
+                    _per_partition(pattern_weights_list, k),
+                    _per_partition(invariant_list, k)))
+        with spans.span("search.score", timings):
+            logl0 = 0.0
+            scores = cand_of = edge_of = None
+            t3_list, scorers, reasons, launches = [], [], [], []
+            for prog, model, site in zip(progs, models, sites):
+                logl0_k, scores_k, t3s_k, cand_k, edge_k, scorer, n, \
+                    reason = _score_partition(prog, model, site,
+                                              newton_iters)
+                logl0 += logl0_k
+                t3_list.append(t3s_k)
+                scorers.append(scorer)
+                reasons.append(reason)
+                launches.append(n)
+                if scores is None:
+                    scores, cand_of, edge_of = scores_k, cand_k, edge_k
+                else:
+                    np.testing.assert_array_equal(cand_k, cand_of)
+                    np.testing.assert_array_equal(edge_k, edge_of)
+                    scores = scores + scores_k
+        if timings is not None:
+            timings["scorer"] = scorers
+            timings["scorer_reason"] = reasons
+            timings["edge_score_launches"] = launches
+        new_progs, logl, applied = _select_apply_verify(
+            progs, models, tipchars_by_label_list, sites, scores, t3_list,
+            cand_of, edge_of, logl0, eps, max_moves, timings)
     return (progs if new_progs is None else new_progs), logl, applied
 
 
@@ -1632,7 +1627,7 @@ def hill_climb_multi(tree: UTree, cfgs: Sequence[PartitionConfig], models,
             break
         if smooth_every and (r + 1) % smooth_every == 0:
             ts = time.perf_counter()
-            progs, tm["smooth_kept"] = _smooth_all_if_better(
+            progs, _ = _smooth_all_if_better(
                 progs, models, tipchars_by_label_list, **smooth_kw)
             tm["smooth"] = time.perf_counter() - ts
     if smooth_every:

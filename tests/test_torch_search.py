@@ -350,12 +350,27 @@ def test_use_edge_kernel_follows_contract():
 @pytest.mark.parametrize("radius,kw", [
     (None, {}), (3, {}), (3, dict(per_rate_scalers=True)),
     (3, dict(asc_bias=AB_LEWIS))])
-def test_spr_round_f64(radius, kw):
-    """One round: the same moves applied and the same exact logL."""
+def test_spr_round_f64(radius, kw, monkeypatch):
+    """One round: the same moves applied and the same exact logL.  The
+    port's selection counts (the JAX package's timings keys) are taken
+    from its first greedy selection's own inputs and outputs."""
     c = make_case(n=14, **kw)
     jp = jsf.compile_spr(c.jtree, c.jcfg, radius=radius)
     pp = search_fast.compile_spr(c.ptree, c.pcfg, radius=radius)
     jtm, ptm = {}, {}
+    real = search_fast._select_improving
+
+    def counted(scores, cand_of, edge_of, logl0, eps, *args, **kw):
+        chosen, idx = real(scores, cand_of, edge_of, logl0, eps, *args,
+                           **kw)
+        if "n_chosen" not in ptm:
+            imp = scores > logl0 + eps
+            ptm.update(n_improving=int(np.sum(imp)),
+                       n_cand_improving=int(len(np.unique(cand_of[imp]))),
+                       n_chosen=len(chosen))
+        return chosen, idx
+
+    monkeypatch.setattr(search_fast, "_select_improving", counted)
     jnew, jl, ja = jsf.spr_round(jp, c.jmodel, c.chars, timings=jtm)
     pnew, pl, pa = search_fast.spr_round(pp, c.pmodel, c.chars, timings=ptm)
     assert pa == ja > 0
