@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import spans
+from . import forward_graph, spans
 from .config import PartitionConfig
 from .ops import derivatives as derivatives_ops
 from .ops import likelihood as likelihood_ops
@@ -269,12 +269,18 @@ def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
 
     tipchars: packed bitmask states [tips, T] int32.
     """
+    pmatrix = pmatrix_buffer(program, cfg, model, branch_lengths)
+    choice = kernel_choice(program, cfg, tipchars.device)
+    return _tree_rows(program, cfg, pmatrix, tipchars, choice), pmatrix
+
+
+def _tree_rows(program: TreeProgram, cfg: PartitionConfig, pmatrix,
+               tipchars, choice):
+    """The CLV sweep from the P-matrices under `choice` (kernel_choice's):
+    a row view."""
     dtype = cfg.dtype
     R, S, T = cfg.rate_cats, cfg.states, tipchars.shape[-1]
     device = tipchars.device
-    pmatrix = pmatrix_buffer(program, cfg, model, branch_lengths)
-
-    choice = kernel_choice(program, cfg, device)
     if choice is not None:
         # shared-memory sweep: tips stay packed, only root rows are written
         tb, mode = choice
@@ -282,7 +288,7 @@ def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
             block_tips(tipchars, cfg, tb), pmatrix, program.vmem_prog, cfg,
             tb, mode=mode)
         return _TreeView(clv_rows, scal_rows, program.vmem_prog,
-                         tipchars, cfg), pmatrix
+                         tipchars, cfg)
 
     with spans.span("sweep"):
         clv = torch.zeros((cfg.num_clvs + 1, R, S, T), dtype=dtype,
@@ -293,7 +299,7 @@ def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
         scalers = torch.zeros(sshape, dtype=torch.int32, device=device)
         clv, scalers = partials_ops.update_partials(
             clv, scalers, pmatrix, program.level_ops, cfg)
-    return _StandardView(clv, scalers), pmatrix
+    return _StandardView(clv, scalers)
 
 
 class _StandardView:
@@ -353,6 +359,25 @@ def _local(cfg: PartitionConfig, group, tipchars) -> PartitionConfig:
     return cfg
 
 
+def _root_logl(program: TreeProgram, cfg: PartitionConfig, model: Model,
+               view, pmatrix, pattern_weights, invariant, group=None):
+    """The reduction across the root edge from the sweep's row view."""
+    return likelihood_ops.edge_loglikelihood(
+        view.clv_row(program.root_clv),
+        view.scaler_row(program.root_scaler if program.root_scaler >= 0
+                        else cfg.scaler_zero),
+        view.clv_row(program.root_back_clv),
+        view.scaler_row(program.root_back_scaler
+                        if program.root_back_scaler >= 0
+                        else cfg.scaler_zero),
+        pmatrix[program.root_pmatrix],
+        model.cat_freqs, model.rate_weights, model.cat_pinv,
+        invariant, pattern_weights, cfg, group=group)
+
+
+_graphs = forward_graph.Cache()
+
+
 def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
                   branch_lengths, tipchars, pattern_weights, invariant,
                   group=None):
@@ -361,22 +386,62 @@ def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
     tipchars: [tips, T] int32 packed state bitmasks; pattern_weights: [T];
     invariant: [T] int32 (-1 = variant).  With `group`, T is this rank's
     slice and the sum runs over every rank's.
+
+    A call on the card that repeats an earlier call's program, model and
+    alignment tensors replays that call's device work as CUDA graphs, with
+    the same kernels and ops and the same result (forward_graph.py);
+    loglikelihood.graph_captures, .graph_replays and .eager_calls count
+    the calls each way.
     """
     with spans.span("forward"):
         cfg = _local(cfg, group, tipchars)
-        view, pmatrix = _sweep(program, cfg, model, branch_lengths,
-                               tipchars, pattern_weights)
-        return likelihood_ops.edge_loglikelihood(
-            view.clv_row(program.root_clv),
-            view.scaler_row(program.root_scaler if program.root_scaler >= 0
-                            else cfg.scaler_zero),
-            view.clv_row(program.root_back_clv),
-            view.scaler_row(program.root_back_scaler
-                            if program.root_back_scaler >= 0
-                            else cfg.scaler_zero),
-            pmatrix[program.root_pmatrix],
-            model.cat_freqs, model.rate_weights, model.cat_pinv,
-            invariant, pattern_weights, cfg, group=group)
+        device = tipchars.device
+        choice = kernel_choice(program, cfg, device)
+
+        # the three stages a graph each; eager runs them in turn
+        def pmatrices(bl):
+            return pmatrix_buffer(program, cfg, model, bl)
+
+        def rows(pmatrix):
+            return _tree_rows(program, cfg, pmatrix, tipchars, choice)
+
+        def root(view, pmatrix):
+            return _root_logl(program, cfg, model, view, pmatrix,
+                              pattern_weights, invariant, group)
+
+        def eager():
+            pmatrix = pmatrices(branch_lengths)
+            return root(rows(pmatrix), pmatrix)
+
+        tensors = [getattr(model, f) for f in Model.FIELDS] + \
+            [tipchars, pattern_weights, invariant]
+        capturing = device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing()
+        if not forward_graph.eligible(device, group, choice,
+                                      tensors + [branch_lengths],
+                                      torch.is_grad_enabled(), capturing):
+            _counters.eager_calls += 1
+            return eager()
+        bl = branch_lengths if isinstance(branch_lengths, torch.Tensor) \
+            else torch.as_tensor(np.asarray(branch_lengths))
+        logl, how = _graphs.call(
+            forward_graph.key(program, cfg, device, tensors, bl),
+            (program, *tensors), eager,
+            lambda: forward_graph.capture((pmatrices, rows, root), eager,
+                                          device, bl),
+            lambda graphs: graphs.replay(bl))
+        setattr(_counters, how, getattr(_counters, how) + 1)
+        return logl
+
+
+# calls by path: captured (the call that captures runs eager on the capture
+# stream), replayed, and eager (not eligible, or before the capture); the
+# function holds them, and counts on itself under a wrapper that takes its
+# name in the module
+loglikelihood.graph_captures = 0
+loglikelihood.graph_replays = 0
+loglikelihood.eager_calls = 0
+_counters = loglikelihood
 
 
 def optimize_root_branch(program: TreeProgram, cfg: PartitionConfig,

@@ -42,7 +42,11 @@ def _real_site_mask(cfg: PartitionConfig):
 
 
 def _site_mask(cfg: PartitionConfig, device):
-    return torch.as_tensor(_real_site_mask(cfg), device=device)
+    """_real_site_mask made on `device`, not copied from the host, so that
+    a CUDA graph can hold it."""
+    start = int(site_columns(cfg)[0])
+    return torch.arange(start, start + cfg.sites_padded,
+                        device=device) < cfg.sites
 
 
 def all_reduce_sites(parts, group):
@@ -133,8 +137,8 @@ def _per_rate_undo(scaler_p, scaler_c, cfg: PartitionConfig, dtype):
     site_scalings = torch.min(total, dim=-2).values         # [..., T]
     rel = torch.clamp(total - site_scalings[..., None, :],
                       max=SCALE_RATE_MAXDIFF)
-    undo = torch.pow(torch.tensor(cfg.scale_threshold, dtype=dtype,
-                                  device=rel.device),
+    undo = torch.pow(torch.full((), cfg.scale_threshold, dtype=dtype,
+                                device=rel.device),
                      rel.to(dtype))                         # rel=0 -> 1
     return site_scalings, undo
 

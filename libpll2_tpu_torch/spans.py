@@ -31,6 +31,10 @@ A span given a `timings` dict adds its host seconds to
 timings[<the last part of its name>] on or off: the phases of
 search_fast.spr_round ("setup", "score", "select", "apply", "verify").
 
+Inside a `suppressed()` block every span is off, recording or not:
+engine.loglikelihood captures its CUDA graphs so, since an event recorded
+into a graph would be replayed outside its span.
+
 Spans nest by the order they open in, on one thread: the port drives a
 device from one host thread.  The profiler's trace carries the ranges, so
 nothing here exports them.
@@ -51,6 +55,7 @@ PREFIX = "libpll2."
 MAX_RECORDS = 1 << 16
 
 _forced = 0                       # depth of open recording() blocks
+_suppressed = 0                   # depth of open suppressed() blocks
 _records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
 _open: List["Record"] = []        # the spans open now, innermost last
 _ids = itertools.count(1)
@@ -148,7 +153,7 @@ class _Span:
 
 def span(name: str, timings: Optional[dict] = None):
     """A context manager around one layer's work (module docstring)."""
-    if not (_forced or _profiler._is_profiler_enabled):
+    if _suppressed or not (_forced or _profiler._is_profiler_enabled):
         return _OFF if timings is None else _Timed(name, timings)
     return _Span(name, timings)
 
@@ -162,6 +167,17 @@ def recording() -> Iterator[None]:
         yield
     finally:
         _forced -= 1
+
+
+@contextlib.contextmanager
+def suppressed() -> Iterator[None]:
+    """Record no span inside this block, whatever else asks for them."""
+    global _suppressed
+    _suppressed += 1
+    try:
+        yield
+    finally:
+        _suppressed -= 1
 
 
 def records() -> List[Record]:
