@@ -136,7 +136,7 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_sweep_launch.argtypes = [
         p, i,          # ops, n_ops
-        p, i, p,       # pmat, n_pmat, pg
+        p, p, i, p,    # pmat, p_base, n_pmat, pg
         p, i,          # tip_blocked, tips
         p, i, p,       # export_slots, n_exp, export_at
         p, p,          # clv_out, scal_out
@@ -152,7 +152,7 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     lib.tree_sweep_generic_staged.restype = ctypes.c_int
     lib.tree_sweep_mma_launch.argtypes = [
         p, i,          # ops, n_ops
-        p,             # pfrag
+        p, p,          # pfrag, p_base
         p, i,          # tip_blocked, tips
         p, i, p,       # export_slots, n_exp, export_at
         p, p,          # clv_out, scal_out

@@ -415,11 +415,14 @@ __host__ __device__ constexpr int ring_words(int lanes) {
 // (partials_tree.carry_flags).
 // export_slots: the f32 kernel copies these slots out after the sweep;
 // export_at [n_ops]: the export row of each op's parent, which the bf16
-// kernel writes out at the op.
+// kernel writes out at the op.  p_base [NT], or null for 0 everywhere: the
+// P-matrix that an op's index 0 names in each site block, so that the
+// blocks of one launch read the P-matrices of different partitions.
 template <int S, int RL, class T>
 __global__ void __launch_bounds__(Threads<RL>::MAX)
 tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
                   const float* __restrict__ pmat,
+                  const int* __restrict__ p_base,
                   const int* __restrict__ tip_blocked, int tips,
                   const int* __restrict__ export_slots, int n_exp,
                   const int* __restrict__ export_at,
@@ -457,6 +460,7 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
   // P-matrix m is p_stride floats after P-matrix 0; a lane reads its rate
   // block (a padding lane repeats the last rate)
   const int p_stride = R * S * S;
+  if (p_base != nullptr) pmat += (size_t)__ldg(p_base + blockIdx.x) * p_stride;
   const int r_p = min(r, R - 1);
   Export X;
   X.writes = r < R;
@@ -605,7 +609,8 @@ tree_sweep_kernel(const int4* __restrict__ ops, int n_ops,
 
 template <int S, int RL, class T>
 cudaError_t launch(Store<T>, const int* ops, int n_ops, const float* pmat,
-                   const int* tip_blocked, int tips, const int* export_slots,
+                   const int* p_base, const int* tip_blocked, int tips,
+                   const int* export_slots,
                    int n_exp, const int* export_at, float* clv_out,
                    int* scal_out, int nt, int tb, int rates, int lane_bits,
                    int pool_size, int per_rate, float thresh, float factor,
@@ -624,15 +629,16 @@ cudaError_t launch(Store<T>, const int* ops, int n_ops, const float* pmat,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tree_sweep_kernel<S, RL, T><<<nt, nth, smem, stream>>>(
-      reinterpret_cast<const int4*>(ops), n_ops, pmat, tip_blocked, tips,
-      export_slots, n_exp, export_at, clv_out, scal_out, rates, lane_bits,
+      reinterpret_cast<const int4*>(ops), n_ops, pmat, p_base, tip_blocked,
+      tips, export_slots, n_exp, export_at, clv_out, scal_out, rates, lane_bits,
       pool_size, per_rate, thresh, factor);
   return cudaGetLastError();
 }
 
 template <int S, class T>
 cudaError_t launch_rates(Store<T> store, const int* ops, int n_ops,
-                         const float* pmat, const int* tip_blocked, int tips,
+                         const float* pmat, const int* p_base,
+                         const int* tip_blocked, int tips,
                          const int* export_slots, int n_exp,
                          const int* export_at, float* clv_out, int* scal_out,
                          int nt, int tb, int rates, int pool_size,
@@ -641,7 +647,7 @@ cudaError_t launch_rates(Store<T> store, const int* ops, int n_ops,
   int lane_bits = 0;
   while ((1 << lane_bits) < rates) ++lane_bits;
 #define TREE_SWEEP_ARGS                                                      \
-  store, ops, n_ops, pmat, tip_blocked, tips, export_slots, n_exp,           \
+  store, ops, n_ops, pmat, p_base, tip_blocked, tips, export_slots, n_exp,   \
       export_at, clv_out, scal_out, nt, tb, rates, lane_bits, pool_size,     \
       per_rate, thresh, factor, stream
   switch (rates) {
@@ -657,7 +663,8 @@ cudaError_t launch_rates(Store<T> store, const int* ops, int n_ops,
 // the generic-state form (csrc/tree_sweep_generic.cu).
 template <class T>
 cudaError_t launch_states(Store<T> store, const int* ops, int n_ops,
-                          const float* pmat, const int* tip_blocked, int tips,
+                          const float* pmat, const int* p_base,
+                          const int* tip_blocked, int tips,
                           const int* export_slots, int n_exp,
                           const int* export_at, float* clv_out,
                           int* scal_out, int nt, int tb, int rates,
@@ -665,8 +672,8 @@ cudaError_t launch_states(Store<T> store, const int* ops, int n_ops,
                           float thresh, float factor, cudaStream_t s) {
 #define TREE_SWEEP_CASE(S_)                                                  \
   case S_:                                                                   \
-    return launch_rates<S_>(store, ops, n_ops, pmat, tip_blocked, tips,      \
-                            export_slots, n_exp, export_at, clv_out,         \
+    return launch_rates<S_>(store, ops, n_ops, pmat, p_base, tip_blocked,    \
+                            tips, export_slots, n_exp, export_at, clv_out,   \
                             scal_out, nt, tb, rates, pool_size, per_rate,    \
                             thresh, factor, s);
   switch (states) {
@@ -686,7 +693,8 @@ cudaError_t launch_states(Store<T> store, const int* ops, int n_ops,
 // The state counts without an instantiation here (csrc/tree_sweep_generic.cu,
 // built into the same library); arguments as tree_sweep_launch's.
 cudaError_t launch_generic_states(const int* ops, int n_ops,
-                                  const float* pmat, int n_pmat, float* pg,
+                                  const float* pmat, const int* p_base,
+                                  int n_pmat, float* pg,
                                   const int* tip_blocked, int tips,
                                   const int* export_slots, int n_exp,
                                   const int* export_at, float* clv_out,
@@ -700,9 +708,13 @@ extern "C" {
 // Launch the sweep on `stream`; returns the cudaError_t of the launch.
 // ops: [n_ops][8] int32, 16-byte aligned (partials_tree.fma_device_table).
 // pmat: f32 [n_pmat][rates][states][states], 16-byte aligned, whatever the
-// pool's type.  export_slots [n_exp]: the slots the f32 kernel copies out
-// after the sweep; export_at [n_ops]: the export row of each op (-1: none),
-// which the bf16 kernel writes out at the op (partials_tree.export_rows).
+// pool's type.  p_base [nt] int32, or null: the P-matrix of pmat that op
+// index 0 names in each site block (an op's index p reads p_base[block] +
+// p), so that one launch sweeps the site blocks of several partitions, each
+// with its own P-matrices (multipartition.py); null reads pmat as it is.
+// export_slots [n_exp]: the slots the f32 kernel copies out after the
+// sweep; export_at [n_ops]: the export row of each op (-1: none), which
+// the bf16 kernel writes out at the op (partials_tree.export_rows).
 // bf16: the pool's type, 0 f32 or 1 bf16.  rates <= 32.  States 2, 4, 10,
 // 16 and 20: tb * (rates rounded up to a power of two) / H threads (H = 2
 // sites a thread up to 4 states, else 1), a multiple of 32, at most 256
@@ -713,8 +725,9 @@ extern "C" {
 // 16-byte aligned.
 // The kernels allocate nothing and do not synchronise.
 int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
-                      int n_pmat, float* pg, const int* tip_blocked,
-                      int tips, const int* export_slots, int n_exp,
+                      const int* p_base, int n_pmat, float* pg,
+                      const int* tip_blocked, int tips,
+                      const int* export_slots, int n_exp,
                       const int* export_at, float* clv_out, int* scal_out,
                       int nt, int tb, int rates, int states, int pool_size,
                       int per_rate, int bf16, int groups, float thresh,
@@ -727,18 +740,18 @@ int tree_sweep_launch(const int* ops, int n_ops, const float* pmat,
   if (states != 2 && states != 4 && states != 10 && states != 16 &&
       states != 20)
     return (int)launch_generic_states(
-        ops, n_ops, pmat, n_pmat, pg, tip_blocked, tips, export_slots, n_exp,
-        export_at, clv_out, scal_out, nt, tb, rates, states, pool_size,
+        ops, n_ops, pmat, p_base, n_pmat, pg, tip_blocked, tips, export_slots,
+        n_exp, export_at, clv_out, scal_out, nt, tb, rates, states, pool_size,
         per_rate, bf16, groups, thresh, factor, s);
   if (bf16)
     return (int)launch_states(Store<__nv_bfloat16>{}, ops, n_ops, pmat,
-                              tip_blocked, tips, export_slots, n_exp,
+                              p_base, tip_blocked, tips, export_slots, n_exp,
                               export_at, clv_out, scal_out, nt, tb, rates,
                               states, pool_size, per_rate, thresh, factor, s);
-  return (int)launch_states(Store<float>{}, ops, n_ops, pmat, tip_blocked,
-                            tips, export_slots, n_exp, export_at, clv_out,
-                            scal_out, nt, tb, rates, states, pool_size,
-                            per_rate, thresh, factor, s);
+  return (int)launch_states(Store<float>{}, ops, n_ops, pmat, p_base,
+                            tip_blocked, tips, export_slots, n_exp,
+                            export_at, clv_out, scal_out, nt, tb, rates,
+                            states, pool_size, per_rate, thresh, factor, s);
 }
 
 // Dynamic shared memory a block may opt in to on `device`, in bytes.

@@ -292,11 +292,12 @@ __host__ __device__ constexpr int threads_of() {
 // of an op's two P-matrices [2][2][group_matrix_floats], then where a
 // per-site rescue spans warps (G * lanes > 32) one word a warp.  pg: the
 // P-matrices in the group layout (group_pmatrix_kernel).  ops,
-// export_slots and export_at as for tree_sweep.cu's kernels.
+// export_slots, export_at and p_base as for tree_sweep.cu's kernels.
 template <int SMAX, bool STAGED, class T>
 __global__ void __launch_bounds__(threads_of<SMAX>())
 tree_sweep_groups_kernel(const int4* __restrict__ ops, int n_ops,
                          const float* __restrict__ pg,
+                         const int* __restrict__ p_base,
                          const int* __restrict__ tip_blocked, int tips,
                          const int* __restrict__ export_slots, int n_exp,
                          const int* __restrict__ export_at,
@@ -315,6 +316,7 @@ tree_sweep_groups_kernel(const int4* __restrict__ ops, int n_ops,
   const int R = rates;
   const int RP = group_rows_padded(S, G), rows = (S + G - 1) / G;
   const int mat = group_matrix_floats(R, S, G);
+  if (p_base != nullptr) pg += (size_t)__ldg(p_base + blockIdx.x) * mat;
   const int sr_stride = per_rate ? cols : tb;
   const int sidx = per_rate ? col : s0;
   const int hs = per_rate ? hcol : hsite;
@@ -459,7 +461,8 @@ tree_sweep_groups_kernel(const int4* __restrict__ ops, int n_ops,
 
 template <int SMAX, bool STAGED, class T>
 cudaError_t launch_groups_kernel(const int* ops, int n_ops, const float* pg,
-                                 const int* tip_blocked, int tips,
+                                 const int* p_base, const int* tip_blocked,
+                                 int tips,
                                  const int* export_slots, int n_exp,
                                  const int* export_at, float* clv_out,
                                  int* scal_out, int nt, int nth, size_t smem,
@@ -472,8 +475,8 @@ cudaError_t launch_groups_kernel(const int* ops, int n_ops, const float* pg,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   tree_sweep_groups_kernel<SMAX, STAGED, T><<<nt, nth, smem, stream>>>(
-      reinterpret_cast<const int4*>(ops), n_ops, pg, tip_blocked, tips,
-      export_slots, n_exp, export_at, clv_out, scal_out, states, rates,
+      reinterpret_cast<const int4*>(ops), n_ops, pg, p_base, tip_blocked,
+      tips, export_slots, n_exp, export_at, clv_out, scal_out, states, rates,
       lane_bits, group_bits, pool_size, per_rate, thresh, factor);
   return cudaGetLastError();
 }
@@ -482,7 +485,8 @@ cudaError_t launch_groups_kernel(const int* ops, int n_ops, const float* pg,
 // (n_pmat * group_matrix_floats floats), then sweep.
 template <int SMAX, class T>
 cudaError_t launch_groups(Store<T>, const int* ops, int n_ops,
-                          const float* pmat, int n_pmat, float* pg,
+                          const float* pmat, const int* p_base, int n_pmat,
+                          float* pg,
                           const int* tip_blocked, int tips,
                           const int* export_slots, int n_exp,
                           const int* export_at, float* clv_out,
@@ -517,7 +521,7 @@ cudaError_t launch_groups(Store<T>, const int* ops, int n_ops,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 #define LIBPLL_GROUPS_ARGS                                                    \
-  ops, n_ops, pg, tip_blocked, tips, export_slots, n_exp, export_at,         \
+  ops, n_ops, pg, p_base, tip_blocked, tips, export_slots, n_exp, export_at, \
       clv_out, scal_out, nt, nth, smem, states, rates, lane_bits, group_bits, \
       pool_size, per_rate, thresh, factor, stream
   // up to 8 states an op's P-matrices always fit the staging
@@ -535,7 +539,8 @@ cudaError_t launch_groups(Store<T>, const int* ops, int n_ops,
 // tree_sweep_launch's.  tb * lanes * groups / H threads, a multiple of 32,
 // at most threads_of<SMAX>.
 cudaError_t launch_generic_states(const int* ops, int n_ops,
-                                  const float* pmat, int n_pmat, float* pg,
+                                  const float* pmat, const int* p_base,
+                                  int n_pmat, float* pg,
                                   const int* tip_blocked, int tips,
                                   const int* export_slots, int n_exp,
                                   const int* export_at, float* clv_out,
@@ -547,8 +552,8 @@ cudaError_t launch_generic_states(const int* ops, int n_ops,
       reinterpret_cast<uintptr_t>(pg) % 16)
     return cudaErrorInvalidValue;
 #define LIBPLL_GROUP_ARGS                                                     \
-  ops, n_ops, pmat, n_pmat, pg, tip_blocked, tips, export_slots, n_exp,      \
-      export_at, clv_out, scal_out, nt, tb, rates, states, groups,           \
+  ops, n_ops, pmat, p_base, n_pmat, pg, tip_blocked, tips, export_slots,     \
+      n_exp, export_at, clv_out, scal_out, nt, tb, rates, states, groups,    \
       pool_size, per_rate, thresh, factor, s
   if (bf16) {
     if (states <= 8)

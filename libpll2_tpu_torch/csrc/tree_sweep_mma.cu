@@ -461,11 +461,13 @@ __device__ __forceinline__ void general_op_bf16(
 // grid = NT site blocks, block = TB threads: warp w owns sites 32w..32w+31.
 // shared: pool [pool_size][TB/8][span][8] f32 or, BF16, [pool_size][TB/8]
 // [span/2][8] words of two rows; spool [pool_size][TB] i32.  export_at as
-// in tree_sweep.cu (read by the BF16 kernel only).
+// in tree_sweep.cu (read by the BF16 kernel only), and p_base: a site
+// block's P-matrices start p_base[block] slots into pfrag (null: 0).
 template <int S, int R, bool BF16>
 __global__ void __launch_bounds__(256)
 tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
                       const uint4* __restrict__ pfrag,
+                      const int* __restrict__ p_base,
                       const int* __restrict__ tip_blocked, int tips,
                       const int* __restrict__ export_slots, int n_exp,
                       const int* __restrict__ export_at,
@@ -474,6 +476,9 @@ tree_sweep_mma_kernel(const int4* __restrict__ ops, int n_ops,
   constexpr int SPAN = R * S, MT = SPAN / 16, KS = SPAN / 8;
   static_assert(SPAN % 16 == 0, "span must fill whole 16-row m-tiles");
   constexpr int NP = pair_index(S, KS, MT - 1, KS);
+  constexpr int NP16 = pair_index(S, SPAN / 16, MT - 1, SPAN / 16, 16);
+  if (p_base != nullptr)
+    pfrag += (size_t)__ldg(p_base + blockIdx.x) * (BF16 ? NP16 : NP * 2) * 32;
   extern __shared__ float smem[];
   const int tb = blockDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -847,11 +852,13 @@ __device__ __forceinline__ void op_tiles(
 // op_tiles says, TB * (span * item + 4) bytes a slot (item 4, or 2 at
 // BF16), the general kernel's footprint.  A parent is either stored or
 // handed on, never both (partials_tree.carry_flags).  export_at as in
-// tree_sweep.cu (read by the BF16 kernel only).
+// tree_sweep.cu (read by the BF16 kernel only).  p_base as for
+// tree_sweep_mma_kernel.
 template <int S, int R, bool BF16>
 __global__ void __launch_bounds__(256)
 tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
                             const PFrag<BF16>* __restrict__ pfrag,
+                            const int* __restrict__ p_base,
                             const int* __restrict__ tip_blocked, int tips,
                             const int* __restrict__ export_slots, int n_exp,
                             const int* __restrict__ export_at,
@@ -871,6 +878,8 @@ tree_sweep_mma_small_kernel(const int4* __restrict__ ops, int n_ops,
   // the tips at this lane's sites g (+ 8) of the warp's first tile
   const int* tip_col = tip_blocked + (size_t)blockIdx.x * tips * tb +
                        warp * M * M_SITES + g;
+  if (p_base != nullptr)
+    pfrag += (size_t)__ldg(p_base + blockIdx.x) * (BF16 ? 1 : NT) * 32;
   const PFrag<BF16>* pfrag_lane = pfrag + lane;
 
   float held[M][NT][4];   // the previous parent, as its accumulators left it
@@ -991,7 +1000,8 @@ __global__ void pmatrix_gather_kernel(const uint16_t* __restrict__ pmat,
 // item: bytes of a pool entry (4 f32, 2 bf16)
 template <class K, class F>
 cudaError_t launch(K kernel, int span, int item, const int* ops, int n_ops,
-                   const F* pfrag, const int* tip_blocked, int tips,
+                   const F* pfrag, const int* p_base, const int* tip_blocked,
+                   int tips,
                    const int* export_slots, int n_exp, const int* export_at,
                    float* clv_out, int* scal_out, int nt, int tb,
                    int pool_size, float thresh, float factor,
@@ -1001,9 +1011,9 @@ cudaError_t launch(K kernel, int span, int item, const int* ops, int n_ops,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<nt, tb, smem, stream>>>(
-      reinterpret_cast<const int4*>(ops), n_ops, pfrag, tip_blocked, tips,
-      export_slots, n_exp, export_at, clv_out, scal_out, pool_size, thresh,
-      factor);
+      reinterpret_cast<const int4*>(ops), n_ops, pfrag, p_base, tip_blocked,
+      tips, export_slots, n_exp, export_at, clv_out, scal_out, pool_size,
+      thresh, factor);
   return cudaGetLastError();
 }
 
@@ -1018,7 +1028,8 @@ extern "C" {
 //
 // tree_sweep_mma_launch: the tensor-core sweep on `stream`.  ops: [n_ops][12]
 // int32, 16-byte aligned (partials_tree.mma_device_table).  pfrag: the
-// output of tree_sweep_mma_fragments for this case.  export_slots [n_exp]
+// output of tree_sweep_mma_fragments for this case; p_base [nt] int32 or
+// null, as tree_sweep_launch's (in slots of pfrag).  export_slots [n_exp]
 // (copied out after the sweep, f32) and export_at [n_ops] (each op's export
 // row, -1: none; written out at the op, bf16) as in tree_sweep.cu.  bf16:
 // the pool's type, 0 f32 or 1 bf16.  tb is a multiple of 32 up to 256.
@@ -1046,7 +1057,7 @@ int tree_sweep_mma_fragments(const void* pmat, const int* idx, void* pfrag,
 }
 
 int tree_sweep_mma_launch(const int* ops, int n_ops, const void* pfrag,
-                          const int* tip_blocked, int tips,
+                          const int* p_base, const int* tip_blocked, int tips,
                           const int* export_slots, int n_exp,
                           const int* export_at, float* clv_out, int* scal_out,
                           int nt, int tb, int rates, int states,
@@ -1058,7 +1069,7 @@ int tree_sweep_mma_launch(const int* ops, int n_ops, const void* pfrag,
       reinterpret_cast<uintptr_t>(pfrag) % 16)
     return (int)cudaErrorInvalidValue;
 #define TREE_SWEEP_MMA_ARGS                                                  \
-  ops, n_ops, static_cast<const PF*>(pfrag), tip_blocked, tips,              \
+  ops, n_ops, static_cast<const PF*>(pfrag), p_base, tip_blocked, tips,      \
       export_slots, n_exp, export_at, clv_out, scal_out, nt, tb, pool_size,  \
       thresh, factor, s
   if (states == 4 && rates == 4) {

@@ -726,6 +726,25 @@ def _edge_rows(program: FullTreeProgram, device) -> torch.Tensor:
                            device=device)
 
 
+def _finite_or_start(cfg: PartitionConfig, model: Model, evals, sumtables,
+                     start, end, invariant, pattern_weights):
+    """`end` [n] where each edge's logL there, a function of its own length
+    from its sumtable, is finite, else `start`.  At f32 a Newton step from
+    far above an edge's optimum can overshoot to min_branch, where the
+    sumtable's terms cancel: the edge's logL and (d1, d2) are NaN there,
+    and the steps end NaN, or, held or halved and doubled, just above it
+    (1.6e-7 from an optimum near 0.5).  Such an edge keeps its start
+    length.  At f64 the logL stays finite there, and every edge keeps its
+    end."""
+    scalings = torch.zeros(sumtables.shape[-1], dtype=torch.int32,
+                           device=sumtables.device)
+    logl = derivatives_ops.sumtable_loglikelihood(
+        sumtables, end, model.rates, evals, model.cat_pinv,
+        model.rate_weights, model.cat_freqs, invariant, pattern_weights,
+        scalings, cfg)
+    return torch.where(torch.isfinite(logl), end, start.to(end.dtype))
+
+
 def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
                             model: Model, branch_lengths, tipchars,
                             pattern_weights, invariant, rounds: int = 3,
@@ -736,9 +755,11 @@ def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
     Per round and per colour class of the proper edge colouring (all
     program.n_colors of them): one message sweep, then `newton_iters`
     guarded Newton steps from analytic (d1, d2) on that class's branches
-    (no two share a node, so each sees up-to-date CLVs).  The JAX package
-    computes a proposal for every branch and keeps the class's; this
-    computes only the class's, with the same values.
+    (no two share a node, so each sees up-to-date CLVs); a branch whose
+    logL is not finite where its steps end keeps its start length
+    (_finite_or_start: f32 only).  The JAX package computes a proposal for
+    every branch and keeps the class's; this computes only the class's,
+    with the same values.
 
     Returns (optimized_branch_lengths, logl_after)."""
     device = tipchars.device
@@ -755,17 +776,20 @@ def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
             for chunk in _edge_chunks(program, cfg, members):
                 st = _edge_sumtables(program, cfg, model, clv, scalers,
                                      edge_rows[chunk])
-                t = bl[chunk]
+                start = bl[chunk]
+                t = start
                 for _ in range(newton_iters):
                     d1, d2 = derivatives_ops.likelihood_derivatives(
                         st, t, model.rates, evals, model.cat_pinv,
                         model.rate_weights, model.cat_freqs, invariant,
                         pattern_weights, cfg)
                     # the JAX step has no non-finite guard; keep its
-                    # semantics
+                    # semantics (a NaN length ends at its start below)
                     t = derivatives_ops.newton_update(
                         t, d1, d2, min_branch, max_branch,
                         hold_nonfinite=False)
+                t = _finite_or_start(cfg, model, evals, st, start, t,
+                                     invariant, pattern_weights)
                 bl[chunk] = t.to(bl.dtype)
 
     # final logL across the root edge with the optimized lengths

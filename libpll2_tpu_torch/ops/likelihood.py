@@ -65,26 +65,36 @@ def all_reduce_sites(parts, group):
 def _asc_parts(term, site_scalings, pattern_weights, cfg: PartitionConfig,
                dtype):
     """The site sums the asc-bias correction is a function of, over the
-    columns `cfg` holds: Stamatakis [the correction itself]; Lewis [base,
-    sum of the real sites' weights]; Felsenstein [base, sum of the phantom
-    sites' weights]."""
+    columns `cfg` holds (_asc_sums)."""
     ph = phantom_columns(cfg)
+
+    def real_weight():
+        real = _site_mask(cfg, pattern_weights.device)
+        return torch.sum(torch.where(real, pattern_weights, 0.0).to(dtype))
+
+    return _asc_sums(term[..., ph], site_scalings[..., ph].to(dtype),
+                     pattern_weights[ph].to(dtype),
+                     lambda x: torch.sum(x, dim=-1), real_weight, cfg)
+
+
+def _asc_sums(term, scalings, weights, total, real_weight,
+              cfg: PartitionConfig):
+    """The parts of _asc_finish: Stamatakis [the correction itself]; Lewis
+    [base, sum of the real sites' weights]; Felsenstein [base, sum of the
+    phantom sites' weights].  `term`, `scalings` and `weights` are the
+    phantom per-state columns' pre-log likelihoods, scaler counts and
+    weights, `total` sums them over the phantom columns of each logL, and
+    `real_weight()` gives the real sites' weights summed."""
     log_thresh = cfg.log_scale_threshold
-    t_ph = term[..., ph]
-    sc_ph = site_scalings[..., ph].to(dtype)
-    w_ph = pattern_weights[ph].to(dtype)
     if cfg.asc_bias == AB_STAMATAKIS:
         # the reference adds the scaler correction unweighted
         # (likelihood.c:97-101)
-        return [torch.sum(w_ph * torch.log(t_ph) + sc_ph * log_thresh,
-                          dim=-1)]
-    base = torch.sum(t_ph * torch.exp(sc_ph * log_thresh), dim=-1)
+        return [total(weights * torch.log(term) + scalings * log_thresh)]
+    base = total(term * torch.exp(scalings * log_thresh))
     if cfg.asc_bias == AB_LEWIS:
-        real = _site_mask(cfg, pattern_weights.device)
-        return [base, torch.sum(torch.where(real, pattern_weights,
-                                            0.0).to(dtype))]
+        return [base, real_weight()]
     if cfg.asc_bias == AB_FELSENSTEIN:
-        return [base, torch.sum(w_ph)]
+        return [base, total(weights)]
     raise ValueError(f"illegal asc bias type {cfg.asc_bias}")
 
 
@@ -146,12 +156,35 @@ def _per_rate_undo(scaler_p, scaler_c, cfg: PartitionConfig, dtype):
 def _invariant_site_lk(freqs, invariant):
     """pi[inv_state] per (rate, site); 0 where the site is variant.
 
-    freqs: [R, S]; invariant: [T] int (-1 = variant).
+    freqs: [..., R, S]; invariant: [..., T] int (-1 = variant); leading
+    axes are batch axes (one set of frequencies each).
     """
-    idx = torch.clamp(invariant, min=0).long()              # [T]
-    vals = freqs[:, idx]                                    # [R, T]
-    return torch.where(invariant[None, :] >= 0, vals,
+    idx = torch.clamp(invariant, min=0).long()[..., None, :]   # [..., 1, T]
+    vals = torch.gather(freqs, -1, idx.expand(
+        *freqs.shape[:-1], idx.shape[-1]))                     # [..., R, T]
+    return torch.where(invariant[..., None, :] >= 0, vals,
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def _edge_terms(terma_r, scaler_p, scaler_c, inv_lk, prop_invar,
+                rate_weights, cfg: PartitionConfig):
+    """(terma, terminv, site_scalings) [..., T] of the edge terms terma_r
+    [..., R, T]: the scaler undo, the variant part weighted by (1 - p) and
+    the rate weights, the invariant part (inv_lk [..., R, T]) by p and the
+    rate weights apart, and the sites' scaler counts.  prop_invar and
+    rate_weights are [R] or, per batch entry, [..., R]."""
+    dtype = terma_r.dtype
+    if cfg.per_rate_scalers:
+        site_scalings, undo = _per_rate_undo(scaler_p, scaler_c, cfg, dtype)
+        terma_r = terma_r * undo
+    else:
+        site_scalings = scaler_p + scaler_c
+    pinv = prop_invar.to(dtype)
+    rw = rate_weights.to(dtype)
+    terma = torch.einsum("...rt,...r->...t",
+                         terma_r * (1.0 - pinv)[..., None], rw)
+    terminv = torch.einsum("...rt,...r->...t", inv_lk * pinv[..., None], rw)
+    return terma, terminv, site_scalings
 
 
 def root_loglikelihood(clv,              # [..., R, S, T]
@@ -252,30 +285,33 @@ def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
     the edges of the analytic reverse pass.  `group`: as in
     edge_loglikelihood."""
     dtype = terma_r.dtype
-    if cfg.per_rate_scalers:
-        site_scalings, undo = _per_rate_undo(scaler_p, scaler_c, cfg, dtype)
-        terma_r = terma_r * undo
-    else:
-        site_scalings = scaler_p + scaler_c                       # [T]
-
-    pinv = prop_invar.to(dtype)
-    rw = rate_weights.to(dtype)
     inv_lk = _invariant_site_lk(freqs.to(dtype), invariant)       # [R, T]
-
-    # variant part gets (1-p); invariant part accumulates separately
-    terma = torch.einsum("...rt,r->...t", terma_r * (1.0 - pinv)[:, None],
-                         rw)
-    terminv = torch.einsum("rt,r->t", inv_lk * pinv[:, None], rw)
-
-    # site log-likelihood; three cases (core_likelihood.c:1462-1481)
-    log_thresh = cfg.log_scale_threshold
-    scal = site_scalings.to(dtype)
-    capped = torch.clamp(site_scalings, max=SCALE_RATE_MAXDIFF).to(dtype)
-    cap_factor = torch.exp(capped * log_thresh)     # thresh^capped
+    terma, terminv, site_scalings = _edge_terms(
+        terma_r, scaler_p, scaler_c, inv_lk, prop_invar, rate_weights, cfg)
 
     live = pattern_weights > 0
     if cfg.asc_bias != AB_NONE:
         live = live & _site_mask(cfg, live.device)
+    site_lk = _site_logl(terma, terminv, site_scalings, live,
+                         pattern_weights, cfg, dtype)
+    # pinv is disallowed with asc bias, so terma+terminv == raw term
+    term = terma + terminv if cfg.asc_bias != AB_NONE else None
+    logl = _reduce_logl(torch.sum(site_lk, dim=-1), term, site_scalings,
+                        pattern_weights, cfg, dtype, group)
+    if with_persite:
+        return logl, site_lk
+    return logl
+
+
+def _site_logl(terma, terminv, site_scalings, live, pattern_weights,
+               cfg: PartitionConfig, dtype):
+    """Weighted per-site logL from the variant and invariant edge terms
+    and the per-site scaler counts, 0 where `live` is False; three cases
+    (core_likelihood.c:1462-1481)."""
+    log_thresh = cfg.log_scale_threshold
+    scal = site_scalings.to(dtype)
+    capped = torch.clamp(site_scalings, max=SCALE_RATE_MAXDIFF).to(dtype)
+    cap_factor = torch.exp(capped * log_thresh)     # thresh^capped
     has_scal = site_scalings > 0
     has_inv = terminv > 0.0
 
@@ -295,16 +331,78 @@ def edge_reduce(terma_r,          # [..., R, T] pre-log edge terms
                     torch.log(scaled_inv),
                     torch.log(scaled_plain) + scal * log_thresh),
         torch.log(plain))
+    return torch.where(live, site_lk * pattern_weights.to(dtype),
+                       torch.zeros_like(site_lk))
 
-    site_lk = torch.where(live, site_lk * pattern_weights.to(dtype),
-                          torch.zeros_like(site_lk))
-    # pinv is disallowed with asc bias, so terma+terminv == raw term
-    term = terma + terminv if cfg.asc_bias != AB_NONE else None
-    logl = _reduce_logl(torch.sum(site_lk, dim=-1), term, site_scalings,
-                        pattern_weights, cfg, dtype, group)
-    if with_persite:
-        return logl, site_lk
-    return logl
+
+def segment_sums(values, segment_blocks):
+    """Sums of `values` [N] over each row of segment_blocks [n, B] (block
+    indices, N where a segment has fewer than B blocks): [n], in the order
+    of the rows, with no atomics, so the same on every run."""
+    padded = torch.cat([values, values.new_zeros(1)])
+    return padded[segment_blocks].sum(dim=1)
+
+
+def edge_loglikelihood_blocks(clvp,            # [N, R, S, TB] parent CLV
+                              scaler_p,        # [N, TB] or [N, R, TB]
+                              clvc,            # [N, R, S, TB] child CLV
+                              scaler_c,        # [N, TB] or [N, R, TB]
+                              pmat,            # [n, R, S, S]
+                              freqs,           # [n, R, S]
+                              rate_weights,    # [n, R]
+                              prop_invar,      # [n, R]
+                              invariant,       # [N, TB] int
+                              pattern_weights,  # [N, TB]
+                              block_segment,   # [N] int64
+                              segment_blocks,  # [n, B] int64
+                              cfg: PartitionConfig,
+                              real=None,       # [N, TB] bool
+                              phantom=None):   # [N, TB] bool
+    """edge_loglikelihood of n segments at once, each with its own edge
+    P-matrix, frequencies, rate weights and p-inv: the site axis cut into
+    N blocks of TB columns, block i of segment block_segment[i], and
+    segment_blocks its inverse (segment_sums).  Segments are partitions
+    that share the states, rate categories, dtype, scaler mode and
+    asc-bias mode of `cfg` (multipartition.py).  Under asc bias `real` and
+    `phantom` mark each block's real and phantom columns, and each segment
+    gets the correction of its own phantom columns.  Returns [n] f64: the
+    weighted site sums, summed in f64, plus each segment's correction."""
+    with spans.span("root"):
+        dtype = _acc_dtype(clvp)
+        seg = block_segment
+        termb = torch.einsum("nrjk,nrkt->nrjt", pmat.to(dtype)[seg],
+                             clvc.to(dtype))
+        fq = freqs.to(dtype)[seg]                                 # [N, R, S]
+        terma_r = torch.einsum("nrjt,nrj,nrjt->nrt", clvp.to(dtype), fq,
+                               termb)                             # [N, R, TB]
+        inv_lk = _invariant_site_lk(fq, invariant)                # [N, R, TB]
+        terma, terminv, site_scalings = _edge_terms(
+            terma_r, scaler_p, scaler_c, inv_lk, prop_invar.to(dtype)[seg],
+            rate_weights.to(dtype)[seg], cfg)
+
+        asc = cfg.asc_bias != AB_NONE
+        live = pattern_weights > 0
+        if asc:
+            live = live & real
+        site_lk = _site_logl(terma, terminv, site_scalings, live,
+                             pattern_weights, cfg, dtype)
+        logl = segment_sums(site_lk.double().sum(dim=-1), segment_blocks)
+        if not asc:
+            return logl
+
+        def total(x):                  # [N, TB], over phantom columns
+            x = torch.where(phantom, x.double(), 0.0)
+            return segment_sums(x.sum(dim=-1), segment_blocks)
+
+        def real_weight():
+            w = torch.where(real, pattern_weights.double(), 0.0)
+            return segment_sums(w.sum(dim=-1), segment_blocks)
+
+        # pinv is disallowed with asc bias, so terma + terminv is the term
+        term = torch.where(phantom, terma + terminv, 1.0)
+        parts = _asc_sums(term, site_scalings.to(dtype),
+                          pattern_weights.to(dtype), total, real_weight, cfg)
+        return logl + _asc_finish(parts, cfg)
 
 
 def node_ancestral(clv_node,         # [R, S, T] CLV toward the edge

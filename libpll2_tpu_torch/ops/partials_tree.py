@@ -836,7 +836,7 @@ def pmatrix_fragments(pmatrix, cfg: PartitionConfig):
     return out
 
 
-def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb):
+def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb, p_base=None):
     nt, tips, tb_in = tip_blocked.shape
     if tb_in != tb or nt * tb != cfg.sites_padded or tips != cfg.tips:
         raise ValueError(
@@ -850,14 +850,22 @@ def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb):
                          f"{S}, {S}]")
     if int(prog.ops[:, [7, 8]].max()) >= pmatrix.shape[0]:
         raise ValueError("the schedule reads a P-matrix beyond the buffer")
+    if p_base is not None and (
+            tuple(p_base.shape) != (nt,) or p_base.dtype != torch.int32
+            or p_base.device != tip_blocked.device):
+        raise ValueError(f"p_base must be [{nt}] int32 on "
+                         f"{tip_blocked.device}, got {tuple(p_base.shape)} "
+                         f"{p_base.dtype} on {p_base.device}")
 
 
 def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
-                    cfg: PartitionConfig, tb: int, carry: bool = False):
+                    cfg: PartitionConfig, tb: int, carry: bool = False,
+                    p_base=None):
     """Plain PyTorch version of the tree sweep (same contract as sweep()).
 
     A Python loop over the schedule rows, each row one einsum per child
-    over all site blocks at once.  carry=True honours `carry_flags` as the
+    over all site blocks at once (with `p_base`, each block's P-matrices
+    gathered first).  carry=True honours `carry_flags` as the
     kernels do: a carried child is taken from the value the previous
     op handed on, not from its pool slot, and a parent whose store is
     dropped never reaches the pool.  The pool holds pmatrix.dtype; at bf16
@@ -866,13 +874,20 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
     it is stored or handed on.  Returns (clv_rows [E, NT, R, S, TB] in the
     arithmetic's type, the parents unrounded; scaler_rows [E, NT, SR, TB]
     int32) in prog.exports order."""
-    _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
+    _check_inputs(tip_blocked, pmatrix, prog, cfg, tb, p_base)
     nt = tip_blocked.shape[0]
     R, S = cfg.rate_cats, cfg.states
     sr = _scaler_rows(cfg)
     dev, dtype = tip_blocked.device, pmatrix.dtype
     acc = torch.float32 if dtype == torch.bfloat16 else dtype
     pm = pmatrix.to(acc)
+    base = None if p_base is None else p_base.long()
+
+    def propagate(index, clv):          # P . child, [NT, R, S, TB]
+        if base is None:
+            return torch.einsum("rij,nrjt->nrit", pm[index], clv)
+        return torch.einsum("nrij,nrjt->nrit", pm[base + index], clv)
+
     pool = torch.zeros((prog.pool_size, nt, R, S, tb), dtype=dtype,
                        device=dev)
     spool = torch.zeros((prog.pool_size, nt, sr, tb), dtype=torch.int32,
@@ -895,8 +910,8 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
             in zip(prog.ops.tolist(), flags, exports):
         c1, sc1 = child(t1, s1, f1, took == 1)
         c2, sc2 = child(t2, s2, f2, took == 2)
-        left = torch.einsum("rij,nrjt->nrit", pm[pm1], c1)
-        right = torch.einsum("rij,nrjt->nrit", pm[pm2], c2)
+        left = propagate(pm1, c1)
+        right = propagate(pm2, c2)
         parent = left * right                                 # [NT,R,S,TB]
         below = parent < cfg.scale_threshold
         if cfg.per_rate_scalers:
@@ -918,7 +933,8 @@ def sweep_reference(tip_blocked, pmatrix, prog: TreeVmemProgram,
 
 
 def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
-          tb: int, mode: Optional[str] = None, carry: bool = True):
+          tb: int, mode: Optional[str] = None, carry: bool = True,
+          p_base=None):
     """Run the tree sweep: a CUDA kernel on CUDA tensors, the plain
     version (sweep_reference) on CPU tensors, an error on anything else.
 
@@ -936,6 +952,12 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
                  form's general kernel (span 80) and the "fma" form's
                  generic instantiation (csrc/tree_sweep_generic.cu) store
                  every parent.
+    p_base:      None, or [NT] int32 on the inputs' device: the P-matrix that
+                 the schedule's index 0 names in each site block (its index
+                 p reads pmatrix[p_base[block] + p]), so that one launch
+                 sweeps the blocks of several partitions, each at its own
+                 P-matrices (multipartition.py).  Its values are the
+                 caller's to keep inside the buffer.
     Returns (clv_rows [E, NT, R, S, TB] f32, scaler_rows [E, NT, SR, TB]
     int32) for the E exported rows, SR = R under per-rate scalers else 1.
     At bf16 the rows are the f32 parents before their rounding to the
@@ -943,19 +965,19 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     """
     with spans.span("sweep"):
         return _run_sweep(tip_blocked, pmatrix, prog, cfg, tb, mode,
-                          carry)
+                          carry, p_base)
 
 
 def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
                cfg: PartitionConfig, tb: int, mode: Optional[str],
-               carry: bool):
+               carry: bool, p_base=None):
     """sweep's work, inside its span."""
     mode = "fma" if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")
     if tip_blocked.device.type == "cpu" and pmatrix.device.type == "cpu":
         return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb,
-                               carry=carry)
+                               carry=carry, p_base=p_base)
     if tip_blocked.device.type != "cuda" or pmatrix.device != \
             tip_blocked.device:
         raise ValueError(
@@ -968,7 +990,7 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
     reason = unsupported(prog, cfg, limit, mode)
     if reason is not None:
         raise ValueError(f"tree sweep kernel cannot take this case: {reason}")
-    _check_inputs(tip_blocked, pmatrix, prog, cfg, tb)
+    _check_inputs(tip_blocked, pmatrix, prog, cfg, tb, p_base)
     if tb not in site_blocks(cfg, mode):
         raise ValueError(f"site block {tb} not in {site_blocks(cfg, mode)}")
     if smem_bytes(prog, cfg, tb, mode) > limit:
@@ -998,12 +1020,13 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
     scal_rows = torch.empty((n_exp, nt, sr, tb), dtype=torch.int32,
                             device=device)
     lib = _build.library()
+    base = None if p_base is None else p_base.data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if mode == "mma":
             pfrag = pmatrix_fragments(pmatrix, cfg)
             err = lib.tree_sweep_mma_launch(
-                ops_dev.data_ptr(), prog.n_ops, pfrag.data_ptr(),
+                ops_dev.data_ptr(), prog.n_ops, pfrag.data_ptr(), base,
                 tip_blocked.data_ptr(), cfg.tips, slots_dev.data_ptr(),
                 n_exp, export_dev.data_ptr(), clv_rows.data_ptr(),
                 scal_rows.data_ptr(), nt, tb, R, S, prog.pool_size,
@@ -1019,7 +1042,7 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
                              dtype=torch.float32, device=device) \
                 if groups else pmat
             err = lib.tree_sweep_launch(
-                ops_dev.data_ptr(), prog.n_ops, pmat.data_ptr(),
+                ops_dev.data_ptr(), prog.n_ops, pmat.data_ptr(), base,
                 pmat.shape[0], pg.data_ptr(), tip_blocked.data_ptr(),
                 cfg.tips, slots_dev.data_ptr(), n_exp,
                 export_dev.data_ptr(), clv_rows.data_ptr(),

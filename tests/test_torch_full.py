@@ -157,6 +157,24 @@ def test_optimize_branch_lengths_smooths_five_colours():
     np.testing.assert_allclose(logl.item(), float(jlogl), rtol=1e-9)
 
 
+def test_smoothing_keeps_the_start_where_the_logl_is_not_finite():
+    """Where f32 Newton steps end at a length at which an edge's sumtable
+    terms cancel (its logL NaN, as at min_branch after an overshoot), the
+    edge keeps its start length; an end with a finite logL is kept."""
+    spec = dict(CASES["random24"])
+    newick = spec.pop("newick")()
+    _, (_, cfg, model, _, _, pw, inv) = both(newick, 64, 1, "f32")
+    R, S, T = cfg.rate_cats, cfg.states, cfg.sites_padded
+    # L(t) = 1e-3 - 1.5e-3 exp(-k t) at every site and rate: < 0 near 0
+    st = torch.zeros((2, R, S, T), dtype=torch.float32)
+    st[:, :, 0], st[:, :, 1] = 1e-3, -1.5e-3
+    evals = torch.tensor([0.0, -1.0, -1.0, -1.0]).expand(R, S)
+    got = engine._finite_or_start(cfg, model, evals, st,
+                                  torch.tensor([0.5, 0.5]),
+                                  torch.tensor([1e-8, 30.0]), inv, pw)
+    assert got.tolist() == [0.5, 30.0]
+
+
 @pytest.mark.parametrize("case", ALL_EDGE_CASES)
 def test_score_placements_f64(case):
     """A tip CLV with zero scalers regrafted onto every edge, priced by
