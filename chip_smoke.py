@@ -153,7 +153,16 @@ Phases (any failure exits non-zero):
      multipartition.loglikelihood on two partitions at 256 taxa (one plain
      sweep of both), each on the plain path, equal to the explicit
      use_kernel=False call, warned, and with
-     no tree-sweep launch (`[default]` lines).
+     no tree-sweep launch (`[default]` lines);
+ 30. the message-sweep kernel (csrc/message_sweep.cu) against its plain
+     version at dna_smooth's message program (256 x 4,096 DNA, 762 ops)
+     and at LG 128 x 16,384: rows and scalers, one launch a sweep, times
+     back to back and single beside the plain version's, the dense
+     path's and the byte bounds (least bytes, and with every op's reads
+     of its children); then the main path, optimize_branch_lengths at
+     the DNA shape, on the kernel against the dense path, its kernel
+     launches counted from 0 (the kernels line's count; `[message]`
+     lines).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -301,7 +310,7 @@ def cuda_ms_back_to_back(fn, n: int) -> float:
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0 (just before a path
     is driven)."""
-    from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.ops import edge_score, message_sweep, partials_tree
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     partials_tree.sweep.launches = 0
@@ -320,6 +329,7 @@ def reset_counts() -> None:
     cache.scale_shift.launches = 0
     constructs.constructs.launches = 0
     constructs.static2.launches = 0
+    message_sweep.sweep_messages.launches = 0
 
 
 def read_counts() -> dict:
@@ -327,7 +337,7 @@ def read_counts() -> dict:
     generic-state forms' launches are also within "tree_sweep" and
     "edge_score", the bf16 forms' within "tree_sweep" and
     "tree_sweep_mma"."""
-    from libpll2_tpu_torch.ops import edge_score, partials_tree
+    from libpll2_tpu_torch.ops import edge_score, message_sweep, partials_tree
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     by_mode = partials_tree.sweep.launches_by_mode
@@ -340,7 +350,8 @@ def read_counts() -> dict:
             "mma_probe": probe.chain.launches,
             "cache_probe": cache.scale_shift.launches,
             "construct_probe": constructs.static2.launches,
-            "construct_probe_c0_c4": constructs.constructs.launches}
+            "construct_probe_c0_c4": constructs.constructs.launches,
+            "message_sweep": message_sweep.sweep_messages.launches}
 
 
 def phase_device():
@@ -1350,8 +1361,8 @@ def phase_protein(device, card):
 
 
 def phase_all_edge(device, card):
-    """The all-edge entry points (dense message sweep; no kernel of their
-    own) on the search inputs."""
+    """The all-edge entry points (their message sweeps on the
+    message-sweep kernel) on the search inputs."""
     import torch
 
     from libpll2_tpu_torch import engine
@@ -3895,6 +3906,213 @@ def phase_bf16_path(device, card):
     return totals, timed, generic_times
 
 
+MSG_TIPS, MSG_SITES = 256, 4096       # dna_smooth's message program
+MSG_PROTEIN_TIPS, MSG_PROTEIN_SITES = 128, 16384
+MSG_REPS = 50                          # kernel launches back to back
+
+
+def message_inputs(newick, sites, seed, device, states=4, rates=4,
+                   per_rate=False, bl_scale=1.0, dtype=None,
+                   use_kernel=None):
+    """(cfg, full, model, bl, tipchars, pmatrix) of one message sweep: the
+    FullTreeProgram of `newick`, a model drawn from the seed (random
+    exchangeabilities and frequencies, Gamma 0.8), random single-state
+    tips, the program's lengths x bl_scale and their P-matrix buffer (as
+    engine._sweep_all makes it)."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch import tree as T
+    from libpll2_tpu_torch.config import PartitionConfig
+    from libpll2_tpu_torch.models.gamma import compute_gamma_cats
+    from libpll2_tpu_torch.ops import pmatrix as pmatrix_ops
+    from libpll2_tpu_torch.tree.generate import random_tipchars
+
+    dtype = dtype or torch.float32
+    tree = T.parse_newick_string(newick)
+    n = tree.tip_count
+    cfg = PartitionConfig(
+        tips=n, clv_buffers=tree.inner_count, states=states, sites=sites,
+        rate_matrices=1, prob_matrices=2 * n - 3, rate_cats=rates,
+        scale_buffers=tree.inner_count, per_rate_scalers=per_rate,
+        dtype=dtype, use_kernel=use_kernel)
+    full = engine.compile_tree_full(tree, cfg)
+    rng = np.random.default_rng(seed)
+    subst = rng.uniform(0.2, 3.0, states * (states - 1) // 2)
+    freqs = rng.dirichlet(np.full(states, 5.0))
+    model = engine.make_model([subst], [freqs],
+                              compute_gamma_cats(0.8, rates), dtype=dtype,
+                              device=device)
+    tipchars = torch.as_tensor(engine.pad_tipchars(
+        random_tipchars(n, sites, rng, states=states), cfg), device=device)
+    bl = torch.as_tensor(full.default_branch_lengths * bl_scale,
+                         dtype=dtype, device=device)
+    pmats = pmatrix_ops.compute_pmatrices(
+        bl, model.eigenvals, model.eigenvecs, model.inv_eigenvecs,
+        model.rates, model.prop_invar, model.params_indices, dtype=dtype)
+    pmatrix = torch.zeros((int(full.pmatrix_indices.max()) + 1,)
+                          + pmats.shape[1:], dtype=dtype, device=device)
+    pmatrix[torch.as_tensor(full.pmatrix_indices, dtype=torch.int64,
+                            device=device)] = pmats
+    return cfg, full, model, bl, tipchars, pmatrix
+
+
+def compare_messages(got, want, got_s, want_s, cfg_ext):
+    """Kernel vs plain message sweep: (max rel err of the message rows,
+    scaling-compensated in f64 as compare_rows does, scaler mismatches,
+    whether the tip rows and the reserved rows are equal)."""
+    import torch
+    t, n = cfg_ext.tips, cfg_ext.clv_buffers
+    g, w = got[t:t + n].double(), want[t:t + n].double()
+    gs, ws = got_s[:n].double(), want_s[:n].double()
+    # scaler rows [n, T] or per-rate [n, R, T] -> per entry [n, R|1, 1, T]
+    gs = gs[:, None, None] if gs.dim() == 2 else gs[:, :, None]
+    ws = ws[:, None, None] if ws.dim() == 2 else ws[:, :, None]
+    gc = g * torch.exp2(-SCALE_BITS * gs)
+    wc = w * torch.exp2(-SCALE_BITS * ws)
+    rel = ((gc - wc).abs() / wc.abs().clamp_min(1e-300)).max().item()
+    mismatches = int((got_s[:n] != want_s[:n]).sum().item())
+    reserved = (bool(torch.equal(got[:t], want[:t]))
+                and bool((got[cfg_ext.clv_scratch] == 0).all())
+                and bool((got_s[cfg_ext.scaler_zero:] == 0).all()))
+    return rel, mismatches, reserved
+
+
+def phase_message_sweep(device, card):
+    """Phase 30: the message-sweep kernel (csrc/message_sweep.cu) against
+    its plain version at dna_smooth's message program (256 taxa x 4,096
+    sites, 4 states, 762 ops) and at LG's shape (128 taxa x 16,384, 20
+    states): rows and scalers, one launch a sweep; its time back to back
+    and in single calls beside the plain version's, the dense path's (the
+    same sweep before the kernel) and the byte bounds (least: each input
+    read and each output written once; traffic: with every op's reads of
+    its children); then the main path, optimize_branch_lengths at the DNA
+    shape, on the kernel and on the dense path, with the kernel's launches
+    counted from 0 over the kernel call ([message] lines).
+    Returns the kernels-line entry, its launches the main path's."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.ops import message_sweep as ms
+    from libpll2_tpu_torch.tree.generate import balanced_newick, random_newick
+
+    row = {}
+    cases = (("dna", random_newick(MSG_TIPS, np.random.default_rng(1)),
+              MSG_SITES, 4),
+             ("lg", balanced_newick(MSG_PROTEIN_TIPS), MSG_PROTEIN_SITES, 20))
+    for name, newick, sites, states in cases:
+        cfg, full, model, bl, tipchars, pmatrix = message_inputs(
+            newick, sites, 5, device, states=states)
+        cfg_ext = full.cfg_ext
+        ops = full.level_ops_tensor(device)
+        n_ops = int((ops[..., 0] != cfg_ext.clv_scratch).sum())
+
+        def run():
+            return ms.sweep_messages(ops, pmatrix, tipchars, cfg_ext)
+
+        reset_counts()
+        got, got_s = run()
+        torch.cuda.synchronize()
+        launches = read_counts()["message_sweep"]
+        want, want_s = ms.sweep_messages_reference(ops, pmatrix, tipchars,
+                                                   cfg_ext)
+        rel, mismatches, reserved = compare_messages(got, want, got_s,
+                                                     want_s, cfg_ext)
+        del got, got_s, want, want_s
+        torch.cuda.empty_cache()
+        kernel_ms = cuda_ms_back_to_back(run, MSG_REPS)
+        single = statistics.median(cuda_ms(run, 11))
+        plain = statistics.median(cuda_ms(
+            lambda: ms.sweep_messages_reference(ops, pmatrix, tipchars,
+                                                cfg_ext), 3))
+        dense_cfg = dataclasses.replace(cfg_ext, use_kernel=False)
+        dense = statistics.median(cuda_ms(
+            lambda: engine.message_sweep(dense_cfg, model, full.level_ops,
+                                         pmatrix, tipchars), 3))
+        nbytes, traffic = ms.sweep_bytes(full.level_ops, cfg_ext, sites)
+        bound = nbytes / HBM_RATE * 1e3
+        traffic_bound = traffic / HBM_RATE * 1e3
+        tb, groups = ms.plan(cfg.rate_cats, states, sites, torch.cuda.
+                             get_device_properties(device)
+                             .multi_processor_count)
+        log(f"[message] {name} {cfg.tips} x {sites}, {states} states, "
+            f"{n_ops} ops in {ops.shape[0]} levels of {ops.shape[1]}: "
+            f"{launches} launch; "
+            f"rows rel err {rel:.3e} (compensated), scaler mismatches "
+            f"{mismatches}, tip and reserved rows equal {reserved}; "
+            f"{kernel_ms:.4f} ms back to back, single {single:.4f}, plain "
+            f"{plain:.4f}, dense path {dense:.4f}; least-bytes bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s): "
+            f"{bound / kernel_ms:.4f} of the roof; traffic bound "
+            f"{traffic_bound:.4f} ms ({traffic / 1e6:.1f} MB): "
+            f"{traffic_bound / kernel_ms:.4f}; site block {tb}, {groups} "
+            f"groups ({card})")
+        check(launches == 1, f"{name}: {launches} launches for one sweep")
+        check(mismatches == 0 and reserved and rel < CLV_RTOL,
+              f"{name}: message sweep off its plain version: rel {rel}, "
+              f"{mismatches} scaler mismatches, reserved rows {reserved}")
+        row[name] = {"ms": kernel_ms, "single_call_ms": single,
+                     "plain_ms": plain, "dense_ms": dense, "bound_ms": bound,
+                     "traffic_bound_ms": traffic_bound, "max_rel_err": rel}
+        del ops, pmatrix, tipchars
+        torch.cuda.empty_cache()
+
+    # the smoothing call of dna_smooth's shape, kernel against dense
+    cfg, full, model, bl, tipchars, _ = message_inputs(
+        random_newick(MSG_TIPS, np.random.default_rng(1)), MSG_SITES, 5,
+        device)
+    pw = torch.ones(cfg.sites_padded, device=device)
+    inv = torch.full((cfg.sites_padded,), -1, dtype=torch.int32,
+                     device=device)
+    results = {}
+    for label, c in (("kernel", cfg),
+                     ("dense", dataclasses.replace(cfg, use_kernel=False))):
+        engine.optimize_branch_lengths(full, c, model, bl, tipchars, pw, inv)
+        torch.cuda.synchronize()
+        k0 = engine.message_sweep.kernel_sweeps
+        reset_counts()
+        t0 = time.perf_counter()
+        new_bl, logl = engine.optimize_branch_lengths(full, c, model, bl,
+                                                      tipchars, pw, inv)
+        logl = logl.item()
+        results[label] = (time.perf_counter() - t0, new_bl, logl,
+                          engine.message_sweep.kernel_sweeps - k0,
+                          read_counts()["message_sweep"])
+    (ks, kbl, klogl, ksweeps, klaunches), (ds, dbl, dlogl, dsweeps,
+                                           dlaunches) = \
+        results["kernel"], results["dense"]
+    gap = abs(klogl - dlogl) / abs(dlogl)
+    bl_gap = ((kbl - dbl).abs() / dbl.abs()).max().item()
+    sweeps = 3 * full.n_colors + 1
+    log(f"[message] optimize_branch_lengths {cfg.tips} x {cfg.sites}: "
+        f"kernel {ks * 1e3:.2f} ms ({ksweeps} kernel sweeps, {klaunches} "
+        f"launches), dense {ds * 1e3:.2f} ms ({dsweeps} kernel sweeps, "
+        f"{dlaunches} launches); logL {klogl!r} vs {dlogl!r} (rel gap "
+        f"{gap:.3e}), lengths max rel gap {bl_gap:.3e} ({card})")
+    check(klaunches == ksweeps == sweeps and dlaunches == dsweeps == 0,
+          f"smoothing on the kernel: {klaunches} launches and {ksweeps} "
+          f"kernel sweeps for {sweeps} sweeps; on the dense path "
+          f"{dlaunches} and {dsweeps}")
+    check(gap < LOGL_RTOL, f"smoothing logL kernel vs dense: {gap}")
+    dna = row["dna"]
+    return {
+        "name": "message_sweep", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/message_sweep.cu",
+        "replaces": "none (the JAX package's message sweep is XLA)",
+        "launches": klaunches,
+        "max_abs_err": max(r["max_rel_err"] for r in row.values()),
+        "ms": dna["ms"], "single_call_ms": dna["single_call_ms"],
+        "plain_ms": dna["plain_ms"], "dense_ms": dna["dense_ms"],
+        "bound_ms": dna["bound_ms"], "bound_by": "bytes",
+        "traffic_bound_ms": dna["traffic_bound_ms"],
+        "library_ms": None,
+        "shape": f"{MSG_TIPS} x {MSG_SITES} DNA, all directed messages",
+        **{f"{k}_lg_{MSG_PROTEIN_TIPS}x{MSG_PROTEIN_SITES}": row["lg"][k]
+           for k in ("ms", "plain_ms", "dense_ms", "bound_ms",
+                     "traffic_bound_ms")},
+    }
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -3957,6 +4175,8 @@ def main() -> int:
     del bf16_timed
     torch.cuda.empty_cache()
     phase_default_f64(device, card)
+    message = phase_message_sweep(device, card)
+    torch.cuda.empty_cache()
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
     fma_ms, fma_plain, fma_b, fma_err, fma_single = times[("dna_256", "fma")]
@@ -4075,7 +4295,7 @@ def main() -> int:
         "replaces": "tools/static2probe.py:41 (kernel)",
         **construct_probe,
         "shape": "k0-k3, 128 ops, 65536 sites, summed",
-    }]
+    }, message]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
                                  f"main path")

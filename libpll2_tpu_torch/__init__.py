@@ -8,10 +8,12 @@ pattern compression, a stepwise-addition parsimony start, SPR search and a
 gradient model fit), the forward likelihood step (engine.compile_tree ->
 engine.make_model -> engine.loglikelihood), the training step
 (engine.optimize_root_branch) and the SPR tree search
-(search_fast.hill_climb) run here.  Two hand-written CUDA kernels carry
-their hot paths on CUDA tensors: the CLV tree sweep (csrc/tree_sweep.cu)
-and the SPR edge scorer (csrc/edge_score.cu); on CPU tensors their plain
-PyTorch versions run.  The sites of a partition shard over the ranks of
+(search_fast.hill_climb) run here.  Hand-written CUDA kernels carry
+their hot paths on CUDA tensors: the CLV tree sweep (csrc/tree_sweep.cu),
+the SPR edge scorer (csrc/edge_score.cu) and the all-directions message
+sweep of the smoothing, the search and the fit's backward
+(csrc/message_sweep.cu); on CPU tensors their plain PyTorch versions
+run.  The sites of a partition shard over the ranks of
 a torch.distributed process group (parallel/), each rank running this
 engine on its slice.  Module names follow libpll2_tpu so that each
 function's counterpart is easy to find.  This package imports torch and

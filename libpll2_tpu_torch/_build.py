@@ -28,7 +28,7 @@ PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = PACKAGE / "csrc"
 SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_generic.cu", "tree_sweep_mma.cu",
                 "edge_score.cu", "mma_probe.cu", "cache_probe.cu",
-                "construct_probe.cu")
+                "construct_probe.cu", "message_sweep.cu")
 SOURCES = tuple(SOURCE_DIR / name for name in SOURCE_NAMES)
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -216,6 +216,17 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         p,             # stream
     ]
     lib.static2_probe_launch.restype = ctypes.c_int
+    lib.message_sweep_launch.argtypes = [
+        p, i, i,       # ops, n_levels, width
+        p, p, i,       # pmat, tipchars, tips
+        p, p,          # clv, scal
+        i, i, i,       # sites, tb, groups
+        i, i,          # rates, states
+        i, i, i,       # clv_scratch, scaler_zero, scaler_scratch
+        i, f, f,       # per_rate, thresh, factor
+        i, p,          # device, stream
+    ]
+    lib.message_sweep_launch.restype = ctypes.c_int
     lib.tree_sweep_max_smem.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.tree_sweep_max_smem.restype = ctypes.c_int

@@ -92,8 +92,9 @@ def full_program_mismatches(port: FullTreeProgram, ref) -> list[str]:
     out = [f"cfg_ext.{n}" for n in config_mismatches(port.cfg_ext,
                                                      ref.cfg_ext)]
     for f in dataclasses.fields(port):
-        if f.name != "cfg_ext" and not _same(getattr(port, f.name),
-                                             getattr(ref, f.name)):
+        if f.name in ("cfg_ext", "_device"):     # _device: the port's cache
+            continue
+        if not _same(getattr(port, f.name), getattr(ref, f.name)):
             out.append(f.name)
     return out
 

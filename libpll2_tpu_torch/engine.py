@@ -17,9 +17,12 @@ tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
 tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
 level-batched path (ops/partials.py) on CPU tensors, when
 `cfg.use_kernel` is False, or, under the default None, where no sweep form
-takes the case (f64 among them: `kernel_choice_for` warns); the message
-sweep is the dense path.  PyTorch
-runs eagerly, so there is no jit and no static-argument hashing.
+takes the case (f64 among them: `kernel_choice_for` warns).  The
+all-directions message sweep runs in one hand-written CUDA kernel launch
+on CUDA tensors at f32 (ops/message_sweep.py) and in the dense path on CPU
+tensors, when `cfg.use_kernel` is False, or where the kernel does not take
+the case (`message_sweep_choice`).  PyTorch runs eagerly, so there is no
+jit and no static-argument hashing.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from . import forward_graph, spans
 from .config import PartitionConfig
 from .ops import derivatives as derivatives_ops
 from .ops import likelihood as likelihood_ops
+from .ops import message_sweep as message_sweep_ops
 from .ops import partials as partials_ops
 from .ops import partials_tree
 from .ops import pmatrix as pmatrix_ops
@@ -515,6 +519,16 @@ class FullTreeProgram:
     n_colors: int
     root_edge: int                  # branch position of the vroot edge
     tip_count: int
+    _device: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def level_ops_tensor(self, device: torch.device) -> torch.Tensor:
+        """level_ops as an int64 tensor on `device` (cached): the table
+        that message_sweep reads."""
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = torch.as_tensor(
+                self.level_ops, dtype=torch.int64, device=device)
+        return self._device[key]
 
 
 def compile_tree_full(tree: UTree, cfg: PartitionConfig) -> FullTreeProgram:
@@ -638,14 +652,55 @@ def _asc_scalers(scalers, rows, cfg: PartitionConfig):
     return None
 
 
+def message_sweep_choice(cfg: PartitionConfig, device: torch.device,
+                         grad: bool = False) -> bool:
+    """Whether a message sweep on `device` runs the kernel (True) or the
+    dense path (False), decided on the host from what the call shows:
+    the kernel on a CUDA device, where message_sweep.unsupported takes the
+    case and no input needs grad (the kernel has no backward).  use_kernel
+    False, or a CPU device: the dense path.  A refused case: under
+    use_kernel=None the dense path, with one UserWarning naming the reason;
+    under use_kernel=True a ValueError."""
+    if cfg.use_kernel is False or device.type != "cuda":
+        return False
+    reason = message_sweep_ops.unsupported(cfg)
+    if reason is None and grad:
+        reason = "an input requires grad (the kernel has no backward)"
+    if reason is None:
+        return True
+    if cfg.use_kernel is None:
+        warnings.warn(f"the dense path computes this message sweep on "
+                      f"{device}: {reason}", UserWarning, stacklevel=3)
+        return False
+    raise ValueError(f"message-sweep kernel cannot take this case: {reason}"
+                     f" (use_kernel=False selects the dense path)")
+
+
 def message_sweep(cfg_ext: PartitionConfig, model: Model, level_ops,
                   pmatrix, tipchars):
-    """Dense level-batched sweep of a message program (ops/partials.py):
-    returns (clv [rows, R, S, T], scalers [rows, T] or [rows, R, T])."""
-    dtype = cfg_ext.dtype
-    R, S, T = cfg_ext.rate_cats, cfg_ext.states, tipchars.shape[-1]
+    """Sweep every directed message of a program: returns (clv [rows, R,
+    S, T], scalers [rows, T] or [rows, R, T]).
+
+    level_ops: the [L, W, 8] level program, padding rows included (an
+    int64 tensor on the device is read as it is: FullTreeProgram.
+    level_ops_tensor, or the search's runtime program).  Where
+    `message_sweep_choice` says so, one kernel launch
+    (ops/message_sweep.py) computes the sweep; else the dense
+    level-batched path (ops/partials.py).  Counters on the function:
+    `kernel_sweeps`, `dense_sweeps`."""
     device = tipchars.device
+    grad = torch.is_grad_enabled() and pmatrix.requires_grad
     with spans.span("message_sweep"):
+        if message_sweep_choice(cfg_ext, device, grad):
+            out = message_sweep_ops.sweep_messages(
+                torch.as_tensor(level_ops, device=device).long(),
+                pmatrix.contiguous(), tipchars.to(torch.int32).contiguous(),
+                cfg_ext)
+            message_sweep.kernel_sweeps += 1
+            return out
+        message_sweep.dense_sweeps += 1
+        dtype = cfg_ext.dtype
+        R, S, T = cfg_ext.rate_cats, cfg_ext.states, tipchars.shape[-1]
         clv = torch.zeros((cfg_ext.num_clvs + 1, R, S, T), dtype=dtype,
                           device=device)
         clv[:cfg_ext.tips] = expand_tipchars(tipchars, S, dtype)[:, None]
@@ -655,6 +710,11 @@ def message_sweep(cfg_ext: PartitionConfig, model: Model, level_ops,
         scalers = torch.zeros(shape, dtype=torch.int32, device=device)
         return partials_ops.update_partials(clv, scalers, pmatrix,
                                             level_ops, cfg_ext)
+
+
+# sweeps by each path since the process started
+message_sweep.kernel_sweeps = 0
+message_sweep.dense_sweeps = 0
 
 
 def _sweep_all(program: FullTreeProgram, cfg: PartitionConfig, model: Model,
@@ -669,8 +729,12 @@ def _sweep_all(program: FullTreeProgram, cfg: PartitionConfig, model: Model,
                           device=pmats.device)
     pmatrix[torch.as_tensor(program.pmatrix_indices, dtype=torch.int64,
                             device=pmats.device)] = pmats
-    clv, scalers = message_sweep(program.cfg_ext, model, program.level_ops,
-                                 pmatrix, tipchars)
+    cfg_ext = program.cfg_ext
+    if cfg_ext.use_kernel is not cfg.use_kernel:    # the call's choice
+        cfg_ext = dataclasses.replace(cfg_ext, use_kernel=cfg.use_kernel)
+    clv, scalers = message_sweep(
+        cfg_ext, model, program.level_ops_tensor(tipchars.device), pmatrix,
+        tipchars)
     return clv, scalers, pmatrix
 
 
@@ -893,7 +957,8 @@ def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
 # and P held fixed.
 #
 # Cost: forward = the fast path (the CUDA sweep on CUDA tensors); backward
-# = one dense message sweep + per-edge einsums in chunks.
+# = one message sweep (the kernel on CUDA tensors) + per-edge einsums in
+# chunks.
 
 
 class _LoglikelihoodAnalytic(torch.autograd.Function):

@@ -213,7 +213,7 @@ def compile_multipartition(tree: UTree, cfgs: Sequence[PartitionConfig]
             compiled[rows] = engine.compile_tree(tree, c)
         programs.append(compiled[rows])
         fulls.append(dataclasses.replace(full, cfg_ext=dataclasses.replace(
-            c, clv_buffers=n_msgs, scale_buffers=n_msgs)))
+            c, clv_buffers=n_msgs, scale_buffers=n_msgs), _device={}))
     members: dict = {}
     for k, c in enumerate(cfgs):
         members.setdefault(_group_key(c), []).append(k)

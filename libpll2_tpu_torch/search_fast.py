@@ -29,8 +29,11 @@ Host side per round: numpy bookkeeping, greedy non-conflicting move
 selection, the graph surgery (tree/moves.py) and an exact verification of
 multi-move batches, so the logL trace is monotone by construction.
 
-The ball recursion, the message sweep and the smoothing Newton are plain
-PyTorch (XLA in the JAX package, not Pallas).
+The ball recursion and the smoothing Newton are plain PyTorch (XLA in the
+JAX package, not Pallas).  The message sweep (engine.message_sweep) is one
+hand-written CUDA kernel launch on the card at f32 (ops/message_sweep.py),
+which reads the padded runtime program as it is and skips its no-op rows;
+elsewhere it is the dense plain path.
 """
 from __future__ import annotations
 
