@@ -12,10 +12,15 @@ message sweep (`compile_tree_full`, `_sweep_all`,
 `branch_derivatives` and `all_edge_loglikelihoods` take `group=`: the
 process group whose ranks hold the site slices (parallel/); each rank
 passes the whole partition's `cfg` and its slices of the site-indexed
-inputs, and gets the whole partition's results.  The forward CLV sweep runs in a hand-written CUDA
-tree-sweep kernel on CUDA tensors (ops/partials_tree.py: the "fma" or the
-tensor-core "mma" form, picked by `partials_tree.choose`) and in the dense
-level-batched path (ops/partials.py) on CPU tensors, when
+inputs, and gets the whole partition's results.  The smoothing and the
+derivatives have one body each (`_optimize_branch_lengths`,
+`_branch_derivatives`) over K partitions that share the topology and the
+branch lengths: the entry points here call them with one partition, and
+multipartition.py with K, the (d1, d2) summed through the chain rule of
+the per-partition multipliers.  The forward CLV sweep runs in a
+hand-written CUDA tree-sweep kernel on CUDA tensors (ops/partials_tree.py:
+the "fma" or the tensor-core "mma" form, picked by `partials_tree.choose`)
+and in the dense level-batched path (ops/partials.py) on CPU tensors, when
 `cfg.use_kernel` is False, or, under the default None, where no sweep form
 takes the case (f64 among them: `kernel_choice_for` warns).  The
 all-directions message sweep runs in one hand-written CUDA kernel launch
@@ -26,7 +31,9 @@ jit and no static-argument hashing.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import warnings
 from typing import Optional
 
@@ -759,15 +766,18 @@ def all_edge_loglikelihoods(program: FullTreeProgram, cfg: PartitionConfig,
 
 # Bytes of per-edge tensors (two gathered CLVs, their product or sumtable
 # and one temporary, each [R, S, T]) that one chunk of edges may hold in
-# the all-edge entry points below.
+# the all-edge entry points below, summed over the partitions whose
+# sumtables a chunk keeps alive together.
 EDGE_CHUNK_BYTES = 1 << 30
 
 
-def _edge_chunks(program: FullTreeProgram, cfg: PartitionConfig, edges):
+def _edge_chunks(cfgs, edges):
     """Split a 1-D index tensor of branch positions into chunks whose
-    per-edge tensors fit EDGE_CHUNK_BYTES."""
-    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    per_edge = 4 * cfg.span * cfg.sites_padded * itemsize
+    per-edge tensors, over every partition of `cfgs`, fit
+    EDGE_CHUNK_BYTES."""
+    per_edge = sum(4 * cfg.span * cfg.sites_padded
+                   * torch.empty((), dtype=cfg.dtype).element_size()
+                   for cfg in cfgs)
     return torch.split(edges, max(1, EDGE_CHUNK_BYTES // per_edge))
 
 
@@ -790,23 +800,122 @@ def _edge_rows(program: FullTreeProgram, device) -> torch.Tensor:
                            device=device)
 
 
-def _finite_or_start(cfg: PartitionConfig, model: Model, evals, sumtables,
-                     start, end, invariant, pattern_weights):
-    """`end` [n] where each edge's logL there, a function of its own length
-    from its sumtable, is finite, else `start`.  At f32 a Newton step from
-    far above an edge's optimum can overshoot to min_branch, where the
-    sumtable's terms cancel: the edge's logL and (d1, d2) are NaN there,
-    and the steps end NaN, or, held or halved and doubled, just above it
-    (1.6e-7 from an optimum near 0.5).  Such an edge keeps its start
-    length.  At f64 the logL stays finite there, and every edge keeps its
-    end."""
-    scalings = torch.zeros(sumtables.shape[-1], dtype=torch.int32,
-                           device=sumtables.device)
-    logl = derivatives_ops.sumtable_loglikelihood(
-        sumtables, end, model.rates, evals, model.cat_pinv,
-        model.rate_weights, model.cat_freqs, invariant, pattern_weights,
-        scalings, cfg)
+# One partition of an all-edge call over shared branch lengths: its inputs,
+# its eigenvalues per rate category and its multiplier s_k in its dtype
+# (None under linked lengths).
+_Part = collections.namedtuple("_Part", "program cfg model evals tipchars "
+                               "pattern_weights invariant scale")
+
+
+def _parts(programs, cfgs, models, tipchars, pattern_weights, invariant,
+           scalers):
+    return [_Part(p, c, m, m.eigenvals[m.params_indices.long()], x, w, i,
+                  None if scalers is None else scalers[k].to(c.dtype))
+            for k, (p, c, m, x, w, i) in enumerate(zip(
+                programs, cfgs, models, tipchars, pattern_weights,
+                invariant))]
+
+
+def _at(part: _Part, t):
+    """Shared lengths t as `part` sees them: s_k * t in its dtype, or t
+    itself under linked lengths (the ops cast it)."""
+    return t if part.scale is None else t.to(part.cfg.dtype) * part.scale
+
+
+def _summed(terms):
+    """The sum over the partitions of their terms: a lone partition's term
+    as it is, else the f64 sum (the partitions' dtypes may differ)."""
+    if len(terms) == 1:
+        return terms[0]
+    return functools.reduce(torch.add, [x.double() for x in terms])
+
+
+def _sweeps(parts, branch_lengths):
+    return [_sweep_all(p.program, p.cfg, p.model, _at(p, branch_lengths),
+                       p.tipchars) for p in parts]
+
+
+def _sumtables(parts, sweeps, rows):
+    return [_edge_sumtables(p.program, p.cfg, p.model, clv, scalers, rows)
+            for p, (clv, scalers, _) in zip(parts, sweeps)]
+
+
+def _derivatives(parts, sumtables, t, group=None):
+    """(d1, d2) [n] of -lnL at shared lengths t [n], summed over the
+    partitions through the chain rule d/dt sum_k L_k(s_k t) = sum_k s_k
+    d1_k, d2 = sum_k s_k^2 d2_k."""
+    d1s, d2s = [], []
+    for p, st in zip(parts, sumtables):
+        d1, d2 = derivatives_ops.likelihood_derivatives(
+            st, _at(p, t), p.model.rates, p.evals, p.model.cat_pinv,
+            p.model.rate_weights, p.model.cat_freqs, p.invariant,
+            p.pattern_weights, p.cfg, group=group)
+        if p.scale is not None:
+            d1, d2 = p.scale * d1, p.scale * p.scale * d2
+        d1s.append(d1)
+        d2s.append(d2)
+    return _summed(d1s), _summed(d2s)
+
+
+def _finite_or_start(parts, sumtables, start, end):
+    """`end` [n] where each edge's logL there, summed over the partitions
+    (each at s_k * end, from its sumtable), is finite, else `start`.  At
+    f32 a Newton step from far above an edge's optimum can overshoot to
+    min_branch, where the sumtable's terms cancel: the edge's logL and
+    (d1, d2) are NaN there, and the steps end NaN, or, held or halved and
+    doubled, just above it (1.6e-7 from an optimum near 0.5).  Such an
+    edge keeps its start length.  At f64 the logL stays finite there, and
+    every edge keeps its end."""
+    logl = _summed([derivatives_ops.sumtable_loglikelihood(
+        st, _at(p, end), p.model.rates, p.evals, p.model.cat_pinv,
+        p.model.rate_weights, p.model.cat_freqs, p.invariant,
+        p.pattern_weights,
+        torch.zeros(st.shape[-1], dtype=torch.int32, device=st.device),
+        p.cfg) for p, st in zip(parts, sumtables)])
     return torch.where(torch.isfinite(logl), end, start.to(end.dtype))
+
+
+def _optimize_branch_lengths(programs, cfgs, models, branch_lengths,
+                             tipchars, pattern_weights, invariant, scalers,
+                             rounds, newton_iters, min_branch, max_branch):
+    """optimize_branch_lengths over K partitions sharing one topology and
+    one [E] length vector: K-sequences of per-partition inputs, `scalers`
+    None or the [K] multipliers s_k.  Returns (lengths, summed logL)."""
+    parts = _parts(programs, cfgs, models, tipchars, pattern_weights,
+                   invariant, scalers)
+    program = programs[0]               # the edge layout is shared
+    device = tipchars[0].device
+    edge_rows = _edge_rows(program, device)
+    colors = torch.as_tensor(program.edge_colors, device=device)
+    bl = branch_lengths
+    for _ in range(rounds):
+        for c in range(program.n_colors):
+            members = torch.nonzero(colors == c).flatten()
+            sweeps = _sweeps(parts, bl)
+            bl = bl.clone()
+            for chunk in _edge_chunks(cfgs, members):
+                sts = _sumtables(parts, sweeps, edge_rows[chunk])
+                start = bl[chunk]
+                t = start
+                for _ in range(newton_iters):
+                    d1, d2 = _derivatives(parts, sts, t)
+                    # the JAX step has no non-finite guard; keep its
+                    # semantics (a NaN length ends at its start below)
+                    t = derivatives_ops.newton_update(
+                        t, d1, d2, min_branch, max_branch,
+                        hold_nonfinite=False)
+                t = _finite_or_start(parts, sts, start, t)
+                bl[chunk] = t.to(bl.dtype)
+            del sweeps
+
+    # final logL across the root edge with the optimized lengths
+    ra, rsa, rb, rsb = program.edge_rows[program.root_edge].tolist()
+    slot = int(program.pmatrix_indices[program.root_edge])
+    return bl, _summed([likelihood_ops.edge_loglikelihood(
+        clv[ra], scals[rsa], clv[rb], scals[rsb], pmatrix[slot],
+        p.model.cat_freqs, p.model.rate_weights, p.model.cat_pinv,
+        p.invariant, p.pattern_weights, p.cfg)
+        for p, (clv, scals, pmatrix) in zip(parts, _sweeps(parts, bl))])
 
 
 def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
@@ -823,48 +932,14 @@ def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
     logL is not finite where its steps end keeps its start length
     (_finite_or_start: f32 only).  The JAX package computes a proposal for
     every branch and keeps the class's; this computes only the class's,
-    with the same values.
+    with the same values.  The body is _optimize_branch_lengths, with one
+    partition.
 
     Returns (optimized_branch_lengths, logl_after)."""
-    device = tipchars.device
-    edge_rows = _edge_rows(program, device)
-    idx = model.params_indices.long()
-    evals = model.eigenvals[idx]
-    colors = torch.as_tensor(program.edge_colors, device=device)
-    bl = branch_lengths
-    for _ in range(rounds):
-        for c in range(program.n_colors):
-            members = torch.nonzero(colors == c).flatten()
-            clv, scalers, _ = _sweep_all(program, cfg, model, bl, tipchars)
-            bl = bl.clone()
-            for chunk in _edge_chunks(program, cfg, members):
-                st = _edge_sumtables(program, cfg, model, clv, scalers,
-                                     edge_rows[chunk])
-                start = bl[chunk]
-                t = start
-                for _ in range(newton_iters):
-                    d1, d2 = derivatives_ops.likelihood_derivatives(
-                        st, t, model.rates, evals, model.cat_pinv,
-                        model.rate_weights, model.cat_freqs, invariant,
-                        pattern_weights, cfg)
-                    # the JAX step has no non-finite guard; keep its
-                    # semantics (a NaN length ends at its start below)
-                    t = derivatives_ops.newton_update(
-                        t, d1, d2, min_branch, max_branch,
-                        hold_nonfinite=False)
-                t = _finite_or_start(cfg, model, evals, st, start, t,
-                                     invariant, pattern_weights)
-                bl[chunk] = t.to(bl.dtype)
-
-    # final logL across the root edge with the optimized lengths
-    clv, scalers, pmatrix = _sweep_all(program, cfg, model, bl, tipchars)
-    ra, rsa, rb, rsb = program.edge_rows[program.root_edge].tolist()
-    logl = likelihood_ops.edge_loglikelihood(
-        clv[ra], scalers[rsa], clv[rb], scalers[rsb],
-        pmatrix[int(program.pmatrix_indices[program.root_edge])],
-        model.cat_freqs, model.rate_weights, model.cat_pinv, invariant,
-        pattern_weights, cfg)
-    return bl, logl
+    return _optimize_branch_lengths(
+        (program,), (cfg,), (model,), branch_lengths, (tipchars,),
+        (pattern_weights,), (invariant,), None, rounds, newton_iters,
+        min_branch, max_branch)
 
 
 def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
@@ -898,7 +973,7 @@ def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
     sub_term = torch.einsum("rij,rjt->rit", p3, sub_clv.to(dtype))
     edge_rows = _edge_rows(program, device)
     out = []
-    for chunk in _edge_chunks(program, cfg,
+    for chunk in _edge_chunks((cfg,),
                               torch.arange(len(edge_rows), device=device)):
         rows, ph = edge_rows[chunk], halves[chunk]
         ta = torch.einsum("erij,erjt->erit", ph, clv[rows[:, 0]])
@@ -910,6 +985,28 @@ def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
     return torch.cat(out)
 
 
+def _branch_derivatives(programs, cfgs, models, branch_lengths, tipchars,
+                        pattern_weights, invariant, scalers=None,
+                        group=None):
+    """branch_derivatives over K partitions sharing one topology and one
+    [E] length vector (inputs as in _optimize_branch_lengths): the summed
+    (d1, d2), [E] each."""
+    parts = _parts(programs, cfgs, models, tipchars, pattern_weights,
+                   invariant, scalers)
+    device = tipchars[0].device
+    edge_rows = _edge_rows(programs[0], device)
+    sweeps = _sweeps(parts, branch_lengths)
+    d1s, d2s = [], []
+    for chunk in _edge_chunks(cfgs, torch.arange(len(edge_rows),
+                                                 device=device)):
+        d1, d2 = _derivatives(parts, _sumtables(parts, sweeps,
+                                                edge_rows[chunk]),
+                              branch_lengths[chunk], group)
+        d1s.append(d1)
+        d2s.append(d2)
+    return torch.cat(d1s), torch.cat(d2s)
+
+
 def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
                        model: Model, branch_lengths, tipchars,
                        pattern_weights, invariant, group=None):
@@ -917,24 +1014,10 @@ def branch_derivatives(program: FullTreeProgram, cfg: PartitionConfig,
     ([E], [E]).  The reference computes these one branch at a time
     (pll_update_sumtable + pll_compute_likelihood_derivatives).
     `group`: as in loglikelihood."""
-    cfg = _local(cfg, group, tipchars)
-    device = tipchars.device
-    edge_rows = _edge_rows(program, device)
-    idx = model.params_indices.long()
-    clv, scalers, _ = _sweep_all(program, cfg, model, branch_lengths,
-                                 tipchars)
-    d1s, d2s = [], []
-    for chunk in _edge_chunks(program, cfg,
-                              torch.arange(len(edge_rows), device=device)):
-        st = _edge_sumtables(program, cfg, model, clv, scalers,
-                             edge_rows[chunk])
-        d1, d2 = derivatives_ops.likelihood_derivatives(
-            st, branch_lengths[chunk], model.rates, model.eigenvals[idx],
-            model.cat_pinv, model.rate_weights, model.cat_freqs, invariant,
-            pattern_weights, cfg, group=group)
-        d1s.append(d1)
-        d2s.append(d2)
-    return torch.cat(d1s), torch.cat(d2s)
+    return _branch_derivatives(
+        (program,), (_local(cfg, group, tipchars),), (model,),
+        branch_lengths, (tipchars,), (pattern_weights,), (invariant,),
+        group=group)
 
 
 # --------------------------------------------------------------------------
@@ -1007,9 +1090,8 @@ class _LoglikelihoodAnalytic(torch.autograd.Function):
         # d/dt).
         pmat_bar = torch.empty((len(edge_rows),) + pmatrix.shape[1:],
                                dtype=dtype, device=device)
-        for chunk in _edge_chunks(full, cfg,
-                                  torch.arange(len(edge_rows),
-                                               device=device)):
+        for chunk in _edge_chunks((cfg,), torch.arange(len(edge_rows),
+                                                       device=device)):
             rows = edge_rows[chunk]
             msg_b = clv[rows[:, 2]]                               # [e,R,S,T]
             A = freqs[None, :, :, None] * clv[rows[:, 0]]

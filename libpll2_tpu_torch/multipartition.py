@@ -3,10 +3,11 @@
 Counterpart of libpll2_tpu/multipartition.py.  Reference clients (RAxML-NG
 / ModelTest-NG) drive one partition per gene over its site range
 (SURVEY.md §2.6) and combine log-likelihoods and derivative sums branch by
-branch.  Here the forward runs partitions in groups (below), the per-edge
-Newton steps optimize the SHARED branch lengths against the summed (d1,
-d2) with the partitions' message sweeps run back to back, and the total
-log-likelihood is a single scalar.
+branch.  This module's own code is the grouped forward (below), whose
+total log-likelihood is a single scalar.  The derivatives and the Newton
+smoothing of the SHARED branch lengths are engine's all-edge body
+(engine._branch_derivatives, engine._optimize_branch_lengths), which runs
+one or K partitions against the summed (d1, d2).
 
 Partitions may differ in everything but the topology: states (mixed DNA +
 protein runs), rate categories, models, site counts, asc-bias, scaler
@@ -42,11 +43,6 @@ the identity of every model buffer and site tensor the call reads, and the
 shape of the lengths (with the scalers); new lengths or scalers are copied
 into the graphs' input.  A tensor whose storage is swapped in place (set_)
 is not seen by the key; a model changed in place is read at replay.
-
-The JAX package maps over the edges one at a time; the derivatives and
-joint smoothing batch them as engine.optimize_branch_lengths does: edges
-in chunks sized from the tensor bytes of all K partitions, the K
-sumtables of a chunk alive together across the Newton steps.
 """
 from __future__ import annotations
 
@@ -62,7 +58,6 @@ import torch
 from . import engine, forward_graph, spans
 from .config import PartitionConfig
 from .constants import AB_NONE
-from .ops import derivatives as derivatives_ops
 from .ops import likelihood as likelihood_ops
 from .ops import partials_tree
 from .ops import pmatrix as pmatrix_ops
@@ -227,20 +222,6 @@ def _scalers_tensor(scalers, device):
     if scalers is None:
         return None
     return torch.as_tensor(scalers, dtype=torch.float64, device=device)
-
-
-def _partition_branches(branch_lengths, scalers, k: int, dtype):
-    bl = branch_lengths.to(dtype)
-    if scalers is None:
-        return bl
-    return bl * scalers[k].to(dtype)
-
-
-def _scale(scalers, k: int, dtype, device):
-    """s_k in the partition's dtype (1 under linked lengths)."""
-    if scalers is None:
-        return torch.ones((), dtype=dtype, device=device)
-    return scalers[k].to(dtype)
 
 
 def _choice(group: Group, device: torch.device) -> Optional[tuple]:
@@ -489,72 +470,16 @@ loglikelihood.eager_calls = 0
 _counters = loglikelihood
 
 
-def _sweep_partitions(mp: MultiPartition, models, branch_lengths, tipchars,
-                      scalers):
-    """The all-directions message sweep of every partition at its own
-    (scaled) lengths: [(clv, scalers, pmatrix)] * K."""
-    return [engine._sweep_all(
-        mp.fulls[k], mp.cfgs[k], models[k],
-        _partition_branches(branch_lengths, scalers, k, mp.cfgs[k].dtype),
-        tipchars[k]) for k in range(mp.n_partitions)]
-
-
-def _edge_chunks(mp: MultiPartition, edges):
-    """Split a 1-D index tensor of branch positions into chunks whose
-    per-edge tensors (engine.EDGE_CHUNK_BYTES) fit with the sumtables of
-    all K partitions alive together."""
-    per_edge = sum(
-        4 * cfg.span * cfg.sites_padded
-        * torch.empty((), dtype=cfg.dtype).element_size()
-        for cfg in mp.cfgs)
-    return torch.split(edges, max(1, engine.EDGE_CHUNK_BYTES // per_edge))
-
-
-def _chunk_sumtables(mp: MultiPartition, models, sweeps, rows):
-    """Sumtables of the edges with rows [n, 4], one per partition."""
-    return [engine._edge_sumtables(mp.fulls[k], mp.cfgs[k], models[k],
-                                   sweeps[k][0], sweeps[k][1], rows)
-            for k in range(mp.n_partitions)]
-
-
-def _summed_derivatives(mp: MultiPartition, models, sumtables, t,
-                        pattern_weights, invariant, scalers):
-    """(d1, d2) [n] f64 of -lnL at shared lengths t [n], summed over the
-    partitions through the chain rule d/dt Σ_k L_k(s_k t) = Σ_k s_k d1_k,
-    d² = Σ_k s_k² d2_k."""
-    d1 = torch.zeros(t.shape, dtype=torch.float64, device=t.device)
-    d2 = torch.zeros(t.shape, dtype=torch.float64, device=t.device)
-    for k in range(mp.n_partitions):
-        cfg, model = mp.cfgs[k], models[k]
-        idx = model.params_indices.long()
-        s_k = _scale(scalers, k, cfg.dtype, t.device)
-        d1k, d2k = derivatives_ops.likelihood_derivatives(
-            sumtables[k], t.to(cfg.dtype) * s_k, model.rates,
-            model.eigenvals[idx], model.cat_pinv, model.rate_weights,
-            model.cat_freqs, invariant[k], pattern_weights[k], cfg)
-        d1 = d1 + (s_k * d1k).double()
-        d2 = d2 + (s_k * s_k * d2k).double()
-    return d1, d2
-
-
 def branch_derivatives(mp: MultiPartition, models, branch_lengths, tipchars,
                        pattern_weights, invariant, scalers=None):
     """Summed (d1, d2) of -lnL w.r.t. every SHARED branch length ([E], [E],
-    f64): the per-branch sumtable machinery evaluated per partition and
-    chain-ruled through the optional per-partition scaler."""
-    device = branch_lengths.device
-    scalers = _scalers_tensor(scalers, device)
-    edge_rows = engine._edge_rows(mp.fulls[0], device)
-    sweeps = _sweep_partitions(mp, models, branch_lengths, tipchars, scalers)
-    d1s, d2s = [], []
-    for chunk in _edge_chunks(mp, torch.arange(len(edge_rows),
-                                               device=device)):
-        sts = _chunk_sumtables(mp, models, sweeps, edge_rows[chunk])
-        d1, d2 = _summed_derivatives(mp, models, sts, branch_lengths[chunk],
-                                     pattern_weights, invariant, scalers)
-        d1s.append(d1)
-        d2s.append(d2)
-    return torch.cat(d1s), torch.cat(d2s)
+    f64), chain-ruled through the optional per-partition scaler: engine's
+    all-edge body over the K partitions."""
+    d1, d2 = engine._branch_derivatives(
+        mp.fulls, mp.cfgs, models, branch_lengths, tipchars,
+        pattern_weights, invariant,
+        _scalers_tensor(scalers, branch_lengths.device))
+    return d1.double(), d2.double()
 
 
 def optimize_branch_lengths(mp: MultiPartition, models, branch_lengths,
@@ -564,49 +489,14 @@ def optimize_branch_lengths(mp: MultiPartition, models, branch_lengths,
                             min_branch: float = 1e-8,
                             max_branch: float = 100.0):
     """Newton-optimize the SHARED branch lengths against the summed
-    multi-partition likelihood (engine.optimize_branch_lengths lifted to
-    K partitions; same colour-class Jacobi smoothing over all n_colors
-    classes).
+    multi-partition likelihood: engine.optimize_branch_lengths's body over
+    the K partitions.
 
     Returns (optimized_branch_lengths, total_logl_after [] f64).
     """
-    device = branch_lengths.device
-    scalers = _scalers_tensor(scalers, device)
-    full0 = mp.fulls[0]
-    edge_rows = engine._edge_rows(full0, device)
-    colors = torch.as_tensor(full0.edge_colors, device=device)
-    bl = branch_lengths
-    for _ in range(rounds):
-        for c in range(full0.n_colors):
-            members = torch.nonzero(colors == c).flatten()
-            sweeps = _sweep_partitions(mp, models, bl, tipchars, scalers)
-            bl = bl.clone()
-            for chunk in _edge_chunks(mp, members):
-                sts = _chunk_sumtables(mp, models, sweeps, edge_rows[chunk])
-                t = bl[chunk]
-                for _ in range(newton_iters):
-                    d1, d2 = _summed_derivatives(
-                        mp, models, sts, t, pattern_weights, invariant,
-                        scalers)
-                    # the JAX step has no non-finite guard; keep its
-                    # semantics
-                    t = derivatives_ops.newton_update(
-                        t, d1, d2, min_branch, max_branch,
-                        hold_nonfinite=False).to(bl.dtype)
-                bl[chunk] = t
-            del sweeps
-
-    total = torch.zeros((), dtype=torch.float64, device=device)
-    ra, rsa, rb, rsb = full0.edge_rows[full0.root_edge].tolist()
-    root_slot = int(full0.pmatrix_indices[full0.root_edge])
-    for k in range(mp.n_partitions):
-        cfg, model = mp.cfgs[k], models[k]
-        clv, scals, pmatrix = engine._sweep_all(
-            mp.fulls[k], cfg, model,
-            _partition_branches(bl, scalers, k, cfg.dtype), tipchars[k])
-        lk = likelihood_ops.edge_loglikelihood(
-            clv[ra], scals[rsa], clv[rb], scals[rsb], pmatrix[root_slot],
-            model.cat_freqs, model.rate_weights, model.cat_pinv,
-            invariant[k], pattern_weights[k], cfg)
-        total = total + lk.double()
-    return bl, total
+    bl, logl = engine._optimize_branch_lengths(
+        mp.fulls, mp.cfgs, models, branch_lengths, tipchars,
+        pattern_weights, invariant,
+        _scalers_tensor(scalers, branch_lengths.device), rounds,
+        newton_iters, min_branch, max_branch)
+    return bl, logl.double()

@@ -268,7 +268,7 @@ def test_analytic_gradient_chunked_equals_whole(monkeypatch):
     _, pargs, full, _ = vjp_case("scaled")
     _, whole = port_grads(pargs, full, analytic=True)
     monkeypatch.setattr(engine, "EDGE_CHUNK_BYTES", 1 << 17)
-    assert len(engine._edge_chunks(full, pargs[1], torch.arange(61))) > 3
+    assert len(engine._edge_chunks((pargs[1],), torch.arange(61))) > 3
     _, parts = port_grads(pargs, full, analytic=True)
     assert_grads_close(parts, whole, rtol=1e-12, atol_scale=1e-14)
 

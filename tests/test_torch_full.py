@@ -157,10 +157,14 @@ def test_optimize_branch_lengths_smooths_five_colours():
     np.testing.assert_allclose(logl.item(), float(jlogl), rtol=1e-9)
 
 
-def test_smoothing_keeps_the_start_where_the_logl_is_not_finite():
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_smoothing_keeps_the_start_where_the_logl_is_not_finite(n_parts):
     """Where f32 Newton steps end at a length at which an edge's sumtable
     terms cancel (its logL NaN, as at min_branch after an overshoot), the
-    edge keeps its start length; an end with a finite logL is kept."""
+    edge keeps its start length; an end with a finite logL is kept.  Over
+    two partitions the summed logL is judged: a partition whose logL is
+    finite at the end does not save an edge whose other partition's is
+    NaN there."""
     spec = dict(CASES["random24"])
     newick = spec.pop("newick")()
     _, (_, cfg, model, _, _, pw, inv) = both(newick, 64, 1, "f32")
@@ -168,11 +172,19 @@ def test_smoothing_keeps_the_start_where_the_logl_is_not_finite():
     # L(t) = 1e-3 - 1.5e-3 exp(-k t) at every site and rate: < 0 near 0
     st = torch.zeros((2, R, S, T), dtype=torch.float32)
     st[:, :, 0], st[:, :, 1] = 1e-3, -1.5e-3
+    # L(t) = 1e-3: finite at every length
+    flat = torch.zeros((2, R, S, T), dtype=torch.float32)
+    flat[:, :, 0] = 1e-3
     evals = torch.tensor([0.0, -1.0, -1.0, -1.0]).expand(R, S)
-    got = engine._finite_or_start(cfg, model, evals, st,
+    part = engine._Part(None, cfg, model, evals, None, pw, inv, None)
+    sumtables = [flat, st][-n_parts:]
+    got = engine._finite_or_start([part] * n_parts, sumtables,
                                   torch.tensor([0.5, 0.5]),
-                                  torch.tensor([1e-8, 30.0]), inv, pw)
+                                  torch.tensor([1e-8, 30.0]))
     assert got.tolist() == [0.5, 30.0]
+    kept = engine._finite_or_start([part], [flat], torch.tensor([0.5, 0.5]),
+                                   torch.tensor([1e-8, 30.0]))
+    assert kept.tolist() == [pytest.approx(1e-8), 30.0]
 
 
 @pytest.mark.parametrize("case", ALL_EDGE_CASES)

@@ -23,7 +23,7 @@ from libpll2_tpu_torch import tree as T
 from libpll2_tpu_torch.config import PartitionConfig
 from libpll2_tpu_torch.tree.generate import random_newick, random_tipchars
 
-from .test_torch_engine import invariant_of
+from .test_torch_engine import both, invariant_of
 
 N_TIPS = 8
 SCALERS = [1.0, 0.7, 1.6]
@@ -185,7 +185,7 @@ def test_branch_derivatives_chunked_equals_whole(monkeypatch):
     _, pargs = make_case(23)
     whole = multipartition.branch_derivatives(*pargs)
     monkeypatch.setattr(engine, "EDGE_CHUNK_BYTES", 1 << 16)
-    chunks = multipartition._edge_chunks(pargs[0], torch.arange(13))
+    chunks = engine._edge_chunks(pargs[0].cfgs, torch.arange(13))
     assert len(chunks) > 1
     parts = multipartition.branch_derivatives(*pargs)
     for a, b in zip(whole, parts):
@@ -209,3 +209,41 @@ def test_optimize_branch_lengths_f64(kind):
     again = multipartition.loglikelihood(pmp, models, got_bl, *rest,
                                          scalers_of(kind, "torch")).item()
     np.testing.assert_allclose(got.item(), again, rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["linked", "scaled"])
+def test_optimize_branch_lengths_f32_from_far_starts(kind):
+    """f32 Newton steps from lengths x 30 overshoot on some edges to where
+    their summed logL is not finite; each such edge keeps its start, so no
+    length comes back NaN and the total is not below the start's."""
+    _, pargs = make_case(29, "f32", bl_scale=30.0)
+    before = multipartition.loglikelihood(*pargs,
+                                          scalers_of(kind, "torch")).item()
+    bl, logl = multipartition.optimize_branch_lengths(
+        *pargs, scalers_of(kind, "torch"), rounds=2, newton_iters=6)
+    assert not torch.isnan(bl).any()
+    assert np.isfinite(logl.item()) and logl.item() >= before
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_one_partition_is_the_engine_call(dt):
+    """A one-partition MultiPartition smooths and differentiates bit for
+    bit as engine's one-partition entry points, its results in f64."""
+    newick = random_newick(12, np.random.default_rng(5))
+    _, (_, cfg, model, bl, tips, pw, inv) = both(newick, 150, 3, dt,
+                                                 bl_scale=3.0)
+    tree = T.parse_newick_string(newick)
+    mp = multipartition.compile_multipartition(tree, [cfg])
+    full = engine.compile_tree_full(tree, cfg)
+    kw = dict(rounds=2, newton_iters=4)
+    want_bl, want = engine.optimize_branch_lengths(full, cfg, model, bl,
+                                                   tips, pw, inv, **kw)
+    got_bl, got = multipartition.optimize_branch_lengths(
+        mp, [model], bl, [tips], [pw], [inv], **kw)
+    assert torch.equal(got_bl, want_bl)
+    assert got.dtype == torch.float64 and got.item() == want.item()
+    want_d = engine.branch_derivatives(full, cfg, model, bl, tips, pw, inv)
+    got_d = multipartition.branch_derivatives(mp, [model], bl, [tips], [pw],
+                                              [inv])
+    for a, b in zip(got_d, want_d):
+        assert a.dtype == torch.float64 and torch.equal(a, b.double())
