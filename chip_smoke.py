@@ -162,7 +162,15 @@ Phases (any failure exits non-zero):
      of its children); then the main path, optimize_branch_lengths at
      the DNA shape, on the kernel against the dense path, its kernel
      launches counted from 0 (the kernels line's count; `[message]`
-     lines).
+     lines);
+ 31. the Newton kernel (csrc/newton_edges.cu) on the largest colour class
+     of dna_smooth's program (256 x 4,096 DNA): lengths and keep decisions
+     against its plain version summing in the cluster's stripes, its time
+     back to back and in single calls beside the plain version's, the
+     all-edge body's plain path's and its bytes roof (two message rows an
+     edge, read once); then optimize_branch_lengths at that shape on the
+     kernels against the plain paths, the Newton launches counted from 0
+     (the kernels line's count; `[newton]` lines).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -310,7 +318,8 @@ def cuda_ms_back_to_back(fn, n: int) -> float:
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0 (just before a path
     is driven)."""
-    from libpll2_tpu_torch.ops import edge_score, message_sweep, partials_tree
+    from libpll2_tpu_torch.ops import (edge_score, message_sweep,
+                                       newton_edges, partials_tree)
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     partials_tree.sweep.launches = 0
@@ -330,6 +339,7 @@ def reset_counts() -> None:
     constructs.constructs.launches = 0
     constructs.static2.launches = 0
     message_sweep.sweep_messages.launches = 0
+    newton_edges.newton_edges.launches = 0
 
 
 def read_counts() -> dict:
@@ -337,7 +347,8 @@ def read_counts() -> dict:
     generic-state forms' launches are also within "tree_sweep" and
     "edge_score", the bf16 forms' within "tree_sweep" and
     "tree_sweep_mma"."""
-    from libpll2_tpu_torch.ops import edge_score, message_sweep, partials_tree
+    from libpll2_tpu_torch.ops import (edge_score, message_sweep,
+                                       newton_edges, partials_tree)
     from libpll2_tpu_torch.probes import cache, constructs
     from libpll2_tpu_torch.probes import mma as probe
     by_mode = partials_tree.sweep.launches_by_mode
@@ -351,7 +362,8 @@ def read_counts() -> dict:
             "cache_probe": cache.scale_shift.launches,
             "construct_probe": constructs.static2.launches,
             "construct_probe_c0_c4": constructs.constructs.launches,
-            "message_sweep": message_sweep.sweep_messages.launches}
+            "message_sweep": message_sweep.sweep_messages.launches,
+            "newton_edges": newton_edges.newton_edges.launches}
 
 
 def phase_device():
@@ -4113,6 +4125,136 @@ def phase_message_sweep(device, card):
     }
 
 
+NEWTON_REPS = 50                       # Newton launches back to back
+
+
+def newton_bytes(n_edges: int, rates: int, states: int, sites: int) -> int:
+    """The least device-memory bytes of one Newton launch: each edge's two
+    message rows read once (the constants, weights and lengths are a few
+    KB)."""
+    return n_edges * 2 * rates * states * sites * 4
+
+
+def phase_newton_edges(device, card):
+    """Phase 31: the Newton kernel (csrc/newton_edges.cu) on the largest
+    colour class of dna_smooth's program (256 taxa x 4,096 sites, 4
+    states, 4 rates) from one message sweep: its lengths against the plain
+    version summing in the cluster's stripes (and the keep decisions), its
+    time back to back and in single calls (CUDA events) beside the plain
+    version's, the all-edge body's plain path's (what a class cost before
+    the kernel) and the bytes roof; then the main path,
+    optimize_branch_lengths at that shape on the kernels (a Newton launch
+    a class) against the plain paths, its Newton launches counted from 0
+    ([newton] lines).  Returns the kernels-line entry."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.ops import edge_score
+    from libpll2_tpu_torch.ops import message_sweep as ms
+    from libpll2_tpu_torch.ops import newton_edges as ne
+    from libpll2_tpu_torch.tree.generate import random_newick
+
+    kw = dict(newton_iters=10, min_branch=1e-8, max_branch=100.0)
+    newick = random_newick(MSG_TIPS, np.random.default_rng(1))
+    cfg, full, model, bl, tipchars, pmatrix = message_inputs(
+        newick, MSG_SITES, 5, device)
+    clv, scalers = ms.sweep_messages(full.level_ops_tensor(device), pmatrix,
+                                     tipchars, full.cfg_ext)
+    rows = full.edge_rows_tensor(device)
+    members = max(full.color_members(device), key=len)
+    consts = edge_score.model_constants(model, cfg)
+    pw = torch.ones(cfg.sites_padded, device=device)
+    inv = torch.full((cfg.sites_padded,), -1, dtype=torch.int32,
+                     device=device)
+    R, S, T = cfg.rate_cats, cfg.states, cfg.sites_padded
+    cluster = ne.plan(R, S, T, edge_score.smem_limit_of(device))
+    reset_counts()
+    got = ne.newton_edges(clv, rows, members, bl.clone(), *consts, pw, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()["newton_edges"]
+    want = ne.newton_edges_reference(clv, rows, members, bl.clone(), *consts,
+                                     pw, stripes=cluster, **kw)
+    start = bl[members]
+    same_keep = bool(torch.equal(got[members] == start,
+                                 want[members] == start))
+    rel = ((got[members] - want[members]).abs()
+           / want[members].abs()).max().item()
+    work = bl.clone()
+
+    def run():
+        return ne.newton_edges(clv, rows, members, work, *consts, pw, **kw)
+
+    kernel_ms = cuda_ms_back_to_back(run, NEWTON_REPS)
+    single = statistics.median(cuda_ms(run, 11))
+    plain = statistics.median(cuda_ms(
+        lambda: ne.newton_edges_reference(clv, rows, members, bl.clone(),
+                                          *consts, pw, **kw), 3))
+    parts = engine._parts((full,), (cfg,), (model,), (tipchars,), (pw,),
+                          (inv,), None)
+    sweeps = [(clv, scalers, pmatrix)]
+    path = statistics.median(cuda_ms(
+        lambda: engine._newton_plain(parts, sweeps, rows, members, bl, 10,
+                                     1e-8, 100.0), 3))
+    nbytes = newton_bytes(len(members), R, S, T)
+    bound = nbytes / HBM_RATE * 1e3
+    log(f"[newton] class of {len(members)} edges, {MSG_TIPS} x {MSG_SITES} "
+        f"DNA, clusters of {cluster} ({ne.smem_bytes(R, S, T, cluster)} "
+        f"bytes a CTA): {launches} launch; lengths max rel gap {rel:.3e} "
+        f"against the plain version in {cluster} stripes, keep decisions "
+        f"equal {same_keep}; {kernel_ms:.4f} ms back to back, single "
+        f"{single:.4f}, plain version {plain:.4f}, the body's plain path "
+        f"{path:.4f}; bytes bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"3.35 TB/s): {bound / kernel_ms:.4f} of the roof ({card})")
+    check(launches == 1, f"{launches} Newton launches for one class")
+    check(same_keep and rel < 1e-4,
+          f"Newton kernel off its plain version: rel {rel}, keep decisions "
+          f"equal {same_keep}")
+    del clv, scalers, pmatrix, sweeps, work
+    torch.cuda.empty_cache()
+
+    # the smoothing call of dna_smooth's shape, kernels against plain paths
+    results = {}
+    for label, c in (("kernel", cfg),
+                     ("plain", dataclasses.replace(cfg, use_kernel=False))):
+        engine.optimize_branch_lengths(full, c, model, bl, tipchars, pw, inv)
+        torch.cuda.synchronize()
+        k0 = engine.newton_choice.kernel_classes
+        reset_counts()
+        t0 = time.perf_counter()
+        new_bl, logl = engine.optimize_branch_lengths(full, c, model, bl,
+                                                      tipchars, pw, inv)
+        logl = logl.item()
+        results[label] = (time.perf_counter() - t0, new_bl, logl,
+                          engine.newton_choice.kernel_classes - k0,
+                          read_counts()["newton_edges"])
+    (ks, kbl, klogl, kclasses, klaunches), (ps, pbl, plogl, pclasses,
+                                            plaunches) = \
+        results["kernel"], results["plain"]
+    gap = abs(klogl - plogl) / abs(plogl)
+    bl_gap = ((kbl - pbl).abs() / pbl.abs()).max().item()
+    classes = 3 * full.n_colors
+    log(f"[newton] optimize_branch_lengths {cfg.tips} x {cfg.sites}: "
+        f"kernels {ks * 1e3:.2f} ms ({kclasses} kernel classes, {klaunches} "
+        f"Newton launches), plain paths {ps * 1e3:.2f} ms ({pclasses}, "
+        f"{plaunches}); logL {klogl!r} vs {plogl!r} (rel gap {gap:.3e}), "
+        f"lengths max rel gap {bl_gap:.3e} ({card})")
+    check(klaunches == kclasses == classes and plaunches == pclasses == 0,
+          f"smoothing on the Newton kernel: {klaunches} launches and "
+          f"{kclasses} kernel classes for {classes} classes; on the plain "
+          f"path {plaunches} and {pclasses}")
+    check(gap < LOGL_RTOL, f"smoothing logL kernels vs plain: {gap}")
+    return {
+        "name": "newton_edges", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/newton_edges.cu",
+        "replaces": "none (the JAX package's Newton path is XLA)",
+        "launches": klaunches, "max_abs_err": rel, "ms": kernel_ms,
+        "single_call_ms": single, "plain_ms": plain, "plain_path_ms": path,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+        "shape": f"{len(members)} edges of {MSG_TIPS} x {MSG_SITES} DNA, "
+                 f"10 Newton steps",
+    }
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -4176,6 +4318,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_default_f64(device, card)
     message = phase_message_sweep(device, card)
+    torch.cuda.empty_cache()
+    newton = phase_newton_edges(device, card)
     torch.cuda.empty_cache()
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
@@ -4295,7 +4439,7 @@ def main() -> int:
         "replaces": "tools/static2probe.py:41 (kernel)",
         **construct_probe,
         "shape": "k0-k3, 128 ops, 65536 sites, summed",
-    }, message]
+    }, message, newton]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
                                  f"main path")

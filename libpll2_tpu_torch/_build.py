@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of this package.
 
-The kernels live in csrc/*.cu with a plain C interface.  On first use each
-source is compiled with nvcc for sm_90a (one nvcc per source, all started
-together), the objects are linked into one shared library under
-build/libpll2_tpu_torch/ (beside the package), named by a hash of the
-sources and flags so that an edited source is rebuilt, and loaded with
+The kernels live in csrc/*.cu with a plain C interface, and the code two
+of them share in csrc/*.cuh.  On first use each source is compiled with
+nvcc for sm_90a (one nvcc per source, all started together), the objects
+are linked into one shared library under build/libpll2_tpu_torch/ (beside
+the package), named by a hash of the sources, headers and flags so that
+an edited source or header is rebuilt, and loaded with
 ctypes.  Nothing is built at import time: the CPU tests import every module
 of the package on machines with no nvcc.  `build` and `library` take the
 build directory and the source directory as arguments (probes/cache.py
@@ -28,8 +29,10 @@ PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = PACKAGE / "csrc"
 SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_generic.cu", "tree_sweep_mma.cu",
                 "edge_score.cu", "mma_probe.cu", "cache_probe.cu",
-                "construct_probe.cu", "message_sweep.cu")
+                "construct_probe.cu", "message_sweep.cu", "newton_edges.cu")
 SOURCES = tuple(SOURCE_DIR / name for name in SOURCE_NAMES)
+# headers the sources include: hashed with them, compiled only through them
+HEADER_NAMES = ("newton_passes.cuh",)
 BUILD_DIR = PACKAGE.parent / "build" / "libpll2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,10 +72,11 @@ def _directories(build_dir, source_dir):
 
 def library_path(build_dir=None, source_dir=None) -> Path:
     """Where the library of these sources goes: named by a hash of the
-    flags and of every source's bytes, inside the build directory."""
+    flags and of every source's and header's bytes, inside the build
+    directory."""
     build_dir, source_dir = _directories(build_dir, source_dir)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCE_NAMES:
+    for name in SOURCE_NAMES + HEADER_NAMES:
         digest.update((source_dir / name).read_bytes())
     return build_dir / f"libpll2_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -227,6 +231,17 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
         i, p,          # device, stream
     ]
     lib.message_sweep_launch.restype = ctypes.c_int
+    lib.newton_edges_launch.argtypes = [
+        p, p, p, i,    # clv, edge_rows, members, n
+        p,             # bl
+        p, p, p, p,    # lbd, rbd, xw, pw
+        i, i, i, i,    # rates, states, sites, newton_iters
+        f, f,          # lo, hi
+        i, p,          # cluster, stream
+    ]
+    lib.newton_edges_launch.restype = ctypes.c_int
+    lib.newton_edges_smem.argtypes = [i, i, i, i]
+    lib.newton_edges_smem.restype = ctypes.c_int
     lib.tree_sweep_max_smem.argtypes = [ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)]
     lib.tree_sweep_max_smem.restype = ctypes.c_int

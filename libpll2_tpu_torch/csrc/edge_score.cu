@@ -81,12 +81,11 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+// THREADS, the cluster sums, the resident passes and the Newton step
+#include "newton_passes.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
 // The generic-state form (the state counts without an instantiation of
 // their own): pass 0 holds a site's columns in registers (site_lk_regs);
 // the resident form's later passes, which read only the sumtable, run four
@@ -168,28 +167,6 @@ __device__ __forceinline__ void load_constants(const Args& a, const int* op,
   for (int q = threadIdx.x; q < span; q += THREADS) {
     sx[q] = __ldg(a.xw + 2 * q);
     sw[q] = __ldg(a.xw + 2 * q + 1);
-  }
-}
-
-// V consecutive sites from p: one 16-byte load at V = 4 (p 16-byte aligned).
-template <int V>
-__device__ __forceinline__ void load_sites(const float* p, float (&x)[V]) {
-  static_assert(V == 1 || V == 4, "one site or four");
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_sites(const int* p, int (&x)[V]) {
-  if constexpr (V == 4) {
-    const int4 t = __ldg(reinterpret_cast<const int4*>(p));
-    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else {
-    x[0] = __ldg(p);
   }
 }
 
@@ -352,42 +329,6 @@ __device__ __forceinline__ void site_lk_regs(
   }
 }
 
-// The same from sumtable columns kept in shared memory.
-template <int V>
-__device__ __forceinline__ void site_lk_resident(const float* st,
-                                                 int st_stride, int span,
-                                                 const float4* se, bool derivs,
-                                                 float (&lk0)[V],
-                                                 float (&lk1)[V],
-                                                 float (&lk2)[V]) {
-#pragma unroll
-  for (int v = 0; v < V; ++v) lk0[v] = lk1[v] = lk2[v] = 0.0f;
-  for (int q = 0; q < span; ++q) {
-    float val[V];
-    const float* src = st + (size_t)q * st_stride;
-    if constexpr (V == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src);
-      val[0] = t.x, val[1] = t.y, val[2] = t.z, val[3] = t.w;
-    } else {
-      val[0] = src[0];
-    }
-    const float4 e = se[q];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      lk0[v] = fmaf(val[v], e.x, lk0[v]);
-      if (derivs) {
-        lk1[v] = fmaf(val[v], e.y, lk1[v]);
-        lk2[v] = fmaf(val[v], e.z, lk2[v]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float4 e_term(float x, float w0, float t) {
-  const float e = w0 * expf(x * t);
-  return make_float4(e, x * e, x * x * e, 0.0f);
-}
-
 // The live sites' share of the pass's sums: (w d1, w d2) in a Newton pass,
 // the weighted log-likelihood with its scalers in the last.  A site of
 // weight 0 is padding and adds nothing (its L may be 0).
@@ -422,33 +363,6 @@ __device__ __forceinline__ void accumulate(bool last, const float (&w)[V],
   }
 }
 
-template <int V>
-__device__ __forceinline__ bool any_live(const float (&w)[V]) {
-  bool live = false;
-#pragma unroll
-  for (int v = 0; v < V; ++v) live |= w[v] > 0.0f;
-  return live;
-}
-
-// The safeguarded Newton step from the pass's (d1, d2).
-__device__ __forceinline__ float newton_step(float t, float d1, float d2) {
-  const float newton = t - d1 / d2;
-  const float fallback = d1 > 0.0f ? t * 0.5f : t * 2.0f;
-  float tn = d2 > 0.0f ? newton : fallback;
-  if (!isfinite(tn)) tn = t;
-  return fminf(fmaxf(tn, 1e-8f), 100.0f);
-}
-
-// Sum (x, y) over the warp; the result is valid in lane 0.
-__device__ __forceinline__ float2 warp_sum2(float x, float y) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_down_sync(0xffffffffu, x, off);
-    y += __shfl_down_sync(0xffffffffu, y, off);
-  }
-  return make_float2(x, y);
-}
-
 // Floats of shared memory of the two forms, before the resident form's
 // sumtable stripe.  "reread": red [NWARPS] float2, the e-terms [R*S] float4,
 // then H, ML, EV [R][S][S] and x, w0 [R*S].  "resident": sums [2][MAX_CLUSTER]
@@ -462,8 +376,6 @@ __host__ __device__ constexpr int const_floats(int R, int S) {
 __host__ __device__ constexpr int reread_floats(int R, int S) {
   return 2 * NWARPS + 4 * R * S + const_floats(R, S);
 }
-constexpr int MAX_CLUSTER = 8;
-constexpr int SUM_FLOATS = 2 * MAX_CLUSTER * NWARPS * 2;
 __host__ __device__ constexpr int resident_head_floats(int R, int S) {
   return (SUM_FLOATS + 4 * NWARPS * R * S + const_floats(R, S) + 3) / 4 * 4;
 }
@@ -536,7 +448,7 @@ __global__ void __launch_bounds__(THREADS) edge_score_kernel(Args a) {
         tot.y += red[w].y;
       }
       if (!last) {
-        s_t = newton_step(t, tot.x, tot.y);
+        s_t = newton_step<true>(t, tot.x, tot.y, 1e-8f, 100.0f);
       } else {
         a.score[slot] = tot.x;
         a.t3[slot] = t;
@@ -652,46 +564,17 @@ edge_score_resident_kernel(Args a, int stripe) {
     } else {
       v_pass();
     }
-    // every warp pushes its sum into every CTA of the cluster (remote
-    // stores; the barrier makes them visible); the shuffles also bring the
-    // warp past its reads of this pass's e-terms
-    float2* pass_sums = sums + (it & 1) * MAX_CLUSTER * NWARPS;
-    const float2 warp_tot = warp_sum2(acc1, acc2);
-    if (lane == 0) {
-      float2* mine_at = pass_sums + rank * NWARPS + warp;
-      for (int r = 0; r < k; ++r)
-        *cluster.map_shared_rank(mine_at, r) = warp_tot;
-    }
-    cluster.sync();
-    // every thread of every CTA, from its own shared memory: each stripe's
-    // sum, the stripes in rank order
-    float d1 = 0.0f, d2 = 0.0f;
-    for (int r = 0; r < k; ++r) {
-      float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) {
-        const float2 p = pass_sums[r * NWARPS + w];
-        s1 += p.x;
-        s2 += p.y;
-      }
-      d1 += s1;
-      d2 += s2;
-    }
+    // the pass's sums over the cluster, in stripe order
+    const float2 d = cluster_sum2(
+        cluster, sums + (it & 1) * MAX_CLUSTER * NWARPS, k, rank, acc1, acc2);
     if (!last) {
-      t = newton_step(t, d1, d2);
+      t = newton_step<true>(t, d.x, d.y, 1e-8f, 100.0f);
     } else if (rank == 0 && tid == 0) {
-      a.score[slot] = d1;
+      a.score[slot] = d.x;
       a.t3[slot] = t;
     }
   }
   // the last remote store was before the last barrier: a CTA may leave
-}
-
-template <class K>
-cudaError_t allow_shared(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 size_t resident_bytes(int rates, int S, int sites, int cluster) {
@@ -707,29 +590,10 @@ size_t reread_bytes(int rates, int S) {
 template <class K>
 cudaError_t launch_resident(K kernel, const Args& a, int n_slots, int S,
                             int cluster, cudaStream_t stream) {
-  int stripe = (a.sites + cluster - 1) / cluster;
-  const size_t smem = resident_bytes(a.rates, S, a.sites, cluster);
-  cudaError_t err = allow_shared(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)n_slots * cluster, 1, 1);
-  config.blockDim = dim3(THREADS, 1, 1);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, a, stripe);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const int stripe = (a.sites + cluster - 1) / cluster;
+  return launch_clusters(kernel, n_slots, cluster,
+                         resident_bytes(a.rates, S, a.sites, cluster), stream,
+                         a, stripe);
 }
 
 // cluster == 0: the "reread" form; else the "resident" form on clusters of

@@ -26,8 +26,11 @@ takes the case (f64 among them: `kernel_choice_for` warns).  The
 all-directions message sweep runs in one hand-written CUDA kernel launch
 on CUDA tensors at f32 (ops/message_sweep.py) and in the dense path on CPU
 tensors, when `cfg.use_kernel` is False, or where the kernel does not take
-the case (`message_sweep_choice`).  PyTorch runs eagerly, so there is no
-jit and no static-argument hashing.
+the case (`message_sweep_choice`).  The smoothing's Newton steps of a
+colour class (sumtables, steps, the f32 keep) run in one hand-written CUDA
+kernel launch on CUDA tensors at f32 for one partition
+(ops/newton_edges.py) and on the plain path elsewhere (`newton_choice`).
+PyTorch runs eagerly, so there is no jit and no static-argument hashing.
 """
 from __future__ import annotations
 
@@ -43,9 +46,12 @@ from torch import nn
 
 from . import forward_graph, spans
 from .config import PartitionConfig
+from .constants import AB_NONE
 from .ops import derivatives as derivatives_ops
+from .ops import edge_score as edge_score_ops
 from .ops import likelihood as likelihood_ops
 from .ops import message_sweep as message_sweep_ops
+from .ops import newton_edges as newton_edges_ops
 from .ops import partials as partials_ops
 from .ops import partials_tree
 from .ops import pmatrix as pmatrix_ops
@@ -537,6 +543,27 @@ class FullTreeProgram:
                 self.level_ops, dtype=torch.int64, device=device)
         return self._device[key]
 
+    def edge_rows_tensor(self, device: torch.device) -> torch.Tensor:
+        """edge_rows as an int64 [E, 4] tensor on `device` (cached): the
+        rows the all-edge body and the Newton kernel read."""
+        key = ("edge_rows", str(device))
+        if key not in self._device:
+            self._device[key] = torch.as_tensor(
+                self.edge_rows, dtype=torch.int64, device=device)
+        return self._device[key]
+
+    def color_members(self, device: torch.device) -> list:
+        """Each colour class's branch positions, ascending, as int64
+        tensors on `device` (cached): read on the host from edge_colors,
+        so that no class costs a device sync."""
+        key = ("color_members", str(device))
+        if key not in self._device:
+            self._device[key] = [
+                torch.as_tensor(np.flatnonzero(self.edge_colors == c),
+                                dtype=torch.int64, device=device)
+                for c in range(self.n_colors)]
+        return self._device[key]
+
 
 def compile_tree_full(tree: UTree, cfg: PartitionConfig) -> FullTreeProgram:
     """Compile msg(u->v) for every half-node g at an inner node u, where
@@ -795,11 +822,6 @@ def _edge_sumtables(program: FullTreeProgram, cfg: PartitionConfig,
         asc_scalers=_asc_scalers(scalers, rows, cfg))
 
 
-def _edge_rows(program: FullTreeProgram, device) -> torch.Tensor:
-    return torch.as_tensor(program.edge_rows, dtype=torch.int64,
-                           device=device)
-
-
 # One partition of an all-edge call over shared branch lengths: its inputs,
 # its eigenvalues per rate category and its multiplier s_k in its dtype
 # (None under linked lengths).
@@ -875,38 +897,138 @@ def _finite_or_start(parts, sumtables, start, end):
     return torch.where(torch.isfinite(logl), end, start.to(end.dtype))
 
 
+# per invariant tensor: (its in-place version when read, whether it marks
+# a site), so that the device is read once a tensor, not once a call
+_marked_sites = torch.utils.weak.WeakIdKeyDictionary()
+
+
+def _marks_a_site(invariant) -> bool:
+    """Whether `invariant` marks a site (an entry >= 0); cached per tensor
+    and in-place version."""
+    seen = _marked_sites.get(invariant)
+    if seen is None or seen[0] != invariant._version:
+        seen = (invariant._version, bool((invariant >= 0).any()))
+        _marked_sites[invariant] = seen
+    return seen[1]
+
+
+def newton_refusal(parts, device) -> Optional[str]:
+    """Why the Newton kernel (ops/newton_edges.py) cannot smooth these
+    partitions' colour classes on `device`, or None: its contract is one
+    partition with no multiplier, f32, per-site scalers, no ascertainment
+    bias, no invariant-marked site, and a shape whose sumtable stripe fits
+    a CTA at some cluster size (newton_edges.unsupported, on an H100's
+    shared memory where `device` is not a card of this process)."""
+    if len(parts) != 1:
+        return (f"{len(parts)} partitions (the kernel smooths one; K > 1 "
+                f"sum their derivatives on the plain path)")
+    p = parts[0]
+    cfg = p.cfg
+    if p.scale is not None:
+        return "a per-partition branch-length multiplier"
+    if cfg.dtype != torch.float32:
+        return f"the kernel computes f32, not {cfg.dtype}"
+    if cfg.per_rate_scalers:
+        return "per-rate scalers"
+    if cfg.asc_bias != AB_NONE:
+        return "an ascertainment bias correction"
+    if _marks_a_site(p.invariant):
+        return "an invariant-marked site"
+    return newton_edges_ops.unsupported(cfg.rate_cats, cfg.states,
+                                        cfg.sites_padded,
+                                        edge_score_ops.smem_limit_of(device))
+
+
+def newton_choice(parts, device) -> bool:
+    """Whether the all-edge body smooths each colour class with the Newton
+    kernel (True: one launch a class) or on the plain path (False),
+    decided on the host from what the call shows: the kernel on a CUDA
+    device where `newton_refusal` finds no reason against it.  use_kernel
+    False, or a CPU device: the plain path.  A refused case: under
+    use_kernel=None the plain path, with one UserWarning naming the
+    reason; under use_kernel=True a ValueError.  Counters on the function,
+    since the process started: .kernel_classes and .plain_classes, the
+    colour classes each path smoothed."""
+    use = [p.cfg.use_kernel for p in parts]
+    if False in use or device.type != "cuda":
+        return False
+    reason = newton_refusal(parts, device)
+    if reason is None:
+        return True
+    if True not in use:
+        warnings.warn(f"the plain path smooths these colour classes on "
+                      f"{device}: {reason}", UserWarning, stacklevel=3)
+        return False
+    raise ValueError(f"the Newton kernel cannot take this case: {reason} "
+                     f"(use_kernel=False selects the plain path)")
+
+
+newton_choice.kernel_classes = 0
+newton_choice.plain_classes = 0
+
+
+def _newton_plain(parts, sweeps, edge_rows, members, bl, newton_iters,
+                  min_branch, max_branch):
+    """One colour class's Newton work on the plain path, by edge chunk:
+    sumtables, newton_iters steps on the summed (d1, d2), the f32 keep.
+    Returns a copy of bl with the class's new lengths."""
+    bl = bl.clone()
+    for chunk in _edge_chunks([p.cfg for p in parts], members):
+        sts = _sumtables(parts, sweeps, edge_rows[chunk])
+        start = bl[chunk]
+        t = start
+        for _ in range(newton_iters):
+            d1, d2 = _derivatives(parts, sts, t)
+            # the JAX step has no non-finite guard; keep its semantics (a
+            # NaN length ends at its start below)
+            t = derivatives_ops.newton_update(t, d1, d2, min_branch,
+                                              max_branch,
+                                              hold_nonfinite=False)
+        t = _finite_or_start(parts, sts, start, t)
+        bl[chunk] = t.to(bl.dtype)
+    return bl
+
+
 def _optimize_branch_lengths(programs, cfgs, models, branch_lengths,
                              tipchars, pattern_weights, invariant, scalers,
                              rounds, newton_iters, min_branch, max_branch):
     """optimize_branch_lengths over K partitions sharing one topology and
     one [E] length vector: K-sequences of per-partition inputs, `scalers`
-    None or the [K] multipliers s_k.  Returns (lengths, summed logL)."""
+    None or the [K] multipliers s_k.  Each colour class's Newton work (its
+    sumtables, steps and keep) is one launch of the Newton kernel where
+    `newton_choice` takes the case, else the plain path below, which
+    computes the same.  Returns (lengths, summed logL)."""
     parts = _parts(programs, cfgs, models, tipchars, pattern_weights,
                    invariant, scalers)
     program = programs[0]               # the edge layout is shared
     device = tipchars[0].device
-    edge_rows = _edge_rows(program, device)
-    colors = torch.as_tensor(program.edge_colors, device=device)
+    edge_rows = program.edge_rows_tensor(device)
+    classes = program.color_members(device)
+    kernel = newton_choice(parts, device)
     bl = branch_lengths
+    if kernel:
+        p = parts[0]
+        dtype = p.cfg.dtype
+        constants = edge_score_ops.block_constants(p.model, p.cfg, dtype)
+        pw = p.pattern_weights.to(dtype).contiguous()
+        bl = branch_lengths.to(dtype, copy=True).contiguous()
     for _ in range(rounds):
-        for c in range(program.n_colors):
-            members = torch.nonzero(colors == c).flatten()
+        for members in classes:
             sweeps = _sweeps(parts, bl)
-            bl = bl.clone()
-            for chunk in _edge_chunks(cfgs, members):
-                sts = _sumtables(parts, sweeps, edge_rows[chunk])
-                start = bl[chunk]
-                t = start
-                for _ in range(newton_iters):
-                    d1, d2 = _derivatives(parts, sts, t)
-                    # the JAX step has no non-finite guard; keep its
-                    # semantics (a NaN length ends at its start below)
-                    t = derivatives_ops.newton_update(
-                        t, d1, d2, min_branch, max_branch,
-                        hold_nonfinite=False)
-                t = _finite_or_start(parts, sts, start, t)
-                bl[chunk] = t.to(bl.dtype)
+            with spans.span("newton"):
+                if kernel:
+                    newton_edges_ops.newton_edges(
+                        sweeps[0][0], edge_rows, members, bl, *constants, pw,
+                        newton_iters=newton_iters, min_branch=min_branch,
+                        max_branch=max_branch)
+                    newton_choice.kernel_classes += 1
+                else:
+                    bl = _newton_plain(parts, sweeps, edge_rows, members,
+                                       bl, newton_iters, min_branch,
+                                       max_branch)
+                    newton_choice.plain_classes += 1
             del sweeps
+    bl = bl.to(branch_lengths.dtype)
 
     # final logL across the root edge with the optimized lengths
     ra, rsa, rb, rsb = program.edge_rows[program.root_edge].tolist()
@@ -933,7 +1055,8 @@ def optimize_branch_lengths(program: FullTreeProgram, cfg: PartitionConfig,
     (_finite_or_start: f32 only).  The JAX package computes a proposal for
     every branch and keeps the class's; this computes only the class's,
     with the same values.  The body is _optimize_branch_lengths, with one
-    partition.
+    partition; on the card at f32 a class's Newton work is one launch of
+    the Newton kernel (ops/newton_edges.py, `newton_choice`).
 
     Returns (optimized_branch_lengths, logl_after)."""
     return _optimize_branch_lengths(
@@ -971,7 +1094,7 @@ def score_placements(program: FullTreeProgram, cfg: PartitionConfig,
     p3 = pmats(torch.as_tensor(sub_branch_length, dtype=dtype,
                                device=device).reshape(1))[0]
     sub_term = torch.einsum("rij,rjt->rit", p3, sub_clv.to(dtype))
-    edge_rows = _edge_rows(program, device)
+    edge_rows = program.edge_rows_tensor(device)
     out = []
     for chunk in _edge_chunks((cfg,),
                               torch.arange(len(edge_rows), device=device)):
@@ -994,7 +1117,7 @@ def _branch_derivatives(programs, cfgs, models, branch_lengths, tipchars,
     parts = _parts(programs, cfgs, models, tipchars, pattern_weights,
                    invariant, scalers)
     device = tipchars[0].device
-    edge_rows = _edge_rows(programs[0], device)
+    edge_rows = programs[0].edge_rows_tensor(device)
     sweeps = _sweeps(parts, branch_lengths)
     d1s, d2s = [], []
     for chunk in _edge_chunks(cfgs, torch.arange(len(edge_rows),
@@ -1074,7 +1197,7 @@ class _LoglikelihoodAnalytic(torch.autograd.Function):
         idx = params_indices.long()
 
         clv, scalers, pmatrix = _sweep_all(full, cfg, model, bl, tipchars)
-        edge_rows = _edge_rows(full, device)
+        edge_rows = full.edge_rows_tensor(device)
         pmat_slots = torch.as_tensor(full.pmatrix_indices, dtype=torch.int64,
                                      device=device)
         freqs = model.cat_freqs.to(dtype)                         # [R, S]

@@ -78,7 +78,7 @@ CLUSTER_SIZES = (1, 2, 4, 8)
 # passes): clusters of 4 (68 KB a CTA) 7.5 ms, of 2 (131 KB, one CTA an
 # SM) 8.5 ms, of 8 (half the threads idle at four sites a thread) 13.2 ms.
 RESIDENT_CTAS_PER_SM = 3
-# threads of a CTA of either form (csrc/edge_score.cu THREADS)
+# threads of a CTA of either form (csrc/newton_passes.cuh THREADS)
 THREADS = 256
 
 
@@ -106,20 +106,30 @@ def reread_smem_bytes(rate_cats: int, states: int) -> int:
     return 4 * (16 + 4 * span + 3 * rate_cats * states * states + 2 * span)
 
 
-def plan(rate_cats: int, states: int, sites: int,
-         smem_limit: int = SMEM_LIMIT) -> tuple:
-    """(form, cluster) of the kernel for this shape: "resident" on the
-    smallest cluster in CLUSTER_SIZES whose CTA needs at most
-    smem_limit / RESIDENT_CTAS_PER_SM bytes (so that CTAs of several slots
-    share an SM and hide each other's latency); failing that, on the
-    smallest cluster whose CTA fits `smem_limit` at all; ("reread", 0)
-    where even the largest cluster does not fit (`unsupported` says
-    whether that form fits)."""
+def resident_cluster(cta_bytes, smem_limit: int = SMEM_LIMIT):
+    """The smallest cluster in CLUSTER_SIZES whose CTA needs at most
+    smem_limit / RESIDENT_CTAS_PER_SM bytes (`cta_bytes(k)`: a CTA's
+    shared memory at k CTAs), so that CTAs of several clusters share an SM
+    and hide each other's latency; failing that, the smallest whose CTA
+    fits `smem_limit` at all; None where even the largest does not fit.
+    The edge scorer's resident form and the Newton smoothing
+    (ops/newton_edges.py) size their clusters so."""
     for budget in (smem_limit // RESIDENT_CTAS_PER_SM, smem_limit):
         for k in CLUSTER_SIZES:
-            if resident_smem_bytes(rate_cats, states, sites, k) <= budget:
-                return "resident", k
-    return "reread", 0
+            if cta_bytes(k) <= budget:
+                return k
+    return None
+
+
+def plan(rate_cats: int, states: int, sites: int,
+         smem_limit: int = SMEM_LIMIT) -> tuple:
+    """(form, cluster) of the kernel for this shape: "resident" on
+    `resident_cluster`'s cluster; ("reread", 0) where even the largest
+    cluster does not fit (`unsupported` says whether that form fits)."""
+    k = resident_cluster(
+        lambda k: resident_smem_bytes(rate_cats, states, sites, k),
+        smem_limit)
+    return ("reread", 0) if k is None else ("resident", k)
 
 
 def unsupported(rate_cats: int, states: int,
@@ -156,8 +166,13 @@ def model_constants(model, cfg):
     """(L_bd, R_bd [span, span], xw [span, 2]) f32: the block-diagonal
     per-category ML and EV matrices and, per (rate, state), x | w0 — the
     JAX package's layout."""
+    return block_constants(model, cfg, torch.float32)
+
+
+def block_constants(model, cfg, dtype):
+    """model_constants in `dtype` (the Newton smoothing's plain version
+    takes f64 as well as f32)."""
     R, S = cfg.rate_cats, cfg.states
-    dtype = torch.float32
     idx = model.params_indices.long()
     evecs = model.eigenvecs[idx].to(dtype)                      # [R, S, S]
     inv_evecs = model.inv_eigenvecs[idx].to(dtype)

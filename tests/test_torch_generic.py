@@ -21,6 +21,8 @@ from libpll2_tpu_torch.tree.generate import balanced_newick
 
 SWEEP = (_build.SOURCE_DIR / "tree_sweep_generic.cu").read_text()
 SCORER = (_build.SOURCE_DIR / "edge_score.cu").read_text()
+# the scorer's resident passes and THREADS, shared with newton_edges.cu
+PASSES = (_build.SOURCE_DIR / "newton_passes.cuh").read_text()
 
 
 def const(text, name, kind="int"):
@@ -74,7 +76,8 @@ def test_scorer_generic_constants_match_the_kernel_source():
     assert "edge_score_resident_kernel<0, 4, 0, SMAX>" in SCORER
     assert int(const(SCORER, "RESIDENT_CTAS_GENERIC")) >= \
         edge_score.RESIDENT_CTAS_PER_SM
-    assert int(const(SCORER, "THREADS")) == edge_score.THREADS
+    assert '#include "newton_passes.cuh"' in SCORER
+    assert int(const(PASSES, "THREADS")) == edge_score.THREADS
     assert all(edge_score.reread_smem_bytes(4, s) == 4 * (
         16 + 4 * 4 * s + 3 * 4 * s * s + 2 * 4 * s) for s in range(2, 33))
 

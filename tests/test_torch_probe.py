@@ -346,7 +346,7 @@ def test_library_path_follows_sources_and_directories(tmp_path):
     assert moved.name == default.name
     edited = cache.edited_copy(_build.SOURCE_DIR, tmp_path / "csrc")
     assert sorted(f.name for f in edited.iterdir()) == \
-        sorted(_build.SOURCE_NAMES)
+        sorted(_build.SOURCE_NAMES + _build.HEADER_NAMES)
     a = _build.library_path(tmp_path / "b", edited)
     assert a.parent == moved.parent and a.name != moved.name
     again = (edited / "cache_probe.cu").read_bytes()
@@ -356,6 +356,22 @@ def test_library_path_follows_sources_and_directories(tmp_path):
                                    for n in _build.SOURCE_NAMES)
     assert {"cache_probe.cu", "construct_probe.cu"} <= set(
         _build.SOURCE_NAMES)
+
+
+def test_library_path_follows_headers(tmp_path):
+    """A header the sources include is hashed with them: one byte more in
+    it renames the library, and undoing the edit restores the name."""
+    import shutil
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCE_DIR, src)
+    name = _build.library_path(tmp_path / "b", src).name
+    for header in _build.HEADER_NAMES:
+        text = (src / header).read_bytes()
+        assert b"#pragma once" in text
+        (src / header).write_bytes(text + b"\n")
+        assert _build.library_path(tmp_path / "b", src).name != name
+        (src / header).write_bytes(text)
+        assert _build.library_path(tmp_path / "b", src).name == name
 
 
 def test_build_keys_on_its_directories(tmp_path, monkeypatch):
