@@ -170,7 +170,15 @@ Phases (any failure exits non-zero):
      all-edge body's plain path's and its bytes roof (two message rows an
      edge, read once); then optimize_branch_lengths at that shape on the
      kernels against the plain paths, the Newton launches counted from 0
-     (the kernels line's count; `[newton]` lines).
+     (the kernels line's count; `[newton]` lines);
+ 32. the wide sweep (csrc/tree_sweep_wide.cu) at codon_eval's shape (128
+     random taxa x 16,384 codons, GY94 + F3x4 + Gamma4, 61 states, f32):
+     rows and scalers against its plain version, its time back to back and
+     in single calls beside the plain version's and the dense path's (the
+     sweep the engine runs without a form: level-batched products, every
+     CLV in device memory), which it must beat, its share of the roof
+     (operations at TF32, int64 tips), then engine.loglikelihood through
+     it against dense f64, one launch, no warning (`[wide]` lines).
 
 The edge scorer's two forms (the sumtable resident in a thread-block
 cluster's shared memory, or re-read from the rows in every pass) are both
@@ -363,7 +371,8 @@ def read_counts() -> dict:
             "construct_probe": constructs.static2.launches,
             "construct_probe_c0_c4": constructs.constructs.launches,
             "message_sweep": message_sweep.sweep_messages.launches,
-            "newton_edges": newton_edges.newton_edges.launches}
+            "newton_edges": newton_edges.newton_edges.launches,
+            "tree_sweep_wide": by_mode[partials_tree.WIDE]}
 
 
 def phase_device():
@@ -4255,6 +4264,143 @@ def phase_newton_edges(device, card):
     }
 
 
+WIDE_TIPS, WIDE_SITES = 128, 16384     # phase 32: codon_eval's shape
+WIDE_KAPPA, WIDE_OMEGA = 2.5, 0.2
+WIDE_F3X4 = ((0.26, 0.22, 0.33, 0.19), (0.31, 0.23, 0.17, 0.29),
+             (0.18, 0.32, 0.30, 0.20))
+WIDE_REPS = 20
+WIDE_RTOL = 1e-5         # wide kernel vs plain rows, of a site's largest
+
+
+def wide_work(tips, sites, states, rates):
+    """(FLOP, bytes) of one sweep at the shape: each of the tips - 2 ops S
+    products a (site, rate), each of tips - 4 inner children a dense S x S
+    product (a tip child's message is a column of P, no product); the
+    int64 tips, every branch's P (f32) and the two root rows read or
+    written once (pllbench's wide_sweep_roofline.codon counts the same)."""
+    flop = sites * rates * ((tips - 2) * states
+                            + (tips - 4) * 2 * states * states)
+    nbytes = 8 * tips * sites + 4 * ((2 * tips - 3) * rates * states ** 2
+                                     + 2 * rates * states * sites)
+    return flop, nbytes
+
+
+def phase_wide_sweep(device, card):
+    """Phase 32: the wide sweep at codon_eval's shape (module docstring).
+    Returns the kernels-line entry."""
+    import torch
+
+    from libpll2_tpu_torch import engine
+    from libpll2_tpu_torch.models import codon
+    from libpll2_tpu_torch.ops import partials_tree
+    from libpll2_tpu_torch.tree.generate import random_newick
+
+    t_phase = time.perf_counter()
+    subst = codon.gy94_exchangeabilities(WIDE_KAPPA, WIDE_OMEGA)
+    freqs = codon.f3x4_frequencies(WIDE_F3X4)
+    newick = random_newick(WIDE_TIPS, np.random.default_rng(61),
+                           min_bl=0.02, max_bl=0.35)
+    case = engine.build_case(WIDE_TIPS, WIDE_SITES, dtype=torch.float32,
+                             device=device, seed=61, states=61,
+                             newick=newick, subst=subst, freqs=freqs)
+    cfg, program, model, bl, tipchars, pw, inv = case
+    prog = program.vmem_prog
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        choice = engine.kernel_choice(program, cfg, device)
+    check(choice is not None and choice[1] == partials_tree.WIDE,
+          f"kernel_choice at 61 states: {choice}")
+    tb = choice[0]
+    n_slots = partials_tree.wide_device_table(prog)[1]
+    pmatrix = engine.pmatrix_buffer(program, cfg, model, bl)
+    tip_b = engine.block_tips(tipchars, cfg, tb)
+    reset_counts()
+    clv, scal = partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                    mode=partials_tree.WIDE)
+    torch.cuda.synchronize()
+    launches = read_counts()["tree_sweep_wide"]
+    want_clv, want_scal = partials_tree.sweep_reference(tip_b, pmatrix, prog,
+                                                        cfg, tb)
+    rel, flips, comp, err = compare_rows_site(clv, want_clv, scal,
+                                              want_scal)
+    rel = max(rel, comp)
+    log(f"[wide] {WIDE_TIPS} x {WIDE_SITES} codons, 61 states, 4 rates: "
+        f"block {tb}, pool {n_slots} slots (schedule {prog.pool_size}), "
+        f"{partials_tree.smem_bytes(prog, cfg, tb, partials_tree.WIDE)} "
+        f"bytes a CTA, {cfg.sites_padded // tb} CTAs; rows against plain: "
+        f"max abs err {err:.3e}, scaler mismatches {flips}, max err of a "
+        f"site's largest entry {rel:.3e}; scaled site rows "
+        f"{int((want_scal > 0).sum())}")
+    check(launches == 1 and rel < WIDE_RTOL and flips <= 4,
+          f"wide kernel off its plain version: rel {rel}, {flips} scaler "
+          f"mismatches, {launches} launches")
+    del want_clv, want_scal
+
+    def kernel():
+        return partials_tree.sweep(tip_b, pmatrix, prog, cfg, tb,
+                                   mode=partials_tree.WIDE)
+
+    dense_cfg = dataclasses.replace(cfg, use_kernel=False)
+
+    def dense():
+        return engine._tree_rows(program, dense_cfg, pmatrix, tipchars, None)
+
+    def plain():
+        return partials_tree.sweep_reference(tip_b, pmatrix, prog, cfg, tb)
+
+    kernel_ms = cuda_ms_back_to_back(kernel, WIDE_REPS)
+    single = statistics.median(cuda_ms(kernel, 11))
+    dense_ms = cuda_ms_back_to_back(dense, 3)
+    dense_single = statistics.median(cuda_ms(dense, 3))
+    plain_ms = statistics.median(cuda_ms(plain, 3))
+    torch.cuda.empty_cache()
+    flop, nbytes = wide_work(WIDE_TIPS, WIDE_SITES, 61, 4)
+    ops_s, bytes_s = flop / TF32_RATE, nbytes / HBM_RATE
+    bound = max(ops_s, bytes_s) * 1e3
+    log(f"[wide] sweep {kernel_ms:.4f} ms back to back, single "
+        f"{single:.4f}; dense path {dense_ms:.4f} back to back, single "
+        f"{dense_single:.4f} (x{dense_ms / kernel_ms:.2f} the kernel's); "
+        f"plain version {plain_ms:.4f}; bound {bound:.4f} ms by operations "
+        f"at TF32 ({flop / 1e9:.2f} GFLOP; f32 FMA roof "
+        f"{flop / F32_RATE * 1e3:.4f} ms, bytes {bytes_s * 1e3:.4f} ms for "
+        f"{nbytes / 1e6:.1f} MB): {100 * bound / kernel_ms:.3f} % of the "
+        f"roof, {flop / kernel_ms / 1e9:.2f} TFLOP/s ({card})")
+    check(kernel_ms < dense_ms, f"the wide kernel ({kernel_ms} ms) is not "
+                                f"faster than the dense path ({dense_ms})")
+
+    # the main path: loglikelihood through the kernel against dense f64
+    f64 = dataclasses.replace(cfg, dtype=torch.float64, use_kernel=False)
+    model64 = engine.make_model([subst], [freqs], model.rates.double().cpu()
+                                .numpy(), dtype=torch.float64,
+                                device=device)
+    want = engine.loglikelihood(program, f64, model64, bl.double(),
+                                tipchars, pw.double(), inv).item()
+    reset_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = [engine.loglikelihood(program, cfg, model, bl, tipchars, pw,
+                                    inv).item() for _ in range(3)]
+    counts = read_counts()
+    gap = max(abs(g - want) / abs(want) for g in got)
+    log(f"[wide] loglikelihood {got[0]!r} (3 calls: eager, capture, replay;"
+        f" {counts['tree_sweep_wide']} wide launches) against dense f64 "
+        f"{want!r}: rel gap {gap:.3e}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    check(gap < LOGL_RTOL and counts["tree_sweep_wide"] == 3,
+          f"the codon forward: gap {gap}, launches {counts}")
+    return {
+        "name": "tree_sweep_wide", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/tree_sweep_wide.cu",
+        "replaces": "none (the JAX package has no path above 32 states)",
+        "launches": counts["tree_sweep_wide"],
+        "max_abs_err": err, "ms": kernel_ms, "single_call_ms": single,
+        "plain_ms": plain_ms, "dense_ms": dense_ms,
+        "dense_single_call_ms": dense_single, "bound_ms": bound,
+        "bound_by": "operations", "library_ms": None,
+        "shape": f"{WIDE_TIPS} x {WIDE_SITES} codons, 61 states, 4 rates",
+    }
+
+
 def main() -> int:
     import torch
     card = phase_device()
@@ -4320,6 +4466,8 @@ def main() -> int:
     message = phase_message_sweep(device, card)
     torch.cuda.empty_cache()
     newton = phase_newton_edges(device, card)
+    torch.cuda.empty_cache()
+    wide = phase_wide_sweep(device, card)
     torch.cuda.empty_cache()
 
     ppt = "libpll2_tpu/ops/partials_pallas_tree.py"
@@ -4439,7 +4587,7 @@ def main() -> int:
         "replaces": "tools/static2probe.py:41 (kernel)",
         **construct_probe,
         "shape": "k0-k3, 128 ops, 65536 sites, summed",
-    }, message, newton]
+    }, message, newton, wide]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
                                  f"main path")

@@ -29,7 +29,8 @@ PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = PACKAGE / "csrc"
 SOURCE_NAMES = ("tree_sweep.cu", "tree_sweep_generic.cu", "tree_sweep_mma.cu",
                 "edge_score.cu", "mma_probe.cu", "cache_probe.cu",
-                "construct_probe.cu", "message_sweep.cu", "newton_edges.cu")
+                "construct_probe.cu", "message_sweep.cu", "newton_edges.cu",
+                "tree_sweep_wide.cu")
 SOURCES = tuple(SOURCE_DIR / name for name in SOURCE_NAMES)
 # headers the sources include: hashed with them, compiled only through them
 HEADER_NAMES = ("newton_passes.cuh",)
@@ -154,6 +155,20 @@ def _library(build_dir: Path, source_dir: Path) -> ctypes.CDLL:
     lib.tree_sweep_generic_matrix_floats.restype = ctypes.c_int
     lib.tree_sweep_generic_staged.argtypes = [i, i, i]
     lib.tree_sweep_generic_staged.restype = ctypes.c_int
+    lib.tree_sweep_wide_launch.argtypes = [
+        p, i,          # ops, n_ops
+        p, i,          # items, n_items
+        p, p, i, p,    # pmat, p_base, n_pmat, pt
+        p, i,          # tip_blocked, tips
+        p, p,          # clv_out, scal_out
+        i, i, i, i,    # nt, tb, rates, states
+        i, i,          # n_slots, per_rate
+        f, f,          # thresh, factor
+        p,             # stream
+    ]
+    lib.tree_sweep_wide_launch.restype = ctypes.c_int
+    lib.tree_sweep_wide_smem.argtypes = [i, i, i, i, i]
+    lib.tree_sweep_wide_smem.restype = ctypes.c_longlong
     lib.tree_sweep_mma_launch.argtypes = [
         p, i,          # ops, n_ops
         p, p,          # pfrag, p_base

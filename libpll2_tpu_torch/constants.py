@@ -132,3 +132,35 @@ def gap_state_int32(states: int) -> int:
     states (numpy and torch refuse to cast 2^32 - 1 to int32)."""
     gap = gap_state(states)
     return gap - (1 << 32) if gap >= 1 << 31 else gap
+
+
+# Tip masks: int32 up to INT32_MASK_STATES states (every path of the port),
+# int64 from there up to MAX_MASK_STATES (libpll-2's 64-bit pll_state_t:
+# codon models at 61 states); an entry that reads int32 masks refuses more
+# states than INT32_MASK_STATES.
+INT32_MASK_STATES = 32
+MAX_MASK_STATES = 64
+
+
+def tip_mask_dtype(states: int):
+    """The numpy type of a tip mask at `states`: int32 up to
+    INT32_MASK_STATES, int64 up to MAX_MASK_STATES."""
+    if not 1 <= states <= MAX_MASK_STATES:
+        raise ValueError(f"a tip mask holds 1 to {MAX_MASK_STATES} states, "
+                         f"got {states}")
+    return np.int32 if states <= INT32_MASK_STATES else np.int64
+
+
+def tip_mask_torch_dtype(states: int):
+    """tip_mask_dtype as a torch type: torch.int32 or torch.int64."""
+    import torch
+    return torch.int32 if tip_mask_dtype(states) == np.int32 else torch.int64
+
+
+def gap_state_mask(states: int) -> int:
+    """gap_state as the tip mask of `tip_mask_dtype(states)` holds it: all
+    ones, -1, at 32 and at 64 states."""
+    if tip_mask_dtype(states) == np.int32:
+        return gap_state_int32(states)
+    gap = gap_state(states)
+    return gap - (1 << 64) if gap >= 1 << 63 else gap

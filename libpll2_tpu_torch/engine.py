@@ -46,7 +46,7 @@ from torch import nn
 
 from . import forward_graph, spans
 from .config import PartitionConfig
-from .constants import AB_NONE
+from .constants import AB_NONE, tip_mask_torch_dtype
 from .ops import derivatives as derivatives_ops
 from .ops import edge_score as edge_score_ops
 from .ops import likelihood as likelihood_ops
@@ -181,8 +181,8 @@ def make_model(subst_params, frequencies, rates, rate_weights=None,
 
 
 def expand_tipchars(tipchars, states: int, dtype):
-    """Bit-decode packed tip state masks [tips, T] int32 into 0/1 tip CLVs
-    [tips, S, T]."""
+    """Bit-decode packed tip state masks [tips, T] (int32, or int64 above
+    32 states) into 0/1 tip CLVs [tips, S, T]."""
     shifts = torch.arange(states, dtype=tipchars.dtype,
                           device=tipchars.device)[None, :, None]
     return ((tipchars[:, None, :] >> shifts) & 1).to(dtype)
@@ -190,19 +190,22 @@ def expand_tipchars(tipchars, states: int, dtype):
 
 def pad_tipchars(tipchars: np.ndarray, cfg: PartitionConfig) -> np.ndarray:
     """Pad encoded tip characters [tips, sites or sites_alloc] (bitmask) to
-    the engine's [tips, T] int32 input (padding columns = gap state, so
-    padded CLV entries are 1.0 and inert under scaling checks).
+    the engine's [tips, T] input (padding columns = gap state, so padded
+    CLV entries are 1.0 and inert under scaling checks): int32 up to 32
+    states, int64 from 33 to 64 (constants.tip_mask_dtype; a mask with bit
+    31 or 63 set reads negative).
 
     Under ascertainment bias the phantom per-state columns are stamped with
     pure states (phantom site j observes state j at every tip,
     pll.c:1006-1018) whether or not the input carries them."""
-    from .constants import AB_NONE, gap_state_int32
-    out = np.full((cfg.tips, cfg.sites_padded), gap_state_int32(cfg.states),
-                  dtype=np.int32)
-    out[:, :tipchars.shape[1]] = tipchars.astype(np.int32)
+    from .constants import AB_NONE, gap_state_mask, tip_mask_dtype
+    mask = tip_mask_dtype(cfg.states)
+    out = np.full((cfg.tips, cfg.sites_padded), gap_state_mask(cfg.states),
+                  dtype=mask)
+    out[:, :tipchars.shape[1]] = tipchars.astype(mask)
     if cfg.asc_bias != AB_NONE:
         out[:, cfg.sites:cfg.sites + cfg.states] = \
-            1 << np.arange(cfg.states, dtype=np.int32)
+            1 << np.arange(cfg.states, dtype=mask)
     return out
 
 
@@ -238,7 +241,9 @@ def kernel_choice_for(program: TreeProgram, cfg: PartitionConfig,
     prog = program.vmem_prog
     if cfg.sweep_mode is None:
         choice = partials_tree.choose(prog, cfg, limit, sm_count)
-        mode = "fma"      # the form whose refusal is reported
+        # the form whose refusal is reported
+        mode = partials_tree.WIDE if cfg.states > partials_tree.MAX_STATES \
+            else "fma"
     else:
         mode = cfg.sweep_mode
         choice = None
@@ -274,17 +279,19 @@ def pmatrix_buffer(program: TreeProgram, cfg: PartitionConfig, model: Model,
 
 
 def block_tips(tipchars, cfg: PartitionConfig, tb: int):
-    """[tips, T] packed tip states -> block-major [T/tb, tips, tb] int32."""
+    """[tips, T] packed tip states -> block-major [T/tb, tips, tb], int32
+    up to 32 states, int64 above (the wide sweep's masks)."""
     nt = cfg.sites_padded // tb
-    return tipchars.to(torch.int32).reshape(cfg.tips, nt, tb) \
-        .permute(1, 0, 2).contiguous()
+    return tipchars.to(tip_mask_torch_dtype(cfg.states)) \
+        .reshape(cfg.tips, nt, tb).permute(1, 0, 2).contiguous()
 
 
 def _sweep(program: TreeProgram, cfg: PartitionConfig, model: Model,
            branch_lengths, tipchars, pattern_weights):
     """P-matrices + full CLV sweep.  Returns (row view, pmatrix).
 
-    tipchars: packed bitmask states [tips, T] int32.
+    tipchars: packed bitmask states [tips, T] int32 (int64 above 32
+    states, pad_tipchars).
     """
     pmatrix = pmatrix_buffer(program, cfg, model, branch_lengths)
     choice = kernel_choice(program, cfg, tipchars.device)
@@ -307,6 +314,8 @@ def _tree_rows(program: TreeProgram, cfg: PartitionConfig, pmatrix,
         return _TreeView(clv_rows, scal_rows, program.vmem_prog,
                          tipchars, cfg)
 
+    if S > partials_tree.MAX_STATES:
+        partials_tree.sweep.wide_dense_calls += 1
     with spans.span("sweep"):
         clv = torch.zeros((cfg.num_clvs + 1, R, S, T), dtype=dtype,
                           device=device)
@@ -400,7 +409,8 @@ def loglikelihood(program: TreeProgram, cfg: PartitionConfig, model: Model,
                   group=None):
     """Full-tree log-likelihood across the root edge.
 
-    tipchars: [tips, T] int32 packed state bitmasks; pattern_weights: [T];
+    tipchars: [tips, T] packed state bitmasks, int32 (int64 above 32
+    states: pad_tipchars); pattern_weights: [T];
     invariant: [T] int32 (-1 = variant).  With `group`, T is this rank's
     slice and the sum runs over every rank's.
 
@@ -1302,8 +1312,8 @@ def build_case(n_tips: int, sites: int, rate_cats: int = 4,
     inputs).  states=4: GTR(1,2,1,1,2,1) with equal frequencies.
     states=20: the empirical model `aa_model_name` (models/aa.py); a
     four-matrix mixture (lg4m, lg4x) gets one matrix per rate category.
-    Any state count from 2 to 32 with `subst` and `freqs` given: that GTR
-    model, len(freqs) == states.
+    Any state count from 2 to 64 with `subst` and `freqs` given: that GTR
+    model (a codon model's, models/codon.py, at 61), len(freqs) == states.
 
     Returns (cfg, program, model, branch_lengths, tipchars,
     pattern_weights, invariant), tensors on `device`."""

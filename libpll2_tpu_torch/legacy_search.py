@@ -24,6 +24,7 @@ import torch
 
 from . import engine
 from .config import PartitionConfig
+from .constants import INT32_MASK_STATES
 from .ops import partials as partials_ops
 from .ops import pmatrix as pmatrix_ops
 from .partition import levelize_operations
@@ -115,6 +116,10 @@ def ml_spr_round(tree: UTree, cfg: PartitionConfig, model,
     not mutated), `logl` its likelihood, `improved` 1 if a move was
     applied.  Iterate until improved == 0 for a full SPR hill-climb.
     """
+    if cfg.states > INT32_MASK_STATES:
+        raise ValueError(f"legacy_search.ml_spr_round takes at most "
+                         f"{INT32_MASK_STATES} states (int32 tip masks), "
+                         f"got {cfg.states}")
     device = model.eigenvals.device
     newick = export_newick(tree.vroot)
     base = parse_newick_string(newick)

@@ -324,6 +324,9 @@ def edge_scores(away, away_scal, base, base_scal, halves, score_ops,
     if form is not None and form not in FORMS:
         raise ValueError(f"unknown edge scorer form {form!r}, not one of "
                          f"{FORMS}")
+    if away.dim() == 5 and not MIN_STATES <= away.shape[3] <= MAX_STATES:
+        raise ValueError(f"the edge scorer cannot take this case: "
+                         f"{unsupported(away.shape[2], away.shape[3])}")
     if all(x.device.type == "cpu" for x in tensors):
         return edge_scores_reference(*tensors, newton_iters=newton_iters,
                                      log_thresh=log_thresh)

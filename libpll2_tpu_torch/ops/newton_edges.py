@@ -184,6 +184,9 @@ def newton_edges(clv, edge_rows, members, bl, lbd, rbd, xw, pw, *,
     Returns bl."""
     tensors = (clv, edge_rows, members, bl, lbd, rbd, xw, pw)
     device = clv.device
+    if clv.dim() == 4 and not MIN_STATES <= clv.shape[2] <= MAX_STATES:
+        raise ValueError(f"the Newton kernel cannot take this case: "
+                         f"{unsupported(clv.shape[1], clv.shape[2], 1)}")
     if device.type != "cuda" or any(x.device != device for x in tensors):
         raise ValueError("Newton kernel inputs must all lie on one CUDA "
                          "device, got "

@@ -18,7 +18,7 @@ of its children, and the columns of `carry_flags`.  Under the Sethi–Ullman
 order most ops consume the parent the op before them wrote; `carry_flags`
 marks those, and the kernels hand such a parent on in registers instead of
 through its pool slot (same values, so the rows are bit-equal with the
-carry on or off).  Two forms of the kernel exist, picked by
+carry on or off).  Three forms of the kernel exist, picked by
 `sweep(..., mode=)`:
 
   * "fma" (csrc/tree_sweep.cu): a thread per rate category of two sites
@@ -38,14 +38,20 @@ carry on or off).  Two forms of the kernel exist, picked by
     rate-block-diagonal P on the tensor cores, TF32 with a compensated
     split of both operands (bf16 operands at a bf16 pool).  It is the
     counterpart of the runtime-ops kernels' "mxu" and "splitk" modes
-    (`_tree_kernel`, `_tree_kernel_splitk`).
+    (`_tree_kernel`, `_tree_kernel_splitk`);
+  * "wide" (csrc/tree_sweep_wide.cu): 33 to 64 states (codon models), the
+    tip masks int64, f32; a thread forms a 4 x 4 tile of rows and sites of
+    one rate over half the contraction, an inner child's P-matrix staged a
+    rate at a time and a tip child's columns read from device memory, the
+    exported parents written straight to device memory.  The JAX package,
+    whose masks are int32, has no counterpart.
 
-Both forms take the site block that fills the card (`pick_site_block` with
+The forms take the site block that fills the card (`pick_site_block` with
 the SM count).  `choose()` picks the form by the times measured on an H100
 (see its docstring), not by the JAX package's op-count limits.
 
 `sweep()` is the kernel wrapper; `sweep_reference()` is the plain PyTorch
-version of both forms, with the same signature and output.
+version of every form, with the same signature and output.
 """
 from __future__ import annotations
 
@@ -59,6 +65,8 @@ import torch
 
 from .. import spans
 from ..config import PartitionConfig
+from ..constants import (INT32_MASK_STATES, MAX_MASK_STATES,
+                         tip_mask_torch_dtype)
 
 OP_COLS = 9
 # columns: 0 parent_slot, 1 c1_tip_idx, 2 c1_slot, 3 c1_is_tip,
@@ -99,6 +107,25 @@ GENERIC_STAGE_BYTES = 73728
 GENERIC_SITES_A_THREAD, GENERIC_SITES_STATES = 2, 8
 GENERIC_SITES_THREADS = 256
 MIN_STATES, MAX_STATES = 2, 32
+# The wide form (csrc/tree_sweep_wide.cu) takes the state counts above
+# MAX_STATES that an int64 tip mask holds (codon models: 61 states), f32,
+# 1 to FMA_MAX_RATES rates, per-site or per-rate scalers, in site blocks of
+# WIDE_SITE_BLOCKS.  A CTA has WIDE_THREADS_A_SITE threads a site of its
+# block: two halves of the contraction (states 0-31, 32-63) by 16 groups of
+# four rows by the block's groups of four sites.  It stages an inner
+# child's P-matrix of one rate at a time, transposed and its rows padded to
+# WIDE_P_ROWS, in two buffers, in the order of `wide_items` (a tip child's
+# columns are read from device memory); its pool holds only the parents
+# that are not exported (`wide_device_table`), and an exported parent goes
+# straight to its row in device memory (`wide_smem_bytes`).  WIDE_P_ROWS
+# and WIDE_THREADS_A_SITE are the .cu's WIDE_SMAX and THREADS_A_SITE,
+# which a test holds equal.
+WIDE = "wide"
+WIDE_MIN_STATES, WIDE_MAX_STATES = INT32_MASK_STATES + 1, MAX_MASK_STATES
+WIDE_SITE_BLOCKS = (32, 16, 8)
+WIDE_P_ROWS = 64
+WIDE_THREADS_A_SITE = 8
+WIDE_TABLE_COLS = 8
 FMA_STATES = (2, 4, 10, 16, 20)
 FMA_MAX_RATES = 32
 FMA_RATE_LANES = (1, 4)
@@ -116,6 +143,8 @@ FMA_STAGE_P_MAX_STATES = 4
 # whole 16-row tensor-core tiles, and it keeps per-site scalers only.
 MMA_CASES = ((4, 4), (20, 4))
 MODES = ("fma", "mma")
+# every form sweep() takes: the two forms up to MAX_STATES and the wide one
+SWEEP_MODES = MODES + (WIDE,)
 # The pool types both forms take: cfg.dtype, the storage of the CLV pool.
 DTYPES = (torch.float32, torch.bfloat16)
 # Columns of the "mma" kernel's device table (`mma_device_table`): the nine
@@ -181,6 +210,7 @@ class TreeVmemProgram:
         key = (str(device), mode, carry)
         if key not in self._device:
             table = fma_device_table(self, carry) if mode == "fma" \
+                else wide_device_table(self)[0] if mode == WIDE \
                 else mma_device_table(self, carry)
             slots = np.asarray([s for _, s in self.exports], np.int32)
             self._device[key] = tuple(
@@ -277,6 +307,78 @@ def fma_device_table(prog: TreeVmemProgram, carry: bool = True
     return np.ascontiguousarray(np.stack([
         tip1, tip2, t[:, 7], t[:, 8], t[:, 0], t[:, 2], t[:, 5],
         2 * t[:, 9] + t[:, 11]], axis=1).astype(np.int32))
+
+
+def wide_device_table(prog: TreeVmemProgram) -> tuple:
+    """([OPS, WIDE_TABLE_COLS] int32, pool slots): the table the wide
+    kernel reads and the slots its pool needs.  Columns: the tip index of
+    child 1 and of child 2 (-1 where that child is not a tip), their
+    P-matrices, the parent's slot (-1 - e for the op whose parent is
+    export row e: it goes straight to device memory), the children's
+    slots, 0.  Slots are given anew, in the schedule's order, to the
+    parents that are not exported: a parent never takes a slot that one of
+    its children frees at its op (the kernel writes the parent of one rate
+    while it still reads the children's other rates), and an exported
+    parent, which nothing reads, takes none.  So the pool is the schedule's
+    less the slots its exports hold to the end.  Cached on the program."""
+    key = ("wide_table",)
+    if key in prog._device:
+        return prog._device[key]
+    rows = prog.ops.tolist()
+    exported = {op_index: e for e, (op_index, _slot) in
+                enumerate(prog.exports)}
+    writer: dict = {}      # schedule slot -> the op that wrote it last
+    kids: list = []        # per op, the ops whose parents it reads
+    last: dict = {}        # op -> the last op that reads its parent
+    for w, (p_slot, _t1, s1, f1, _t2, s2, f2, _pm1, _pm2) in enumerate(rows):
+        reads = [writer[s] for s, f in ((s1, f1), (s2, f2)) if not f]
+        for v in reads:
+            if v in exported:
+                raise ValueError("an exported parent is read by a later op: "
+                                 "the wide sweep writes exports to device "
+                                 "memory only")
+            last[v] = w
+        kids.append(reads)
+        writer[p_slot] = w
+    slot_of: dict = {}
+    free: list = []
+    n_slots = 0
+    table = np.zeros((len(rows), WIDE_TABLE_COLS), dtype=np.int32)
+    for w, (_p, t1, _s1, f1, t2, _s2, f2, pm1, pm2) in enumerate(rows):
+        if w in exported:
+            slot_of[w] = -1 - exported[w]
+        elif free:
+            slot_of[w] = free.pop()
+        else:
+            slot_of[w], n_slots = n_slots, n_slots + 1
+        it = iter(kids[w])
+        c1 = 0 if f1 else slot_of[next(it)]
+        c2 = 0 if f2 else slot_of[next(it)]
+        table[w] = [t1 if f1 else -1, t2 if f2 else -1, pm1, pm2,
+                    slot_of[w], c1, c2, 0]
+        for v in kids[w]:
+            if last[v] == w:
+                free.append(slot_of[v])
+    prog._device[key] = (table, n_slots)
+    return prog._device[key]
+
+
+def wide_items(prog: TreeVmemProgram, rate_cats: int,
+               device: torch.device):
+    """[n] int32 on `device`: the P-matrices the wide kernel stages, in the
+    order it uses them, matrix * rate_cats + rate for each (op, rate,
+    child) of the schedule whose child is not a tip (a tip child's columns
+    are read from device memory).  Cached on the program."""
+    key = ("wide_items", rate_cats, str(device))
+    if key not in prog._device:
+        table = wide_device_table(prog)[0]
+        items = [pm * rate_cats + r
+                 for tip1, tip2, pm1, pm2 in table[:, :4].tolist()
+                 for r in range(rate_cats)
+                 for tip, pm in ((tip1, pm1), (tip2, pm2)) if tip < 0]
+        prog._device[key] = torch.as_tensor(
+            np.asarray(items, dtype=np.int32), device=device)
+    return prog._device[key]
 
 
 def schedule(ops: Sequence, tips: int, export_clvs: Sequence[int]
@@ -530,6 +632,8 @@ def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
     warps (`generic_spans_warps`).  "mma": the CLV pool tiled as [tb/8,
     R*S, 8] in cfg.dtype and one scaler row."""
     item = pool_itemsize(cfg)
+    if mode == WIDE:
+        return wide_smem_bytes(wide_device_table(prog)[1], cfg, tb)
     if mode == "mma":
         return prog.pool_size * (cfg.span * item + 4) * tb
     lanes = rate_lanes(cfg.rate_cats)
@@ -542,9 +646,25 @@ def smem_bytes(prog: TreeVmemProgram, cfg: PartitionConfig, tb: int,
             + fma_threads(cfg, tb) // 32 * ring_words(cfg) * 4 + staged)
 
 
+def wide_smem_bytes(n_slots: int, cfg: PartitionConfig, tb: int) -> int:
+    """Dynamic shared memory of one wide CTA at site block tb with a pool
+    of n_slots: the CLV pool [n_slots, R, S, tb] f32, the scaler pool
+    [n_slots, SR, tb] int32, two staging buffers of one P-matrix of one
+    rate [S, WIDE_P_ROWS] f32, one exchange buffer [S, tb] f32 (the second
+    half's products with child 2) and two rescue flags [2, SR, tb] int32
+    (csrc/tree_sweep_wide.cu:wide_smem)."""
+    R, S = cfg.rate_cats, cfg.states
+    sr = _scaler_rows(cfg)
+    return 4 * (n_slots * (R * S + sr) * tb + 2 * S * WIDE_P_ROWS
+                + S * tb + 2 * sr * tb)
+
+
 def site_blocks(cfg: PartitionConfig, mode: str = "fma") -> tuple:
     """The site blocks `mode` may run at, largest first: SITE_BLOCKS, and
-    GENERIC_SITE_BLOCKS for the generic "fma" instantiation."""
+    GENERIC_SITE_BLOCKS for the generic "fma" instantiation,
+    WIDE_SITE_BLOCKS for the wide form."""
+    if mode == WIDE:
+        return WIDE_SITE_BLOCKS
     return GENERIC_SITE_BLOCKS if mode == "fma" and generic(cfg) \
         else SITE_BLOCKS
 
@@ -557,7 +677,7 @@ def fitting_blocks(prog: TreeVmemProgram, cfg: PartitionConfig,
     return [tb for tb in site_blocks(cfg, mode)
             if cfg.sites_padded % tb == 0
             and smem_bytes(prog, cfg, tb, mode) <= smem_limit
-            and (mode == "mma"
+            and (mode in ("mma", WIDE)
                  or (fma_threads(cfg, tb) % 32 == 0
                      and fma_threads(cfg, tb) <= max_threads(cfg)))]
 
@@ -591,10 +711,12 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
                 mode: str = "fma") -> Optional[str]:
     """Why the tree sweep's `mode` form cannot take this case, or None if
     it can."""
-    if mode not in MODES:
-        return f"unknown sweep mode {mode!r}, not one of {MODES}"
+    if mode not in SWEEP_MODES:
+        return f"unknown sweep mode {mode!r}, not one of {SWEEP_MODES}"
     if prog is None or prog.n_ops == 0:
         return "the operation list is not a full forest of new CLVs"
+    if mode == WIDE:
+        return _wide_unsupported(prog, cfg, smem_limit)
     if cfg.dtype not in DTYPES:
         return (f"the tree-sweep kernels ({mode!r} included) store CLVs in "
                 f"f32 or bf16 (torch.float32, torch.bfloat16), got "
@@ -625,6 +747,34 @@ def unsupported(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     return None
 
 
+def _wide_unsupported(prog: TreeVmemProgram, cfg: PartitionConfig,
+                      smem_limit: int) -> Optional[str]:
+    """unsupported() of the wide form, for a non-empty schedule."""
+    if cfg.dtype != torch.float32:
+        return (f"the 'wide' tree-sweep kernel stores f32 CLVs "
+                f"(torch.float32), got {cfg.dtype}")
+    if not WIDE_MIN_STATES <= cfg.states <= WIDE_MAX_STATES:
+        return (f"the 'wide' tree-sweep kernel takes {WIDE_MIN_STATES} to "
+                f"{WIDE_MAX_STATES} states (an int64 tip mask), got "
+                f"{cfg.states}")
+    if cfg.rate_cats > FMA_MAX_RATES:
+        return (f"the 'wide' tree-sweep kernel takes at most {FMA_MAX_RATES}"
+                f" rates, got {cfg.rate_cats}")
+    try:
+        n_slots = wide_device_table(prog)[1]
+    except ValueError as err:
+        return str(err)
+    if not fitting_blocks(prog, cfg, smem_limit, WIDE):
+        small = WIDE_SITE_BLOCKS[-1]
+        return (f"in mode 'wide' an {small}-site block needs "
+                f"{wide_smem_bytes(n_slots, cfg, small)} bytes of shared "
+                f"memory for a pool of {n_slots} slots at {cfg.states} "
+                f"states and {cfg.rate_cats} rates, above the "
+                f"{smem_limit}-byte limit, or no block size in "
+                f"{WIDE_SITE_BLOCKS} divides {cfg.sites_padded} sites")
+    return None
+
+
 def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
            smem_limit: int = SMEM_LIMIT,
            sm_count: Optional[int] = None) -> Optional[tuple]:
@@ -643,7 +793,11 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     against 5.67-5.71; at 128 protein taxa x 16,384 sites 2.08 against
     2.33-2.34.  Between 16,384 and 65,536 DNA sites no time was taken.
     Every state count outside MMA_CASES takes "fma", on its generic
-    instantiation outside FMA_STATES (`generic`).
+    instantiation outside FMA_STATES (`generic`); above MAX_STATES (33 to
+    64, an int64 tip mask) the wide form, at f32, in the largest site
+    block of WIDE_SITE_BLOCKS that gives the card its CTAs (at 128 codon
+    taxa x 16,384 sites it is the only form; PERF.md holds its time
+    against the dense path's).
     The JAX package's rule (the static kernels up to 4,096 ops) follows a
     limit of Mosaic's compile time that the CUDA kernels, which read the
     op table at run time, do not have.  None for an empty schedule or a
@@ -662,6 +816,10 @@ def choose(prog: Optional[TreeVmemProgram], cfg: PartitionConfig,
     against 0.8510 at 128 LG taxa x 4,096."""
     if prog is None or prog.n_ops == 0 or cfg.dtype not in DTYPES:
         return None
+    if cfg.states > MAX_STATES:
+        if unsupported(prog, cfg, smem_limit, WIDE) is not None:
+            return None
+        return pick_site_block(prog, cfg, smem_limit, WIDE, sm_count), WIDE
     modes = MODES
     case = (cfg.states, cfg.rate_cats)
     if (case in MMA_CARRY_CASES and cfg.sites_padded >= MMA_MIN_SITES) or \
@@ -842,8 +1000,10 @@ def _check_inputs(tip_blocked, pmatrix, prog, cfg, tb, p_base=None):
         raise ValueError(
             f"tip_blocked {tuple(tip_blocked.shape)} does not match "
             f"[{cfg.sites_padded // tb}, {cfg.tips}, {tb}]")
-    if tip_blocked.dtype != torch.int32:
-        raise TypeError(f"tip_blocked must be int32, got {tip_blocked.dtype}")
+    mask = tip_mask_torch_dtype(cfg.states)
+    if tip_blocked.dtype != mask:
+        raise TypeError(f"tip_blocked must be {mask} at {cfg.states} states,"
+                        f" got {tip_blocked.dtype}")
     R, S = cfg.rate_cats, cfg.states
     if pmatrix.dim() != 4 or tuple(pmatrix.shape[1:]) != (R, S, S):
         raise ValueError(f"pmatrix {tuple(pmatrix.shape)} is not [P, {R}, "
@@ -938,13 +1098,15 @@ def sweep(tip_blocked, pmatrix, prog: TreeVmemProgram, cfg: PartitionConfig,
     """Run the tree sweep: a CUDA kernel on CUDA tensors, the plain
     version (sweep_reference) on CPU tensors, an error on anything else.
 
-    tip_blocked: [NT, tips, TB] int32 packed state bitmasks (block-major)
+    tip_blocked: [NT, tips, TB] packed state bitmasks (block-major), int32
+                 up to MAX_STATES states, int64 above
     pmatrix:     [P, R, S, S] in cfg.dtype (f32, or bf16: the pool's type)
     mode:        "fma" (csrc/tree_sweep.cu; the counterpart of the JAX
                  package's static kernels and of its runtime-ops "vpu"
-                 mode) or "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
-                 counterpart of its "mxu" and "splitk" modes); None is
-                 "fma".  `choose` picks one.
+                 mode), "mma" (csrc/tree_sweep_mma.cu, tensor cores; the
+                 counterpart of its "mxu" and "splitk" modes) or "wide"
+                 (csrc/tree_sweep_wide.cu, 33-64 states, int64 tip masks;
+                 no JAX counterpart); None is "fma".  `choose` picks one.
     carry:       hand a parent on to the next op in registers where
                  `carry_flags` allows (the default), or store every parent
                  and load every child (the same rows, bit for bit; the card
@@ -973,8 +1135,9 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
                carry: bool, p_base=None):
     """sweep's work, inside its span."""
     mode = "fma" if mode is None else mode
-    if mode not in MODES:
-        raise ValueError(f"unknown sweep mode {mode!r}, not one of {MODES}")
+    if mode not in SWEEP_MODES:
+        raise ValueError(f"unknown sweep mode {mode!r}, not one of "
+                         f"{SWEEP_MODES}")
     if tip_blocked.device.type == "cpu" and pmatrix.device.type == "cpu":
         return sweep_reference(tip_blocked, pmatrix, prog, cfg, tb,
                                carry=carry, p_base=p_base)
@@ -1023,7 +1186,22 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
     base = None if p_base is None else p_base.data_ptr()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if mode == "mma":
+        if mode == WIDE:
+            # the P-matrices laid out [P, R, S, WIDE_P_ROWS] (transposed,
+            # rows padded) in room the wrapper gives, then the sweep
+            n_slots = wide_device_table(prog)[1]
+            items = wide_items(prog, R, device)
+            pt = torch.empty(pmatrix.shape[0] * R * S * WIDE_P_ROWS,
+                             dtype=torch.float32, device=device)
+            err = lib.tree_sweep_wide_launch(
+                ops_dev.data_ptr(), prog.n_ops, items.data_ptr(),
+                items.shape[0], pmatrix.data_ptr(), base,
+                pmatrix.shape[0], pt.data_ptr(), tip_blocked.data_ptr(),
+                cfg.tips, clv_rows.data_ptr(), scal_rows.data_ptr(), nt, tb,
+                R, S, n_slots, int(cfg.per_rate_scalers),
+                ctypes.c_float(cfg.scale_threshold),
+                ctypes.c_float(cfg.scale_factor), stream)
+        elif mode == "mma":
             pfrag = pmatrix_fragments(pmatrix, cfg)
             err = lib.tree_sweep_mma_launch(
                 ops_dev.data_ptr(), prog.n_ops, pfrag.data_ptr(), base,
@@ -1064,11 +1242,14 @@ def _run_sweep(tip_blocked, pmatrix, prog: TreeVmemProgram,
 
 # kernel launches by this wrapper (plain runs excluded), in all, per mode,
 # of the "fma" form's generic instantiation and per mode with a bf16 pool
-# (both within the per-mode counts)
+# (both within the per-mode counts; the wide form's are
+# launches_by_mode[WIDE]), and the sweeps above MAX_STATES that the engine
+# ran on its dense path instead (engine._tree_rows)
 sweep.launches = 0
-sweep.launches_by_mode = {mode: 0 for mode in MODES}
+sweep.launches_by_mode = {mode: 0 for mode in SWEEP_MODES}
 sweep.launches_generic = 0
 sweep.launches_bf16 = {mode: 0 for mode in MODES}
+sweep.wide_dense_calls = 0
 
 
 def unblock_clv_row(row_blocked):

@@ -50,7 +50,7 @@ import torch
 
 from . import engine, spans
 from .config import PartitionConfig
-from .constants import AB_NONE, gap_state, gap_state_int32
+from .constants import AB_NONE, gap_state, gap_state_mask
 from .ops import derivatives as derivatives_ops
 from .ops import edge_score
 from .ops import likelihood as likelihood_ops
@@ -604,7 +604,7 @@ def _spr_all_scores(cfg: PartitionConfig, model, level_ops, edge_rows,
     base_clv, base_scal, pmatrix = _sweep_rt(
         cfg, model, level_ops, pmat_slots, branch_lengths, tipchars)
     halves = _pmatrices(model, branch_lengths * 0.5, cfg.dtype)  # [E,R,S,S]
-    gap = torch.tensor(gap_state_int32(cfg.states), dtype=tipchars.dtype,
+    gap = torch.tensor(gap_state_mask(cfg.states), dtype=tipchars.dtype,
                        device=tipchars.device)
     ninf = torch.tensor(-math.inf, dtype=cfg.dtype, device=tipchars.device)
     scores, t3s = [], []
